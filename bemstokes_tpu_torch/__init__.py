@@ -10,9 +10,13 @@ paths and public names (`ops/assemble.py`, `StokesBEMProblem`,
   tables) is a copy of the JAX package's;
 - the device code is plain torch on tensors, eager, with the dtype taken
   from `ProblemConfig.dtype` and the device passed explicitly;
-- the O(N^2) bulk of the dense V and K operators runs through a CUDA kernel
-  written for sm_90a (`ops/node_kernel.py`, `csrc/node_sweep.cu`), the port
-  of the Pallas node sweep `bemstokes_tpu/ops/pallas_node.py`.
+- the O(N^2) bulk of the dense V and K operators runs through CUDA kernels
+  written for sm_90a (`ops/node_kernel.py`; `csrc/node_sweep.cu` for free
+  space, `csrc/node_sweep_image.cu` for the free-surface and no-slip wall
+  images), the ports of the Pallas node sweep
+  `bemstokes_tpu/ops/pallas_node.py`;
+- the entry points (`StokesBEMProblem`, `SwimmerSimulation`) run on the CUDA
+  card unless the caller passes `device="cpu"`.
 
 Float32 matrix products stay in full float32: TF32 keeps about three decimal
 digits, which BEM conditioning cannot absorb (the JAX package forces

@@ -28,10 +28,8 @@
 // by FP64 arithmetic (and the rsqrt), not by memory.
 //
 // What the design does about it.  The stores are written once and
-// coalesced: consecutive threads own consecutive columns j, so each of the
-// 18 stores of a warp is one contiguous 32-entry row segment.  The inputs
-// are tiny (7 values per sample) and are staged per block in shared
-// memory, SC samples at a time, then reused by all TI*RT rows of the block;
+// coalesced and the inputs are staged per block in shared memory (the
+// tiling of node_sweep_common.cuh, shared with the image sweeps);
 // each thread keeps its RT rows' 13 accumulators (6 of V, 6 of K and the
 // 1/r diagonal of V, exploiting the symmetry of both 3x3 blocks) in
 // registers for the whole sample loop, and reuses each staged sample for
@@ -43,42 +41,11 @@
 //   xi [nr, 3], Y [n, m, 3], N [n, m, 3], W [n, m]; V, K [3 nr, 3 n] (out).
 // Launches on `stream`, does not synchronise, and returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "node_sweep_common.cuh"
 
 namespace {
 
-constexpr int TJ = 32;  // columns per block (threadIdx.x)
-constexpr int TI = 8;   // row groups per block (threadIdx.y)
-constexpr int RT = 2;   // rows per thread
-constexpr int SC = 16;  // samples staged in shared memory per pass
-constexpr int ROWS_PER_BLOCK = TI * RT;
-
-template <typename T>
-__device__ __forceinline__ T rsqrt_t(T x);
-template <>
-__device__ __forceinline__ float rsqrt_t<float>(float x) {
-  return rsqrtf(x);
-}
-template <>
-__device__ __forceinline__ double rsqrt_t<double>(double x) {
-  return rsqrt(x);
-}
-
-// Round-to-nearest products and sums that the compiler may not contract
-// into FMAs.  R.N and |R|^2 cancel heavily on a column's own panels (R
-// nearly in the panel plane); rounding them the same way as the plain torch
-// version keeps the two within a few ulp there.
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-
-template <typename T>
-__device__ __forceinline__ T dot3_rn(T a0, T a1, T a2, T b0, T b1, T b2) {
-  return add_rn(add_rn(mul_rn(a0, b0), mul_rn(a1, b1)), mul_rn(a2, b2));
-}
+using namespace node_sweep;
 
 template <typename T>
 __global__ void __launch_bounds__(TJ* TI)
@@ -86,11 +53,7 @@ __global__ void __launch_bounds__(TJ* TI)
                       const T* __restrict__ N, const T* __restrict__ W,
                       T* __restrict__ V, T* __restrict__ K, int64_t nr,
                       int64_t n, int64_t m) {
-  // [component][sample][column]; the +1 pad keeps the cooperative stores
-  // below from hitting one bank
-  __shared__ T sY[3][SC][TJ + 1];
-  __shared__ T sN[3][SC][TJ + 1];
-  __shared__ T sW[SC][TJ + 1];
+  __shared__ SampleTile<T> tile;
 
   const T cG = static_cast<T>(1.0 / (8.0 * 3.14159265358979323846));
   const T cW = static_cast<T>(-3.0 / (4.0 * 3.14159265358979323846));
@@ -115,30 +78,14 @@ __global__ void __launch_bounds__(TJ* TI)
 
   for (int64_t s0 = 0; s0 < m; s0 += SC) {
     __syncthreads();
-    // cooperative, coalesced load of TJ columns x SC samples; columns past
-    // n and samples past m load zero weight (the ragged edges are masked
-    // here, not padded in the caller)
-    for (int t = tid; t < TJ * SC; t += TJ * TI) {
-      const int c = t / SC;
-      const int s = t % SC;
-      const int64_t jj = j0 + c;
-      const int64_t ss = s0 + s;
-      const bool ok = jj < n && ss < m;
-      const int64_t g = jj * m + ss;
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        sY[a][s][c] = ok ? Y[g * 3 + a] : T(0);
-        sN[a][s][c] = ok ? N[g * 3 + a] : T(0);
-      }
-      sW[s][c] = ok ? W[g] : T(0);
-    }
+    stage(tile, Y, N, W, j0, s0, n, m, tid);
     __syncthreads();
 
     const int sn = static_cast<int>(m - s0 < SC ? m - s0 : SC);
     for (int s = 0; s < sn; ++s) {
-      const T y0 = sY[0][s][tx], y1 = sY[1][s][tx], y2 = sY[2][s][tx];
-      const T n0 = sN[0][s][tx], n1 = sN[1][s][tx], n2 = sN[2][s][tx];
-      const T w = sW[s][tx];
+      const T y0 = tile.Y[0][s][tx], y1 = tile.Y[1][s][tx], y2 = tile.Y[2][s][tx];
+      const T n0 = tile.N[0][s][tx], n1 = tile.N[1][s][tx], n2 = tile.N[2][s][tx];
+      const T w = tile.W[s][tx];
 #pragma unroll
       for (int r = 0; r < RT; ++r) {
         T R0 = y0 - x[r][0];
@@ -172,8 +119,6 @@ __global__ void __launch_bounds__(TJ* TI)
   const int64_t j = j0 + tx;
   if (j >= n) return;
   const int64_t ld = 3 * n;
-  // upper-triangle slot of (a, b): (0,0) (0,1) (0,2) (1,1) (1,2) (2,2)
-  constexpr int UT[3][3] = {{0, 1, 2}, {1, 3, 4}, {2, 4, 5}};
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
     const int64_t i = i0 + r * TI + ty;
@@ -183,10 +128,10 @@ __global__ void __launch_bounds__(TJ* TI)
 #pragma unroll
       for (int b = 0; b < 3; ++b) {
         const int64_t off = (a * nr + i) * ld + b * n + j;
-        const T vab = v[r][UT[a][b]];
+        const T vab = v[r][ut(a, b)];
         V[off] = a == b ? vab + vd[r] : vab;
         // minus sign: exterior problem (reference `:2941-2947`)
-        K[off] = -k[r][UT[a][b]];
+        K[off] = -k[r][ut(a, b)];
       }
     }
   }

@@ -11,8 +11,8 @@ The port always runs the JAX package's node mode (`column_mode="node"`):
 - bulk: every column node's incident panel quadrature is gathered once per
   frame (`node_column_samples`), then a pure pairwise sweep of collocation
   rows against those samples gives the dense smooth-rule operators —
-  `ops.node_kernel.node_sweep`, the CUDA kernel K1 on a CUDA tensor and its
-  plain torch version on a CPU tensor;
+  `ops.node_kernel.node_sweep`, a CUDA kernel (K1, K2 or K3) on a CUDA
+  tensor and its plain torch version on a CPU tensor;
 - singular delta: own-cell pairs were swept with the smooth rule; the
   batched singular path adds (singular - smooth) per (cell, local node) as
   COO triplets (`_singular_coo(subtract_smooth=True)`);
@@ -20,9 +20,13 @@ The port always runs the JAX package's node mode (`column_mode="node"`):
   `near_panels` nearest panels of each row are upgraded from the far rule to
   the full rule, again as COO triplets (`_near_coo`).
 
+With an image kernel (`AssemblyConfig.kernel` "free_surface" or "no_slip",
+wall plane x[wall_axis] = wall_position) the bulk runs K2 or K3 and both
+deltas evaluate the same image Green's functions (`kernels/images.py`) at
+the mirrored collocation point.
+
 The host-side tables (`build_assembly_tables`, `_singular_rules`) are a copy
-of the JAX package's numpy code.  Only the free-space kernel in 3D is on
-this slice; the image kernels and 2D raise NotImplementedError.
+of the JAX package's numpy code.  2D raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -42,13 +46,15 @@ from ..fem.quadrature import (
     iterated_gauss_1d,
 )
 from ..fem.reference_element import reference_element
-from ..kernels.stokeslet import stokeslet_G_Wn
+from ..kernels.images import image_point
 from ..mesh.dofs import ScalarSpace
-from .node_kernel import node_sweep
-
-KERNEL_FREE_SPACE = "free_space"
-KERNEL_FREE_SURFACE = "free_surface"  # reference reflect_kernel=true
-KERNEL_NO_SLIP = "no_slip"  # reference no_slip_kernel=true
+from .node_kernel import (
+    KERNEL_FREE_SPACE,
+    KERNEL_FREE_SURFACE,
+    KERNEL_NO_SLIP,
+    eval_G_Wn,
+    node_sweep,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -235,11 +241,8 @@ def _check_slice(cfg: AssemblyConfig):
         raise NotImplementedError(
             "2D assembly is not ported yet (ROADMAP.md: ops/resistance.py and 2D)"
         )
-    if cfg.kernel != KERNEL_FREE_SPACE:
-        raise NotImplementedError(
-            f"the {cfg.kernel!r} image kernel (K2/K3 with kernels/images.py) "
-            "is not ported yet (ROADMAP.md)"
-        )
+    if cfg.kernel not in (KERNEL_FREE_SPACE, KERNEL_FREE_SURFACE, KERNEL_NO_SLIP):
+        raise ValueError(cfg.kernel)
 
 
 def scatter_coo(M: torch.Tensor, ri, ci, vals) -> torch.Tensor:
@@ -291,7 +294,12 @@ def assemble_rows(
     support_pts = support_pts.to(dt)
     xi = xi.to(dt)
     nr = xi.shape[0]
-    V, K = node_sweep(*node_sweep_inputs(euler, xi, tables))
+    V, K = node_sweep(
+        *node_sweep_inputs(euler, xi, tables),
+        kernel=cfg.kernel,
+        wall_axis=cfg.wall_axis,
+        wall_position=cfg.wall_position,
+    )
     V, K = _add_near_corrections(V, K, euler, support_pts, xi, node_ids, tables, nr)
     return _add_singular_rows(
         V, K, euler, support_pts, tables, r0, nr, subtract_smooth=True
@@ -301,7 +309,9 @@ def assemble_rows(
 def node_sweep_inputs(euler: torch.Tensor, xi: torch.Tensor, tables: AssemblyTables):
     """The arguments (xi, Yj, Nj, Wj) of `node_sweep` for collocation rows
     xi under the geometry `euler`: the smooth-rule panel geometry gathered
-    into per-column-node sample tables, contiguous, in the tables' dtype."""
+    into per-column-node sample tables, contiguous, in the tables' dtype.
+    The kernel choice and the wall plane travel in `tables.cfg`
+    (`assemble_rows` passes them on)."""
     dt = tables.cfg.dtype
     euler = euler.to(dt)
     cells_map = _t(tables.cells_nodes_map, euler, torch.long)
@@ -347,7 +357,7 @@ def node_column_samples(tables: AssemblyTables, xq, normals, jxw):
     return Yj, Nj, Wj, vmax, nq
 
 
-def _pair_local_blocks(euler_cells, flip, xi_rows, keep, rule):
+def _pair_local_blocks(cfg, euler_cells, flip, xi_rows, keep, rule):
     """Local (V, K) blocks [RC, Kn, d, d, nl] for gathered (row, panel)
     pairs, evaluated on one quadrature rule.
 
@@ -364,7 +374,12 @@ def _pair_local_blocks(euler_cells, flip, xi_rows, keep, rule):
     R = xq - xi_rows[:, None, None, :]
     wz = keep[..., None, None] == 0
     R = torch.where(wz, torch.ones_like(R), R)
-    G, Wn = stokeslet_G_Wn(R, normals)
+    if cfg.kernel == KERNEL_FREE_SPACE:
+        R_img = R
+    else:
+        xi_img = image_point(xi_rows, cfg.wall_axis, cfg.wall_position)
+        R_img = torch.where(wz, torch.ones_like(R), xq - xi_img[:, None, None, :])
+    G, Wn = eval_G_Wn(cfg.kernel, cfg.wall_axis, R, R_img, normals)
     keep_l = keep[:, :, None, None, None]
     Vloc = torch.einsum("rkqab,rkq,qm->rkabm", G, jxw, phi_fe) * keep_l
     Kloc = -torch.einsum("rkqab,rkq,qm->rkabm", Wn, jxw, phi_fe) * keep_l
@@ -426,8 +441,8 @@ def _near_coo(euler, support_pts, xi, node_ids, tables, nr, RC: int = 256):
         # mask singular (own-cell) pairs
         sing = torch.any(cols == ids_c[:, None, None], dim=-1)  # [rc, Kn]
         keep = (~sing).to(dt)
-        Vh, Kh = _pair_local_blocks(ec, flip, xi_c, keep, hi_rule)
-        Vl, Kl = _pair_local_blocks(ec, flip, xi_c, keep, lo_rule)
+        Vh, Kh = _pair_local_blocks(cfg, ec, flip, xi_c, keep, hi_rule)
+        Vl, Kl = _pair_local_blocks(cfg, ec, flip, xi_c, keep, lo_rule)
         # scatter rows (a, row) local; cols (b, cells_fe) global
         row_idx = ar[None, :] * nr + rows_c[:, None]  # [rc, d]
         col_idx = ar[None, None, :, None] * n + cols[:, :, None, :]  # [rc, Kn, d, nl]
@@ -493,7 +508,12 @@ def _singular_coo(
     # the center collocation node for Q2 — substitute a finite dummy offset
     wz = (jxw == 0)[..., None]
     R = torch.where(wz, torch.ones_like(R), R)
-    G, Wn = stokeslet_G_Wn(R, normals)  # [Nc, nl, qs, d, d]
+    if cfg.kernel == KERNEL_FREE_SPACE:
+        R_img = R
+    else:
+        xi_img = image_point(xi, cfg.wall_axis, cfg.wall_position)
+        R_img = torch.where(wz, torch.ones_like(R), xq - xi_img[:, :, None, :])
+    G, Wn = eval_G_Wn(cfg.kernel, cfg.wall_axis, R, R_img, normals)  # [Nc, nl, qs, d, d]
 
     Vloc = torch.einsum("clqab,clq,lqm->clabm", G, jxw, sphi_fe)
     Kloc = -torch.einsum("clqab,clq,lqm->clabm", Wn, jxw, sphi_fe)
@@ -514,7 +534,14 @@ def _singular_coo(
         R2 = xq_s[:, None, :, :] - xi[:, :, None, :]  # [Nc, nl, nq, d]
         r0m = torch.sum(R2 * R2, dim=-1, keepdim=True) == 0
         R2 = torch.where(r0m, torch.ones_like(R2), R2)
-        G2, Wn2 = stokeslet_G_Wn(R2, normals_s[:, None])  # [Nc, nl, nq, d, d]
+        if cfg.kernel == KERNEL_FREE_SPACE:
+            R2_img = R2
+        else:
+            R2_img = xq_s[:, None, :, :] - xi_img[:, :, None, :]
+            R2_img = torch.where(r0m, torch.ones_like(R2_img), R2_img)
+        G2, Wn2 = eval_G_Wn(
+            cfg.kernel, cfg.wall_axis, R2, R2_img, normals_s[:, None]
+        )  # [Nc, nl, nq, d, d]
         Vloc = Vloc - torch.einsum("clqab,cqm->clabm", G2, wphi_s)
         Kloc = Kloc + torch.einsum("clqab,cqm->clabm", Wn2, wphi_s)
 

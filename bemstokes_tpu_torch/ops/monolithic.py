@@ -92,31 +92,43 @@ def build_monolithic_system(
     grid_type: str = GRID_REAL,
     imposed_component: int = 0,
     assemble_scaling: float = 1.0,
+    tmp_torque: torch.Tensor | None = None,  # [d*n] P_t K P_t N_flag_torque
+    torque_dual: torch.Tensor | None = None,  # [d*n] M N_flagellum_torque
+    imposed_motor_torque: float = -2.0,
     imposed_tail: torch.Tensor | None = None,  # [R] rhs tail override
 ):
-    """Materialize A [d*n+R, d*n+R] and rhs (for the LU/direct path and as
-    the preconditioner matrix).  The motor-torque unknown of
-    `solve_with_torque` is not ported yet (the frame loop, ROADMAP.md)."""
+    """Materialize A [d*n+R(+1), d*n+R(+1)] and rhs (for the LU/direct path
+    and as the preconditioner matrix).
+
+    With `tmp_torque`/`torque_dual` the system gains the motor-torque
+    unknown: the flagellum rotation rate omega becomes an extra column
+    (-scale * tmp_torque on the surface rows) and the imposed motor torque an
+    extra balance row (scale * torque_dual^T f = imposed_motor_torque), with
+    a zero surface rhs — reference `solve_with_torque`,
+    `source/bem_stokes.cc:3191-3192, 3252-3256, 3340-3356`."""
     dn = V.shape[0]
     R = tmp_N.shape[0]
     dt, dev = V.dtype, V.device
-    A = torch.empty((dn + R, dn + R), dtype=dt, device=dev)
+    with_torque = tmp_torque is not None
+    size = dn + R + (1 if with_torque else 0)
+    A = torch.empty((size, size), dtype=dt, device=dev)
     # top-left: V columns where sel_V, -K elsewhere (built in A itself: no
     # dense -K temporary)
     top = A[:dn, :dn]
     torch.where(sel_V[None, :], V, K, out=top)
     top[:, ~sel_V] = -top[:, ~sel_V]
-    A[:dn, dn:] = -assemble_scaling * tmp_N.T  # [dn, R]
+    A[:dn, dn : dn + R] = -assemble_scaling * tmp_N.T  # [dn, R]
 
+    rigid = slice(dn, dn + R)
     if grid_type == GRID_IMPOSED_VELOCITY:
-        A[dn:, :dn] = 0.0
-        A[dn:, dn:] = assemble_scaling * torch.eye(R, dtype=dt, device=dev)
+        A[rigid, :dn] = 0.0
+        A[rigid, rigid] = assemble_scaling * torch.eye(R, dtype=dt, device=dev)
     elif grid_type == GRID_REAL:
-        A[dn:, :dn] = assemble_scaling * N_dual
-        A[dn:, dn:] = 0.0
+        A[rigid, :dn] = assemble_scaling * N_dual
+        A[rigid, rigid] = 0.0
     else:  # ImposedForce / Convergence: momentum rows, unscaled
-        A[dn:, :dn] = N_dual
-        A[dn:, dn:] = 0.0
+        A[rigid, :dn] = N_dual
+        A[rigid, rigid] = 0.0
 
     rhs_tail = torch.zeros((R,), dtype=dt, device=dev)
     if grid_type != GRID_REAL:
@@ -127,7 +139,22 @@ def build_monolithic_system(
             rhs_tail[imposed_component] = 1.0
     else:
         rhs_head = rhs_surface
-    return A, torch.cat([rhs_head, rhs_tail])
+    if not with_torque:
+        return A, torch.cat([rhs_head, rhs_tail])
+
+    A[:dn, -1] = -assemble_scaling * tmp_torque
+    A[rigid, -1] = 0.0
+    A[-1, :dn] = assemble_scaling * torque_dual
+    A[-1, dn:] = 0.0
+    # the gait is the unknown: zero surface rhs (reference `:3191-3192`)
+    rhs = torch.cat(
+        [
+            torch.zeros((dn,), dtype=dt, device=dev),
+            rhs_tail,
+            torch.full((1,), imposed_motor_torque, dtype=dt, device=dev),
+        ]
+    )
+    return A, rhs
 
 
 def split_monolithic_solution(

@@ -1,19 +1,25 @@
-"""K1, the free-space node sweep: the O(N^2) bulk of the dense V and K
-operators, as a CUDA kernel for Hopper (`csrc/node_sweep.cu`) beside its
-plain torch version.
+"""The node sweeps K1, K2 and K3: the O(N^2) bulk of the dense V and K
+operators, as CUDA kernels for Hopper beside their plain torch version.
 
-Replaces the Pallas TPU kernel `bemstokes_tpu/ops/pallas_node.py:129`
-`_node_kernel_t` with kernel="free_space".  The kernel source carries the
-note on what bounds it on the card and what its design does about that.
-The TPU kernel's layout, tile and reduce knobs (`pallas_row_tile`,
-`pallas_col_chunk`, `pallas_reduce`, `BEMSTOKES_PALLAS_NODE_LAYOUT`, the
-rows-in-lanes twin `_node_kernel`) have no meaning here: the CUDA kernel has
-one layout and writes the dense component-blocked operators directly.
+They replace the Pallas TPU kernel `bemstokes_tpu/ops/pallas_node.py:129`
+`_node_kernel_t`, one per value of its `kernel` argument:
 
-`node_sweep(xi, Yj, Nj, Wj)` runs the kernel on CUDA tensors and the plain
-version on CPU tensors; there is no fallback from one to the other.  The
-kernel is compiled with nvcc at first use into `bemstokes_tpu_torch/_build/`,
-keyed by a hash of its source and flags, and loaded with ctypes.
+- K1, `kernel="free_space"`: `csrc/node_sweep.cu`;
+- K2, `kernel="free_surface"` (mirror image, wall-normal row sign) and
+- K3, `kernel="no_slip"` (the Blake image system): `csrc/node_sweep_image.cu`.
+
+Each kernel source carries the note on what bounds it on the card and what
+its design does about that.  The TPU kernel's layout, tile and reduce knobs
+(`pallas_row_tile`, `pallas_col_chunk`, `pallas_reduce`,
+`BEMSTOKES_PALLAS_NODE_LAYOUT`, the rows-in-lanes twin `_node_kernel`) have
+no meaning here: the CUDA kernels have one layout and write the dense
+component-blocked operators directly.
+
+`node_sweep(xi, Yj, Nj, Wj, kernel=...)` runs the kernel on CUDA tensors and
+the plain version on CPU tensors; there is no fallback from one to the
+other.  Each source is compiled with nvcc at first use into
+`bemstokes_tpu_torch/_build/`, keyed by a hash of the source, the shared
+header and the flags, and loaded with ctypes.
 """
 
 from __future__ import annotations
@@ -28,26 +34,43 @@ from pathlib import Path
 
 import torch
 
+from ..kernels.images import free_surface_G_Wn, image_point, no_slip_wall_G, no_slip_wall_Wn
 from ..kernels.stokeslet import stokeslet_G_Wn
 
+KERNEL_FREE_SPACE = "free_space"
+KERNEL_FREE_SURFACE = "free_surface"  # reference reflect_kernel=true
+KERNEL_NO_SLIP = "no_slip"  # reference no_slip_kernel=true
+
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "node_sweep.cu"
+CSRC = _PKG / "csrc"
+HEADER = CSRC / "node_sweep_common.cuh"
+#: kernel -> the source that holds it
+SOURCES = {
+    KERNEL_FREE_SPACE: CSRC / "node_sweep.cu",
+    KERNEL_FREE_SURFACE: CSRC / "node_sweep_image.cu",
+    KERNEL_NO_SLIP: CSRC / "node_sweep_image.cu",
+}
 BUILD_DIR = _PKG / "_build"
+# `-Xptxas -v` only adds each kernel's registers, shared memory and spills to
+# nvcc's output, which `build_all` returns
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# the `kind` argument of the image library's entry points
+_IMAGE_KIND = {KERNEL_FREE_SURFACE: 1, KERNEL_NO_SLIP: 2}
 
-#: kernel launches made by `node_sweep` (a plain counter: set it to 0 before
-#: a run and read it after to see that the run went through the kernel)
-launches = 0
+#: kernel launches made by `node_sweep`, per kernel (plain counters: set them
+#: to 0 before a run and read them after to see that the run went through
+#: the kernel)
+launches = {KERNEL_FREE_SPACE: 0, KERNEL_FREE_SURFACE: 0, KERNEL_NO_SLIP: 0}
 
-_lib = None
+_libs: dict[Path, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
-    """The nvcc that builds the kernel: the one on PATH, else CUDA_HOME's."""
+    """The nvcc that builds the kernels: the one on PATH, else CUDA_HOME's."""
     found = shutil.which("nvcc")
     if found:
         return found
@@ -55,43 +78,76 @@ def nvcc_path() -> str:
     return os.path.join(cuda_home, "bin", "nvcc")
 
 
-def build() -> Path:
-    """Compile the kernel library if no build of this source exists yet and
-    return its path."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"node_sweep_{key}.so"
+def _start_build(source: Path):
+    """(library path, running nvcc or None, temporary output path) for one
+    source; nvcc is started only if no build of this source exists yet."""
+    key = hashlib.sha256(
+        source.read_bytes() + HEADER.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    lib_path = BUILD_DIR / f"{source.stem}_{key}.so"
     if lib_path.exists():
-        return lib_path
+        return lib_path, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".node_sweep_{key}.{os.getpid()}.so"
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True,
+    tmp = BUILD_DIR / f".{source.stem}_{key}.{os.getpid()}.so"
+    proc = subprocess.Popen(
+        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+        stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE,
         text=True,
     )
+    return lib_path, proc, tmp
+
+
+def _finish_build(source: Path, lib_path: Path, proc, tmp) -> str:
+    """Wait for a build started by `_start_build`; returns nvcc's output."""
+    if proc is None:
+        return ""
+    out, err = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed to build {SOURCE.name} (rc {proc.returncode}):\n"
-            f"{proc.stdout}\n{proc.stderr}"
+            f"nvcc failed to build {source.name} (rc {proc.returncode}):\n{out}\n{err}"
         )
     os.replace(tmp, lib_path)
+    return out + err
+
+
+def build(source: Path) -> Path:
+    """Compile one kernel library if no build of this source exists yet and
+    return its path."""
+    lib_path, proc, tmp = _start_build(source)
+    _finish_build(source, lib_path, proc, tmp)
     return lib_path
 
 
-def _library():
-    global _lib
+def build_all() -> dict[str, tuple[Path, str]]:
+    """Compile every kernel library, one nvcc per source, all started
+    together.  Returns {source name: (library path, nvcc output)}; the
+    output of a fresh build holds each kernel's registers, shared memory and
+    spills (empty where a build existed already)."""
+    started = [(src, *_start_build(src)) for src in sorted(set(SOURCES.values()))]
+    return {
+        src.name: (lib_path, _finish_build(src, lib_path, proc, tmp))
+        for src, lib_path, proc, tmp in started
+    }
+
+
+def _library(source: Path):
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name in ("node_sweep_f32", "node_sweep_f64"):
+        lib = _libs.get(source)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(source)))
+            head = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3
+            if source == SOURCES[KERNEL_FREE_SPACE]:
+                names, tail = ("node_sweep_f32", "node_sweep_f64"), []
+            else:
+                names = ("node_sweep_image_f32", "node_sweep_image_f64")
+                tail = [ctypes.c_int, ctypes.c_int, ctypes.c_double]
+            for name in names:
                 fn = getattr(lib, name)
-                fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3 + [
-                    ctypes.c_void_p
-                ]
+                fn.argtypes = head + tail + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+            _libs[source] = lib
+        return lib
 
 
 def _check_inputs(xi, Yj, Nj, Wj):
@@ -112,27 +168,52 @@ def _check_inputs(xi, Yj, Nj, Wj):
     return nr, n, m
 
 
-def node_sweep(xi, Yj, Nj, Wj):
-    """Dense free-space (V, K) [3*nr, 3*n] of collocation rows xi [nr, 3]
-    against the column-node sample tables Yj, Nj [n, m, 3], Wj [n, m] (from
-    `ops.assemble.node_column_samples`), in the component-blocked layout
-    (a*nr + i, b*n + j).  Own-cell pairs are included with the smooth rule
-    (the singular delta replaces them).
+def _check_kernel(kernel, wall_axis):
+    if kernel not in SOURCES:
+        raise ValueError(f"node_sweep: unknown kernel {kernel!r}")
+    if kernel != KERNEL_FREE_SPACE and wall_axis not in (0, 1, 2):
+        raise ValueError(f"node_sweep: wall_axis must be 0, 1 or 2, got {wall_axis!r}")
 
-    A CUDA tensor launches the K1 kernel (float32 or float64, contiguous
-    inputs) or raises; a CPU tensor runs `node_sweep_reference`."""
-    global launches
+
+def node_sweep(
+    xi,
+    Yj,
+    Nj,
+    Wj,
+    kernel: str = KERNEL_FREE_SPACE,
+    wall_axis: int = 1,
+    wall_position: float = 0.0,
+):
+    """Dense (V, K) [3*nr, 3*n] of collocation rows xi [nr, 3] against the
+    column-node sample tables Yj, Nj [n, m, 3], Wj [n, m] (from
+    `ops.assemble.node_column_samples`), in the component-blocked layout
+    (a*nr + i, b*n + j), for the free-space Green's functions or, with
+    `kernel="free_surface"` / `"no_slip"`, the image system of the plane wall
+    x[wall_axis] = wall_position.  Own-cell pairs are included with the
+    smooth rule (the singular delta replaces them).
+
+    A CUDA tensor launches the kernel K1, K2 or K3 (float32 or float64,
+    contiguous inputs) or raises; a CPU tensor runs `node_sweep_reference`."""
     nr, n, m = _check_inputs(xi, Yj, Nj, Wj)
+    _check_kernel(kernel, wall_axis)
     if xi.device.type == "cpu":
-        return node_sweep_reference(xi, Yj, Nj, Wj)
+        return node_sweep_reference(
+            xi, Yj, Nj, Wj, kernel=kernel, wall_axis=wall_axis, wall_position=wall_position
+        )
     if xi.device.type != "cuda":
         raise ValueError(f"node_sweep: no kernel for device {xi.device}")
     if xi.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"node_sweep: the kernel takes float32 or float64, got {xi.dtype}")
+        raise TypeError(f"node_sweep: the kernels take float32 or float64, got {xi.dtype}")
     for name, t in (("xi", xi), ("Yj", Yj), ("Nj", Nj), ("Wj", Wj)):
         if not t.is_contiguous():
             raise ValueError(f"node_sweep: {name} must be contiguous")
-    fn = getattr(_library(), "node_sweep_f64" if xi.dtype == torch.float64 else "node_sweep_f32")
+    suffix = "f64" if xi.dtype == torch.float64 else "f32"
+    lib = _library(SOURCES[kernel])
+    if kernel == KERNEL_FREE_SPACE:
+        fn, extra = getattr(lib, f"node_sweep_{suffix}"), ()
+    else:
+        fn = getattr(lib, f"node_sweep_image_{suffix}")
+        extra = (_IMAGE_KIND[kernel], int(wall_axis), float(wall_position))
     with torch.cuda.device(xi.device):
         V = torch.empty((3 * nr, 3 * n), dtype=xi.dtype, device=xi.device)
         K = torch.empty_like(V)
@@ -146,35 +227,73 @@ def node_sweep(xi, Yj, Nj, Wj):
             nr,
             n,
             m,
+            *extra,
             torch.cuda.current_stream(xi.device).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"node_sweep: kernel launch failed with CUDA error {rc}")
-    launches += 1
+        raise RuntimeError(f"node_sweep: {kernel} kernel launch failed with CUDA error {rc}")
+    launches[kernel] += 1
     return V, K
 
 
-def node_sweep_reference(xi, Yj, Nj, Wj, row_tile: int = 32, col_chunk: int = 256):
-    """Plain torch version of the K1 kernel, modelled on the JAX package's
-    XLA node pass (`bemstokes_tpu/ops/assemble.py:764-819`): rows in tiles
-    of `row_tile`, columns in chunks of `col_chunk`, so the pairwise
+def eval_G_Wn(kernel: str, wall_axis: int, R, R_img, normals):
+    """Kernel dispatch (G, W . n) with the normal contracted analytically
+    (the JAX package's `ops/assemble.py:_eval_G_Wn`; reference
+    compute_G_kernel / compute_W_kernel, `source/bem_stokes.cc:5028-5073`)."""
+    if kernel == KERNEL_FREE_SPACE:
+        return stokeslet_G_Wn(R, normals)
+    if kernel == KERNEL_FREE_SURFACE:
+        return free_surface_G_Wn(R, R_img, normals, wall_axis)
+    if kernel == KERNEL_NO_SLIP:
+        return (
+            no_slip_wall_G(R, R_img, wall_axis),
+            no_slip_wall_Wn(R, R_img, normals, wall_axis),
+        )
+    raise ValueError(kernel)
+
+
+def node_sweep_reference(
+    xi,
+    Yj,
+    Nj,
+    Wj,
+    row_tile: int = 32,
+    col_chunk: int = 256,
+    kernel: str = KERNEL_FREE_SPACE,
+    wall_axis: int = 1,
+    wall_position: float = 0.0,
+):
+    """Plain torch version of the K1, K2 and K3 kernels, modelled on the JAX
+    package's XLA node pass (`bemstokes_tpu/ops/assemble.py:764-819`) and
+    built on `kernels/stokeslet.py` and `kernels/images.py`: rows in tiles of
+    `row_tile`, columns in chunks of `col_chunk`, so the pairwise
     intermediates stay [row_tile, col_chunk, m, 3, 3] (a single
     [nr, n, m, 3] tensor would be 58 GB at the 6,146-node sphere)."""
     nr, n, m = _check_inputs(xi, Yj, Nj, Wj)
+    _check_kernel(kernel, wall_axis)
     dt, dev = xi.dtype, xi.device
     V = torch.empty((3, nr, 3, n), dtype=dt, device=dev)
     K = torch.empty((3, nr, 3, n), dtype=dt, device=dev)
     ones = torch.ones((), dtype=dt, device=dev)
+    image = kernel != KERNEL_FREE_SPACE
     for i0 in range(0, nr, row_tile):
         xi_t = xi[i0 : i0 + row_tile]
+        if image:
+            xi_img = image_point(xi_t, wall_axis, wall_position)
         for j0 in range(0, n, col_chunk):
             Ycc = Yj[j0 : j0 + col_chunk]
             R = Ycc[None, :, :, :] - xi_t[:, None, None, :]  # [t, cj, m, 3]
-            # exact R == 0 gets the dummy offset (1, 1, 1); the singular
-            # delta subtracts the same dummy value, so the pair cancels
+            # exact R == 0 gets the dummy offset (1, 1, 1), on R and on its
+            # image alike (so h0 reads 0 there); the singular delta subtracts
+            # the same dummy value, so the pair cancels
             r0mask = torch.sum(R * R, dim=-1, keepdim=True) == 0
             R = torch.where(r0mask, ones, R)
-            G, Wn = stokeslet_G_Wn(R, Nj[None, j0 : j0 + col_chunk])
+            if image:
+                R_img = Ycc[None, :, :, :] - xi_img[:, None, None, :]
+                R_img = torch.where(r0mask, ones, R_img)
+            else:
+                R_img = R
+            G, Wn = eval_G_Wn(kernel, wall_axis, R, R_img, Nj[None, j0 : j0 + col_chunk])
             Wcc = Wj[j0 : j0 + col_chunk]
             V[:, i0 : i0 + row_tile, :, j0 : j0 + col_chunk] = torch.einsum(
                 "tjmab,jm->atbj", G, Wcc

@@ -10,13 +10,17 @@ The per-frame pipeline (reference `run`, `source/bem_stokes.cc:5636-5884`):
     -> monolithic system                   (ops.monolithic)
     -> LU factor (fresh or stale) + GMRES  (la.direct / la.gmres)
 
-This slice ports the Direct frame solve (fresh and stale LU) and the
-`solve_directly` branch, for the free-space kernel in 3D.  Torch runs
-eagerly on the `device` given to the constructor, in the dtype of
-`ProblemConfig.dtype`; the JAX package's jitted single-dispatch fusions and
-its split-precision f64 GEMV (`la/mixed.py`) have no counterpart here (every
-[dn, dn] product is `A @ v`).  Every other branch raises
-NotImplementedError and names its `ROADMAP.md` item.
+Ported: the Direct frame solve (fresh and stale LU) and the
+`solve_directly` branch in 3D, for the free-space kernel and the two image
+kernels of a plane wall (`reflect_kernel`, `no_slip_kernel`), the flagellum
+torque mode (`solve_with_torque`, `imposed_rotation_as_flagellum_shape`) and
+the frozen-geometry re-solve (`solve_frame_frozen`).  Torch runs eagerly on
+the problem's device (the CUDA card unless the caller passes
+`device="cpu"`), in the dtype of `ProblemConfig.dtype`; the JAX package's
+jitted single-dispatch fusions and its split-precision f64 GEMV
+(`la/mixed.py`) have no counterpart here (every [dn, dn] product is
+`A @ v`).  Every other branch raises NotImplementedError and names its
+`ROADMAP.md` item.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ from .mesh.surface_mesh import MATERIAL_BODY
 from .ops.assemble import (
     AssemblyConfig,
     KERNEL_FREE_SPACE,
+    KERNEL_FREE_SURFACE,
+    KERNEL_NO_SLIP,
     assemble_V_K,
     build_assembly_tables,
 )
@@ -53,6 +59,7 @@ from .physics.rigid import (
     normal_vector_l2,
     rigid_modes,
     surface_mass_and_com,
+    unflatten,
 )
 from .utils import timers
 
@@ -63,6 +70,20 @@ def _dtype_of(cfg: ProblemConfig) -> torch.dtype:
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md: {item})")
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point of the port runs on: the one asked for, or
+    the CUDA card when none is.  Without a card it raises; it never carries
+    on on the CPU by itself."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "bemstokes_tpu_torch runs on a CUDA device and none is available; "
+            'pass device="cpu" to run the plain torch versions on the CPU'
+        )
+    return torch.device("cuda")
 
 
 def _resolve_manifold(cfg: ProblemConfig):
@@ -97,7 +118,8 @@ def _resolve_manifold(cfg: ProblemConfig):
 
 
 class StokesBEMProblem:
-    """Host-side orchestration for one mesh topology on one torch device.
+    """Host-side orchestration for one mesh topology on one torch device
+    (`device=None`: the CUDA card; it raises where there is none).
 
     The mesh topology (connectivity, spaces, quadrature tables) is fixed at
     construction; geometry (the euler node-position array) changes per
@@ -109,10 +131,10 @@ class StokesBEMProblem:
         mesh: SurfaceMesh,
         config: ProblemConfig | None = None,
         manifold=None,
-        device: str | torch.device = "cpu",
+        device: str | torch.device | None = None,
     ):
         self.cfg = config or ProblemConfig()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if self.cfg.force_pole not in ("Origin", "Baricenter", "Point"):
             raise ValueError(
                 f"force_pole must be 'Origin', 'Baricenter' or 'Point', "
@@ -120,11 +142,6 @@ class StokesBEMProblem:
             )
         if mesh.dim != 3:
             raise _not_ported("the 2D problem", "ops/resistance.py and 2D")
-        if self.cfg.reflect_kernel or self.cfg.no_slip_kernel:
-            raise _not_ported(
-                "the image kernels (reflect_kernel / no_slip_kernel)",
-                "K2 and K3 with kernels/images.py",
-            )
         if self.cfg.mixed_precision_bulk:
             raise NotImplementedError(
                 "mixed_precision_bulk (f32 bulk under f64) is a TPU workaround "
@@ -142,24 +159,44 @@ class StokesBEMProblem:
         self.num_rigid = 2 * self.dim if self.dim == 3 else self.dim + 1
         dt = _dtype_of(self.cfg)
 
+        kernel = KERNEL_FREE_SPACE
+        wall_axis, wall_position = 1, 0.0
+        if self.cfg.reflect_kernel or self.cfg.no_slip_kernel:
+            kernel = (
+                KERNEL_FREE_SURFACE if self.cfg.reflect_kernel else KERNEL_NO_SLIP
+            )
+            # wall 0 defines the image plane (reference `:2861-2870`)
+            if self.cfg.walls:
+                w0 = self.cfg.walls[0]
+                wall_axis = int(np.argmin(np.abs(np.asarray(w0.span))))
+                wall_position = float(w0.position[wall_axis])
+
         # near-contact quadrature auto-promotion: gap below the local panel
-        # diameter (distinct components) switches to the adaptive two-level
-        # scheme with a raised near-pair order (mesh/proximity.py)
+        # diameter (distinct components, or the surface vs its wall image)
+        # switches to the adaptive two-level scheme with a raised near-pair
+        # order (mesh/proximity.py)
         quad = self.cfg.quadrature
         q_order, q_far = quad.order, quad.order_far
         self.quadrature_promoted = False
         if quad.auto_promote and q_far is None:
-            from .mesh.proximity import min_intercomponent_gap
+            from .mesh.proximity import min_intercomponent_gap, wall_image_gap
 
+            cands = []
             g = min_intercomponent_gap(mesh)
-            if g is not None and g[0] < g[1]:
+            if g is not None:
+                cands.append(g)
+            if kernel != KERNEL_FREE_SPACE:
+                cands.append(wall_image_gap(mesh, wall_axis, wall_position))
+            if any(gap < diam for gap, diam in cands):
                 q_far = q_order
                 q_order = q_order + quad.promote_boost
                 self.quadrature_promoted = True
 
         self.asm_cfg = AssemblyConfig(
             dim=self.dim,
-            kernel=KERNEL_FREE_SPACE,
+            kernel=kernel,
+            wall_axis=wall_axis,
+            wall_position=wall_position,
             quad_order=q_order,
             quad_order_far=q_far,
             near_panels=quad.near_panels,
@@ -180,6 +217,19 @@ class StokesBEMProblem:
         self.node_material = node_mat.astype(np.int32)
         self.body_node_mask = (self.node_material == MATERIAL_BODY).astype(np.float64)
         self.body_cell_mask = (self.mesh.material_id == MATERIAL_BODY).astype(np.float64)
+        # flagellum / head split of the body nodes at x > -0.1 on the initial
+        # geometry (reference `create_wall_body_index_sets`,
+        # `source/bem_stokes.cc:1967-1971`)
+        init_euler = euler_from_mesh(mesh.vertices, self.map_space)
+        init_sp = support_points(
+            torch.as_tensor(init_euler), self.map_space, self.fe_space
+        ).numpy()
+        self.flagellum_node_mask = (
+            (self.body_node_mask > 0) & (init_sp[:, 0] > -0.1)
+        ).astype(np.float64)
+        self.head_node_mask = (
+            (self.body_node_mask > 0) & ~(init_sp[:, 0] > -0.1)
+        ).astype(np.float64)
         # per-node component labels / alpha targets for the per-component
         # solid-angle correction (alpha_row_sum == "component")
         self.node_component_label = None
@@ -242,6 +292,9 @@ class StokesBEMProblem:
         self._node_material_t = torch.as_tensor(self.node_material, device=dev)
         self._body_node_mask_t = torch.as_tensor(self.body_node_mask, dtype=dt, device=dev)
         self._body_cell_mask_t = torch.as_tensor(self.body_cell_mask, dtype=dt, device=dev)
+        self._flagellum_node_mask_t = torch.as_tensor(
+            self.flagellum_node_mask, dtype=dt, device=dev
+        )
 
     def _gmres_direct(self, A, rhs):
         restart = self.cfg.solver.gmres_restart
@@ -260,9 +313,14 @@ class StokesBEMProblem:
         scalar vector to read back to the host.
 
         Packed layout: [residual, |rhs|, rigid (R), mass, com (d),
-        v_null_pre, k_check (d), F (R), F_complete (R), iters, gmres_res]."""
+        v_null_pre, k_check (d), F (R), F_complete (R), iters, gmres_res]
+        (+ [omega] with the torque unknown, + [motor_torque] whenever the
+        flagellum torque dual exists: imposed-rotation runs report the
+        transmitted torque too, reference `:4374-4384`)."""
+        cfg = self.cfg
+        x_main = x[:-1] if cfg.solve_with_torque else x
         forces, wall_vel, rigid_vel = split_monolithic_solution(
-            x, ops["sel_V"], self.num_rigid, self.cfg.assemble_scaling
+            x_main, ops["sel_V"], self.num_rigid, cfg.assemble_scaling
         )
         # rigid forces at the pole (`:4466-4476`)
         F = flatten(ops["N_dual"]) @ forces
@@ -280,6 +338,11 @@ class StokesBEMProblem:
             torch.as_tensor(float(solver_iters), dtype=x.dtype, device=x.device)[None],
             torch.as_tensor(solver_res, dtype=x.dtype, device=x.device).reshape(1),
         ]
+        if cfg.solve_with_torque:
+            parts.append((x[-1] * cfg.assemble_scaling)[None])
+        torque_dual = ops.get("N_flagellum_torque_dual")
+        if torque_dual is not None:
+            parts.append(torch.dot(torque_dual, forces)[None])
         return forces, wall_vel, torch.cat([p.to(x.dtype) for p in parts])
 
     # ------------------------------------------------------------------
@@ -309,10 +372,40 @@ class StokesBEMProblem:
         return a.to(device=self.device, dtype=self.asm_cfg.dtype)
 
     # ------------------------------------------------------------------
-    def _pipeline(self, euler, shape_velocities_flat):
+    def flagellum_torque_mode(self, euler, rotation=None):
+        """N_flagellum_torque [n, d]: rotation of the flagellum about the
+        body-frame x-axis, expressed in world coordinates —
+        N(x) = R . (e_x x (R^T x - pole)) on flagellum nodes, 0 elsewhere
+        (reference `source/bem_stokes.cc:2657-2670` builds the body-frame
+        mode, then `rotate_vector` applies R at `:2770`)."""
+        dt, dev = self.asm_cfg.dtype, self.device
+        R = (
+            torch.eye(3, dtype=dt, device=dev)
+            if rotation is None
+            else self._as_device(rotation)
+        )
+        sp = support_points(self._as_device(euler), self.map_space, self.fe_space).to(dt)
+        pole = self.force_pole_point(torch.zeros((3,), dtype=dt, device=dev))
+        body = sp @ R - pole[None, :]  # R^T x (row-vector convention)
+        ex = torch.zeros((3,), dtype=dt, device=dev)
+        ex[0] = 1.0
+        mode_body = torch.linalg.cross(ex.expand(body.shape), body, dim=-1)
+        mode = mode_body @ R.T
+        return mode * self._flagellum_node_mask_t[:, None]
+
+    def flagellum_translation_mode(self):
+        """N_flagellum_translation [n, d]: unit x-velocity of the flagellum
+        nodes (reference `:2670`, not rotated)."""
+        mode = torch.zeros((self.n, self.dim), dtype=self.asm_cfg.dtype, device=self.device)
+        mode[:, 0] = self._flagellum_node_mask_t
+        return mode
+
+    # ------------------------------------------------------------------
+    def _pipeline(self, euler, shape_velocities_flat, rotation=None):
         """Geometry -> operators -> monolithic system.  Returns the system
         plus diagnostics.  shape_velocities_flat is the component-blocked
-        [d*n] projected gait velocity."""
+        [d*n] projected gait velocity; `rotation` is the accumulated body
+        rotation matrix (only consulted by the flagellum torque mode)."""
         cfg = self.cfg
         d = self.dim
         n = self.n
@@ -359,6 +452,13 @@ class StokesBEMProblem:
         sel_V = operator_column_mask(
             self._node_material_t, flatten(nv["normal"]), n, d
         )
+        torque_mode_flat = None
+        torque_dual_flat = None
+        tmp_torque = None
+        if cfg.solve_with_torque or cfg.imposed_rotation_as_flagellum_shape:
+            torque_mode_flat = flatten(self.flagellum_torque_mode(euler, rotation))
+            torque_dual_flat = flatten(mass_op.matvec(unflatten(torque_mode_flat, d)))
+            tmp_torque = PKP(torque_mode_flat)
         A, rhs = build_monolithic_system(
             V,
             K,
@@ -369,6 +469,9 @@ class StokesBEMProblem:
             grid_type=cfg.grid_type,
             imposed_component=cfg.imposed_component,
             assemble_scaling=cfg.assemble_scaling,
+            tmp_torque=tmp_torque if cfg.solve_with_torque else None,
+            torque_dual=torque_dual_flat if cfg.solve_with_torque else None,
+            imposed_motor_torque=cfg.imposed_motor_torque,
             imposed_tail=imposed_tail_vector(
                 self.num_rigid,
                 d,
@@ -391,7 +494,8 @@ class StokesBEMProblem:
         )
         operators = dict(
             # cfg.keep_operators=False drops the dense pair (5.4 GB at f64
-            # on the 6,146-node sphere); the monolithic A carries everything
+            # on the 6,146-node sphere); the frozen path needs them and
+            # checks for None
             V=V if cfg.keep_operators else None,
             K=K if cfg.keep_operators else None,
             sel_V=sel_V,
@@ -402,6 +506,9 @@ class StokesBEMProblem:
             tmp_N=tmp_N,
             mass_jxw=jxw,
         )
+        if torque_mode_flat is not None:
+            operators["N_flagellum_torque"] = torque_mode_flat
+            operators["N_flagellum_torque_dual"] = torque_dual_flat
         return A, rhs, operators, diagnostics
 
     # ------------------------------------------------------------------
@@ -416,11 +523,6 @@ class StokesBEMProblem:
             raise _not_ported("the matrix-free solve", "matfree.py with K5")
         if cfg.print_matrices:
             raise _not_ported("print_matrices", "postprocess.py, cli.py and config_io.py")
-        if cfg.solve_with_torque or cfg.imposed_rotation_as_flagellum_shape:
-            raise _not_ported(
-                "the flagellum torque mode",
-                "swimmer.py, physics/kinematics.py and flagella.py",
-            )
         if (
             not cfg.solver.solve_directly
             and cfg.solver.preconditioner_type != "Direct"
@@ -435,41 +537,83 @@ class StokesBEMProblem:
         `shape_velocities_flat` [d*n] may be numpy arrays or tensors.
         Returns a dict of results: tensors on the problem's device, host
         scalars and numpy arrays for the packed diagnostics
-        (`result_to_numpy` converts the rest).  `rotation` is only read by
-        the flagellum torque mode, which is not ported yet."""
-        cfg = self.cfg
+        (`result_to_numpy` converts the rest).  `rotation` is the
+        accumulated body rotation (flagellum torque mode only; identity when
+        omitted)."""
         self._check_solve_path()
-        if cfg.solver.solve_directly:
-            with timers.scope("Assemble"):
-                A, rhs, ops, diag = self._pipeline(euler, shape_velocities_flat)
-            return self._solve_monolithic_system(A, rhs, ops, diag)
-        # Direct: fresh LU, or the stale LU of an earlier frame while the
-        # previous solve stayed within the trigger (reference refactor-on-
-        # trigger `source/bem_stokes.cc:4336-4339, 5768-5779`)
-        with timers.scope("Assemble + LAC Solve (fused)"):
-            A, rhs, ops, diag = self._pipeline(euler, shape_velocities_flat)
-            with timers.scope("DirectPreconditioner Refactorisation"):
-                refactored = self.preconditioner.maybe_refactor(
-                    A, self._last_direct_iterations
-                )
-            x, info = self._gmres_direct(A, rhs)
-            forces, wall, packed_dev = self._finish(
-                A, rhs, ops, diag, x, info["iterations"], info["residual"]
-            )
-            packed = packed_dev.cpu().numpy()
-        return self._unpack_result(A, rhs, ops, forces, wall, packed, refactored)
+        with timers.scope("Assemble"):
+            A, rhs, ops, diag = self._pipeline(euler, shape_velocities_flat, rotation)
+        return self._solve_monolithic_system(A, rhs, ops, diag)
 
+    # ------------------------------------------------------------------
+    def solve_frame_frozen(self, prev_result, shape_velocities_flat):
+        """Frozen-geometry fast path: reuse the previous frame's operators
+        and monolithic matrix, recompute only the surface rhs from the new
+        gait velocity, and re-solve (the reference's squirmer branch that
+        skips `assemble_stokes_system` when `squirmer_change_geometry` is
+        false, `source/bem_stokes.cc:5734-5759`).  Only meaningful for
+        grid_type == "Real" (the rhs is sdot-independent otherwise)."""
+        self._check_solve_path()
+        A = prev_result["A"]
+        ops = prev_result["operators"]
+        if ops.get("K") is None:
+            raise ValueError(
+                "solve_frame_frozen needs the previous frame's K operator; "
+                "run with cfg.keep_operators=True"
+            )
+        diag = {k: self._as_device(v) for k, v in prev_result["diagnostics"].items()}
+        nv = ops["normal"]
+        rhs = self._frozen_rhs(
+            ops["K"],
+            flatten(nv["normal_pure"]),
+            flatten(nv["M_normal_pure"]),
+            nv["l2_gamma_pure"],
+            self._as_device(shape_velocities_flat),
+        )
+        return self._solve_monolithic_system(A, rhs, ops, diag)
+
+    def _frozen_rhs(self, K, n_pure_f, Mn_pure_f, l2g_pure, sdot_flat):
+        dt = self.asm_cfg.dtype
+        d, n = self.dim, self.n
+
+        def P_t(v):
+            return tangential_projector(v, n_pure_f, Mn_pure_f, l2g_pure)
+
+        rhs_surface = P_t(K @ P_t(sdot_flat.to(dt)))
+        tail_len = self.num_rigid + (1 if self.cfg.solve_with_torque else 0)
+        rhs = torch.cat([rhs_surface, torch.zeros((tail_len,), dtype=dt, device=K.device)])
+        if self.hanging.n:
+            comp = np.arange(d)[:, None] * n
+            rows = (self.hanging.slaves[None, :] + comp).reshape(-1)
+            rhs[torch.as_tensor(rows, dtype=torch.long, device=K.device)] = 0.0
+        return rhs
+
+    # ------------------------------------------------------------------
     def _solve_monolithic_system(self, A, rhs, ops, diag):
-        """The `solve_directly` branch: one dense LU solve, with the true
-        residual reported like the GMRES paths."""
+        """Solve the assembled system: one dense LU solve (`solve_directly`)
+        or GMRES preconditioned by a fresh or stale LU, with the true
+        residual reported either way."""
+        refactored = False
         with timers.scope("LAC Solve"):
-            x = lu_solve_dense(lu_factor_dense(A), rhs)
-            res = torch.linalg.vector_norm(A @ x - rhs)
+            if self.cfg.solver.solve_directly:
+                x = lu_solve_dense(lu_factor_dense(A), rhs)
+                iters, res = 1, torch.linalg.vector_norm(A @ x - rhs)
+            else:
+                # Direct: fresh LU, or the stale LU of an earlier frame while
+                # the previous solve stayed within the trigger (reference
+                # refactor-on-trigger `source/bem_stokes.cc:4336-4339,
+                # 5768-5779`)
+                with timers.scope("DirectPreconditioner Refactorisation"):
+                    refactored = self.preconditioner.maybe_refactor(
+                        A, self._last_direct_iterations
+                    )
+                x, info = self._gmres_direct(A, rhs)
+                iters, res = info["iterations"], info["residual"]
             forces, wall_vel, packed_dev = self._finish(
-                A, rhs, ops, diag, x, 1, res
+                A, rhs, ops, diag, x, iters, res
             )
             packed = packed_dev.cpu().numpy()
-        return self._unpack_result(A, rhs, ops, forces, wall_vel, packed, False)
+        return self._unpack_result(A, rhs, ops, forces, wall_vel, packed, refactored)
 
     def _unpack_result(self, A, rhs, ops, forces, wall_vel, packed, refactored):
         """Unpack the packed scalar vector (layout documented on
@@ -515,6 +659,17 @@ class StokesBEMProblem:
                     f"max_steps {cfg.solver.max_steps})",
                     stacklevel=2,
                 )
+        extra = {}
+        if cfg.solve_with_torque:
+            # the motor-balance unknown: flagellum rotation rate omega
+            # (reference `:4398-4410`); the effective gait velocity is
+            # omega * N_flagellum_torque
+            flagellum_omega = float(take(1)[0])
+            extra["flagellum_omega"] = flagellum_omega
+            extra["shape_velocities"] = flagellum_omega * ops["N_flagellum_torque"]
+        if "N_flagellum_torque_dual" in ops:
+            # motor torque actually transmitted (reference `:4374`)
+            extra["motor_torque"] = float(take(1)[0])
         return dict(
             stokes_forces=forces,
             wall_velocities=wall_vel,
@@ -530,6 +685,7 @@ class StokesBEMProblem:
             operators=ops,
             A=A,
             rhs=rhs,
+            **extra,
         )
 
     # ------------------------------------------------------------------

@@ -125,7 +125,7 @@ def near_contact():
         fac_t.create_sphere(center=(2.2, 0.0, 0.0), refinements=2)
     )
     pj = ProblemJ(mesh_j, cfg)
-    pt = ProblemT(mesh_t, from_dict(dataclasses.asdict(cfg)))
+    pt = ProblemT(mesh_t, from_dict(dataclasses.asdict(cfg)), device="cpu")
     assert pj.quadrature_promoted and pt.quadrature_promoted
     assert pt.tables.hq_weights is not None
     ej = pj.initial_euler()

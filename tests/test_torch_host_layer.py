@@ -17,7 +17,9 @@ import bemstokes_tpu.mesh.factories as fac_j
 import bemstokes_tpu.mesh.proximity as prox_j
 import bemstokes_tpu.mesh.refine as ref_j
 import bemstokes_tpu.mesh.surface_mesh as sm_j
+import bemstokes_tpu.mesh.io_vtu as vtu_j
 import bemstokes_tpu.ops.assemble as asm_j
+import bemstokes_tpu.utils.dealii_io as dio_j
 import bemstokes_tpu_torch.config as cfg_t
 import bemstokes_tpu_torch.fem.geometry as geo_t
 import bemstokes_tpu_torch.mesh.constraints as con_t
@@ -26,7 +28,9 @@ import bemstokes_tpu_torch.mesh.factories as fac_t
 import bemstokes_tpu_torch.mesh.proximity as prox_t
 import bemstokes_tpu_torch.mesh.refine as ref_t
 import bemstokes_tpu_torch.mesh.surface_mesh as sm_t
+import bemstokes_tpu_torch.mesh.io_vtu as vtu_t
 import bemstokes_tpu_torch.ops.assemble as asm_t
+import bemstokes_tpu_torch.utils.dealii_io as dio_t
 
 PORT = Path(__file__).resolve().parent.parent / "bemstokes_tpu_torch"
 
@@ -158,6 +162,40 @@ def test_refined_wall_has_hanging_nodes():
     """The constraint comparison above is not vacuous."""
     _, mt = _meshes("refined_wall")
     assert con_t.hanging_node_constraints(mt).n > 0
+
+
+@pytest.mark.parametrize("kind", ["quads", "lines"])
+def test_vtu_writer_identical(tmp_path, kind):
+    """`mesh/io_vtu.py:write_vtu` writes the same file, byte for byte."""
+    rng = np.random.default_rng(0)
+    if kind == "quads":
+        mesh = fac_t.create_sphere(refinements=1)
+        points, cells = mesh.vertices, mesh.cells
+    else:
+        points = rng.normal(size=(6, 2))
+        cells = np.array([[0, 1], [1, 2], [2, 3], [3, 4], [4, 5], [5, 0]])
+    point_data = dict(forces=rng.normal(size=(len(points), 3)), scalar=rng.normal(size=len(points)))
+    cell_data = dict(material=np.arange(len(cells), dtype=np.float64))
+    for mod, name in ((vtu_j, "j.vtu"), (vtu_t, "t.vtu")):
+        mod.write_vtu(str(tmp_path / name), points, cells, point_data=point_data, cell_data=cell_data)
+    written = (tmp_path / "t.vtu").read_bytes()
+    assert written == (tmp_path / "j.vtu").read_bytes()
+    assert b"<PointData>" in written and b"<CellData>" in written
+
+
+def test_dealii_block_io_identical(tmp_path):
+    """`utils/dealii_io.py`: either package reads what the other wrote, and
+    a truncated file raises in both."""
+    v = np.random.default_rng(1).normal(size=37)
+    dio_j.block_write(str(tmp_path / "j.bin"), v)
+    dio_t.block_write(str(tmp_path / "t.bin"), v)
+    assert (tmp_path / "j.bin").read_bytes() == (tmp_path / "t.bin").read_bytes()
+    assert np.array_equal(dio_t.block_read(str(tmp_path / "j.bin")), v)
+    assert np.array_equal(dio_j.block_read(str(tmp_path / "t.bin")), v)
+    (tmp_path / "cut.bin").write_bytes((tmp_path / "t.bin").read_bytes()[:-9])
+    for mod in (dio_j, dio_t):
+        with pytest.raises(ValueError):
+            mod.block_read(str(tmp_path / "cut.bin"))
 
 
 def test_config_from_dict_roundtrip():

@@ -75,7 +75,7 @@ def test_cpu_wrapper_runs_plain_version():
     """On CPU tensors the wrapper is the plain version and counts no
     launch."""
     args = _random_inputs(seed=1)
-    before = node_kernel.launches
+    before = dict(node_kernel.launches)
     V, K = node_kernel.node_sweep(*args)
     Vr, Kr = node_kernel.node_sweep_reference(*args)
     assert node_kernel.launches == before
@@ -128,10 +128,10 @@ def test_kernel_matches_plain_version(cuda_device, dtype, tol, rows):
     xi, Yj, Nj, Wj = _sphere_inputs(dtype, cuda_device)
     if rows is not None:  # a ragged row block
         xi = xi[5 : 5 + rows].contiguous()
-    before = node_kernel.launches
+    before = node_kernel.launches["free_space"]
     V, K = node_kernel.node_sweep(xi, Yj, Nj, Wj)
     torch.cuda.synchronize()
-    assert node_kernel.launches == before + 1
+    assert node_kernel.launches["free_space"] == before + 1
     Vr, Kr = node_kernel.node_sweep_reference(xi, Yj, Nj, Wj)
     assert ((V - Vr).abs().max() / Vr.abs().max()).item() <= tol
     assert ((K - Kr).abs().max() / Kr.abs().max()).item() <= tol

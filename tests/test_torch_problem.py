@@ -54,7 +54,11 @@ def drag_error(res):
 
 def _problems(cfg, refinements=3):
     pj = ProblemJ(fac_j.create_sphere(refinements=refinements), cfg)
-    pt = ProblemT(fac_t.create_sphere(refinements=refinements), from_dict(dataclasses.asdict(cfg)))
+    pt = ProblemT(
+        fac_t.create_sphere(refinements=refinements),
+        from_dict(dataclasses.asdict(cfg)),
+        device="cpu",
+    )
     return pj, pt
 
 
@@ -118,7 +122,7 @@ def test_frame_operators_match_jax(f64_frames, frame):
 
 def test_port_on_cpu_launches_no_kernel(f64_frames):
     """On CPU tensors the slice runs K1's plain version: no launch."""
-    assert node_kernel.launches == 0
+    assert not any(node_kernel.launches.values())
 
 
 def test_float32_frame_matches_jax_float32():
@@ -181,27 +185,42 @@ def test_solve_directly_matches_jax():
         dict(monolithic=False),
         dict(matrix_free=True),
         dict(print_matrices=True),
-        dict(solve_with_torque=True),
+        dict(solver=SolverConfig(preconditioner_type="ILU")),
         dict(solver=SolverConfig(preconditioner_type="Jacobi")),
     ],
-    ids=["resistance", "matrix_free", "print_matrices", "torque", "jacobi"],
+    ids=["resistance", "matrix_free", "print_matrices", "ilu", "jacobi"],
 )
 def test_unported_solve_branches_raise(change):
     cfg = from_dict(dataclasses.asdict(ProblemConfig(**change)))
-    pt = ProblemT(fac_t.create_sphere(refinements=1), cfg)
+    pt = ProblemT(fac_t.create_sphere(refinements=1), cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.solve_frame(pt.initial_euler(), torch.zeros(3 * pt.n, dtype=torch.float64))
 
 
 @pytest.mark.parametrize(
-    "change",
-    [dict(no_slip_kernel=True), dict(reflect_kernel=True), dict(mixed_precision_bulk=True)],
-    ids=["no_slip", "free_surface", "mixed_bulk"],
+    "change", [dict(mixed_precision_bulk=True), dict(dim=2)], ids=["mixed_bulk", "dim2"]
 )
 def test_unported_setups_raise(change):
+    """The image kernels left this list when K2 and K3 were ported
+    (tests/test_torch_image_sweep.py, tests/test_torch_swimmer.py)."""
     cfg = from_dict(dataclasses.asdict(ProblemConfig(**change)))
+    mesh = fac_t.create_sphere(refinements=1)
+    if cfg.dim == 2:
+        mesh = dataclasses.replace(mesh, vertices=mesh.vertices[:, :2])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ProblemT(fac_t.create_sphere(refinements=1), cfg)
+        ProblemT(mesh, cfg, device="cpu")
+
+
+def test_default_device_is_the_card():
+    """With no `device` the problem runs on the CUDA card, and raises where
+    there is none: it never carries on on the CPU by itself."""
+    mesh = fac_t.create_sphere(refinements=1)
+    if torch.cuda.is_available():
+        assert ProblemT(mesh).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            ProblemT(mesh)
+    assert ProblemT(mesh, device="cpu").device.type == "cpu"
 
 
 def test_force_pole_and_initial_euler_match_jax():
