@@ -199,7 +199,10 @@ class ProblemConfig:
     # distributed (multi-device) frame solves; not ported yet (ROADMAP.md)
     distributed: bool = False
     distributed_devices: int | None = None  # None = all devices
-    # matrix-free monolithic solve; not ported yet (ROADMAP.md)
+    # matrix-free monolithic solve (matfree.py): the operators are never
+    # formed, the GMRES matvec is the fused sweep (ops.matfree_node) plus the
+    # sparse COO deltas, preconditioned by block-Jacobi diagonal blocks with
+    # an exact Schur tail; overrides solve_directly and print_matrices
     matrix_free: bool = False
     matfree_block_nodes: int = 1024  # preconditioner diagonal-block size
     # keep the assembled V/K operators in each frame's result (needed by

@@ -17,46 +17,30 @@ component-blocked operators directly.
 
 `node_sweep(xi, Yj, Nj, Wj, kernel=...)` runs the kernel on CUDA tensors and
 the plain version on CPU tensors; there is no fallback from one to the
-other.  Each source is compiled with nvcc at first use into
-`bemstokes_tpu_torch/_build/`, keyed by a hash of the source, the shared
-header and the flags, and loaded with ctypes.
+other.  `ops/cuda_build.py` compiles each source with nvcc at first use and
+loads it with ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 
 from ..kernels.images import free_surface_G_Wn, image_point, no_slip_wall_G, no_slip_wall_Wn
 from ..kernels.stokeslet import stokeslet_G_Wn
+from . import cuda_build
 
 KERNEL_FREE_SPACE = "free_space"
 KERNEL_FREE_SURFACE = "free_surface"  # reference reflect_kernel=true
 KERNEL_NO_SLIP = "no_slip"  # reference no_slip_kernel=true
 
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
-HEADER = CSRC / "node_sweep_common.cuh"
 #: kernel -> the source that holds it
 SOURCES = {
-    KERNEL_FREE_SPACE: CSRC / "node_sweep.cu",
-    KERNEL_FREE_SURFACE: CSRC / "node_sweep_image.cu",
-    KERNEL_NO_SLIP: CSRC / "node_sweep_image.cu",
+    KERNEL_FREE_SPACE: cuda_build.CSRC / "node_sweep.cu",
+    KERNEL_FREE_SURFACE: cuda_build.CSRC / "node_sweep_image.cu",
+    KERNEL_NO_SLIP: cuda_build.CSRC / "node_sweep_image.cu",
 }
-BUILD_DIR = _PKG / "_build"
-# `-Xptxas -v` only adds each kernel's registers, shared memory and spills to
-# nvcc's output, which `build_all` returns
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 # the `kind` argument of the image library's entry points
 _IMAGE_KIND = {KERNEL_FREE_SURFACE: 1, KERNEL_NO_SLIP: 2}
 
@@ -65,89 +49,21 @@ _IMAGE_KIND = {KERNEL_FREE_SURFACE: 1, KERNEL_NO_SLIP: 2}
 #: the kernel)
 launches = {KERNEL_FREE_SPACE: 0, KERNEL_FREE_SURFACE: 0, KERNEL_NO_SLIP: 0}
 
-_libs: dict[Path, ctypes.CDLL] = {}
-_lib_lock = threading.Lock()
 
+def _library(source):
+    def declare(lib):
+        head = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3
+        if source == SOURCES[KERNEL_FREE_SPACE]:
+            names, tail = ("node_sweep_f32", "node_sweep_f64"), []
+        else:
+            names = ("node_sweep_image_f32", "node_sweep_image_f64")
+            tail = [ctypes.c_int, ctypes.c_int, ctypes.c_double]
+        for name in names:
+            fn = getattr(lib, name)
+            fn.argtypes = head + tail + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
 
-def nvcc_path() -> str:
-    """The nvcc that builds the kernels: the one on PATH, else CUDA_HOME's."""
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(cuda_home, "bin", "nvcc")
-
-
-def _start_build(source: Path):
-    """(library path, running nvcc or None, temporary output path) for one
-    source; nvcc is started only if no build of this source exists yet."""
-    key = hashlib.sha256(
-        source.read_bytes() + HEADER.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"{source.stem}_{key}.so"
-    if lib_path.exists():
-        return lib_path, None, None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{source.stem}_{key}.{os.getpid()}.so"
-    proc = subprocess.Popen(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-        stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE,
-        text=True,
-    )
-    return lib_path, proc, tmp
-
-
-def _finish_build(source: Path, lib_path: Path, proc, tmp) -> str:
-    """Wait for a build started by `_start_build`; returns nvcc's output."""
-    if proc is None:
-        return ""
-    out, err = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed to build {source.name} (rc {proc.returncode}):\n{out}\n{err}"
-        )
-    os.replace(tmp, lib_path)
-    return out + err
-
-
-def build(source: Path) -> Path:
-    """Compile one kernel library if no build of this source exists yet and
-    return its path."""
-    lib_path, proc, tmp = _start_build(source)
-    _finish_build(source, lib_path, proc, tmp)
-    return lib_path
-
-
-def build_all() -> dict[str, tuple[Path, str]]:
-    """Compile every kernel library, one nvcc per source, all started
-    together.  Returns {source name: (library path, nvcc output)}; the
-    output of a fresh build holds each kernel's registers, shared memory and
-    spills (empty where a build existed already)."""
-    started = [(src, *_start_build(src)) for src in sorted(set(SOURCES.values()))]
-    return {
-        src.name: (lib_path, _finish_build(src, lib_path, proc, tmp))
-        for src, lib_path, proc, tmp in started
-    }
-
-
-def _library(source: Path):
-    with _lib_lock:
-        lib = _libs.get(source)
-        if lib is None:
-            lib = ctypes.CDLL(str(build(source)))
-            head = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3
-            if source == SOURCES[KERNEL_FREE_SPACE]:
-                names, tail = ("node_sweep_f32", "node_sweep_f64"), []
-            else:
-                names = ("node_sweep_image_f32", "node_sweep_image_f64")
-                tail = [ctypes.c_int, ctypes.c_int, ctypes.c_double]
-            for name in names:
-                fn = getattr(lib, name)
-                fn.argtypes = head + tail + [ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            _libs[source] = lib
-        return lib
+    return cuda_build.library(source, declare)
 
 
 def _check_inputs(xi, Yj, Nj, Wj):

@@ -13,8 +13,9 @@ The per-frame pipeline (reference `run`, `source/bem_stokes.cc:5636-5884`):
 Ported: the Direct frame solve (fresh and stale LU) and the
 `solve_directly` branch in 3D, for the free-space kernel and the two image
 kernels of a plane wall (`reflect_kernel`, `no_slip_kernel`), the flagellum
-torque mode (`solve_with_torque`, `imposed_rotation_as_flagellum_shape`) and
-the frozen-geometry re-solve (`solve_frame_frozen`).  Torch runs eagerly on
+torque mode (`solve_with_torque`, `imposed_rotation_as_flagellum_shape`),
+the frozen-geometry re-solve (`solve_frame_frozen`) and the matrix-free
+solve (`cfg.matrix_free`, `matfree.py`).  Torch runs eagerly on
 the problem's device (the CUDA card unless the caller passes
 `device="cpu"`), in the dtype of `ProblemConfig.dtype`; the JAX package's
 jitted single-dispatch fusions and its split-precision f64 GEMV
@@ -287,6 +288,7 @@ class StokesBEMProblem:
         # earlier frame is reused until a solve blows past the trigger, and
         # only then is the NEXT frame's matrix refactored
         self._last_direct_iterations = 0
+        self._matfree = None  # lazy MatfreeSolver (cfg.matrix_free)
 
         dev = self.device
         self._node_material_t = torch.as_tensor(self.node_material, device=dev)
@@ -296,9 +298,13 @@ class StokesBEMProblem:
             self.flagellum_node_mask, dtype=dt, device=dev
         )
 
-    def _gmres_direct(self, A, rhs):
+    def _gmres_solver_params(self):
         restart = self.cfg.solver.gmres_restart
         max_restarts = max(1, -(-self.cfg.solver.max_steps // max(restart, 1)))
+        return restart, max_restarts
+
+    def _gmres_direct(self, A, rhs):
+        restart, max_restarts = self._gmres_solver_params()
         return gmres(
             lambda v: A @ v,
             rhs,
@@ -310,7 +316,8 @@ class StokesBEMProblem:
 
     def _finish(self, A, rhs, ops, diag, x, solver_iters, solver_res):
         """Post-solve bookkeeping (the JAX `_finish_impl`) with ONE packed
-        scalar vector to read back to the host.
+        scalar vector to read back to the host.  `A` is the dense matrix or,
+        on the matrix-free path, the matvec closure.
 
         Packed layout: [residual, |rhs|, rigid (R), mass, com (d),
         v_null_pre, k_check (d), F (R), F_complete (R), iters, gmres_res]
@@ -325,8 +332,9 @@ class StokesBEMProblem:
         # rigid forces at the pole (`:4466-4476`)
         F = flatten(ops["N_dual"]) @ forces
         F_c = flatten(ops["N_dual_complete"]) @ forces
+        Ax = A(x) if callable(A) else A @ x
         parts = [
-            torch.linalg.vector_norm(A @ x - rhs)[None],
+            torch.linalg.vector_norm(Ax - rhs)[None],
             torch.linalg.vector_norm(rhs)[None],
             rigid_vel,
             diag["mass_body"][None],
@@ -520,7 +528,9 @@ class StokesBEMProblem:
                 "ops/resistance.py and 2D",
             )
         if cfg.matrix_free:
-            raise _not_ported("the matrix-free solve", "matfree.py with K5")
+            # matrix_free overrides solve_directly and print_matrices, as in
+            # the JAX package (`bemstokes_tpu/problem.py:642`)
+            return
         if cfg.print_matrices:
             raise _not_ported("print_matrices", "postprocess.py, cli.py and config_io.py")
         if (
@@ -541,6 +551,12 @@ class StokesBEMProblem:
         accumulated body rotation (flagellum torque mode only; identity when
         omitted)."""
         self._check_solve_path()
+        if self.cfg.matrix_free:
+            if self._matfree is None:
+                from .matfree import MatfreeSolver
+
+                self._matfree = MatfreeSolver(self)
+            return self._matfree.solve_frame(euler, shape_velocities_flat, rotation)
         with timers.scope("Assemble"):
             A, rhs, ops, diag = self._pipeline(euler, shape_velocities_flat, rotation)
         return self._solve_monolithic_system(A, rhs, ops, diag)

@@ -6,9 +6,9 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. versions (torch, CUDA, nvcc) and the card's name and power limit;
-2. the build of the node-sweep kernels from csrc/ (one nvcc per source,
-   started together), with each kernel's registers and spills as ptxas
-   reports them;
+2. the build of the kernels from csrc/ (the node sweeps K1, K2, K3 and the
+   fused sweep-matvec K5; one nvcc per source, started together), with each
+   kernel's registers and spills as ptxas reports them;
 3. K1 (free space), K2 (free-surface image) and K3 (Blake no-slip image)
    against their plain torch version on the card, f64 and f32, at the shapes
    the main paths give them: create_sphere(3) whole, a 512-row slab of
@@ -37,7 +37,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    - K3 again: the bare helix (384 x 16 panels, 6,160 nodes) rotating
      beside the no-slip wall, two frames of 64 per turn: the force-free body
      counter-rotates, U[3] = -omega_gait to 2e-3, the rest below 5e-3;
-6. one f32 free-space frame at 18,444 unknowns (GMRES tolerance 1e-5).
+6. one f32 free-space frame at 18,444 unknowns (GMRES tolerance 1e-5);
+7. K5 (`sweep_matvec`, all three Green's functions) against its plain torch
+   version on the card, f64 and f32, with (BV, BK) = (1, 1), the GMRES
+   matvec, and (1, 10), the setup sweep: create_sphere(3) whole, a 512-row
+   slab of create_sphere(5), create_sphere(5) whole and a 512-row slab of
+   create_sphere(6); a second call must give the same bits; at
+   create_sphere(5) in f64 also against V @ x, K @ x of the operators K1, K2
+   and K3 materialize (1e-12); timed at create_sphere(5) and at the capacity
+   shape create_sphere(6) (24,578 nodes);
+8. the matrix-free path, small, for each Green's function: a matrix-free
+   frame on create_sphere(2), the card against the CPU (1e-10, equal
+   iterations), and one on create_sphere(3) twice on the card with equal
+   iteration counts;
+9. the matrix-free path at 18,444 unknowns, f64, GMRES tolerance 1e-11:
+   frame 0 of phase 5's free-space, no-slip and free-surface configurations
+   solved materialized and matrix-free, rigid velocities and forces within
+   1e-7, with the K5 launch counters set to 0 before each and read after;
+10. the capacity frame, which no materialized path can hold on one card:
+   create_sphere(6), 24,578 nodes, 73,740 unknowns, ImposedVelocity along x,
+   matfree_block_nodes = 1024, twice each: in f64 with the solver's
+   defaults (drag error <= 1e-4 against 6 pi, converged) and in f32 with
+   preconditioner_dtype = float32, gmres_restart = 25, tolerance = 3e-5,
+   max_steps = 200 (drag error <= 2.5e-4).
 
 Before the last line it prints the card's name and power limit and one JSON
 object {"kernels": [...]} with each kernel's launches on its main path, its
@@ -77,6 +99,18 @@ def tolerance(kernel, dtype):
 
 DRAG_TOL = 2.5e-4
 
+CAPACITY_REFINEMENTS = 6  # create_sphere(6): 24,578 nodes, 73,740 unknowns
+#: K5 against its plain version, relative to max|V x| and max|K x|.  In f32
+#: the kernel contracts each sample with the vector before it sums, takes
+#: every inverse power from one rsqrt and sums the column nodes in splits;
+#: the plain version forms G and W.n first and lets einsum pick the order.
+#: K's own-node terms are large and cancel, so the two differ by a few 1e-6
+#: of the largest entry; 5e-5 is K3's bound, kept for the same reason.
+TOL_MATVEC = {torch.float64: 1e-12, torch.float32: 5e-5}
+# K5, (BV, BK) = (1, 1): operations per (row, sample) interaction, counted
+# from csrc/sweep_matvec.cu with a multiply-add as two and an rsqrt as one.
+FLOPS_PER_INTERACTION_MATVEC = {"free_space": 52, "free_surface": 102, "no_slip": 175}
+
 # Floating-point operations per (row, sample) interaction, counted from the
 # kernel sources with a multiply-add as two and an rsqrt as one.
 FLOPS_PER_INTERACTION = {"free_space": 65, "free_surface": 159, "no_slip": 217}
@@ -101,6 +135,14 @@ KERNELS = {
         source="bemstokes_tpu_torch/csrc/node_sweep_image.cu",
         replaces="bemstokes_tpu/ops/pallas_node.py:259",
     ),
+}
+MATVEC_KERNELS = {
+    kernel: dict(
+        name=f"sweep_matvec_{kernel}",
+        source="bemstokes_tpu_torch/csrc/sweep_matvec.cu",
+        replaces="bemstokes_tpu/ops/matfree_node.py:195",
+    )
+    for kernel in KERNELS
 }
 
 
@@ -170,17 +212,25 @@ def card_line():
     ).stdout.strip()
 
 
-def phase_versions(node_kernel):
+def zero_counts(*modules):
+    for mod in modules:
+        for k in mod.launches:
+            mod.launches[k] = 0
+
+
+def phase_versions(cuda_build):
     nvcc = subprocess.run(
-        [node_kernel.nvcc_path(), "--version"], capture_output=True, text=True, check=True
+        [cuda_build.nvcc_path(), "--version"], capture_output=True, text=True, check=True
     ).stdout.strip().splitlines()[-1]
     log(f"torch {torch.__version__} cuda {torch.version.cuda} nvcc: {nvcc}")
     log(card_line())
 
 
-def phase_build(node_kernel):
+def phase_build(cuda_build):
     t0 = time.perf_counter()
-    built = node_kernel.build_all()
+    built = cuda_build.build_all()
+    if "sweep_matvec.cu" not in built or "node_sweep.cu" not in built:
+        raise AssertionError(f"kernel sources missing from the build: {sorted(built)}")
     log(f"kernel build {time.perf_counter() - t0:.2f} s: " + ", ".join(p.name for p, _ in built.values()))
     for name, (_, output) in built.items():
         # per kernel instantiation: its entry function, its stack frame and
@@ -475,8 +525,7 @@ def phase_free_space_path(node_kernel, device):
 
     cfg = ProblemConfig(grid_type="ImposedVelocity", imposed_component=0)
     torch.cuda.reset_peak_memory_stats()
-    for k in node_kernel.launches:
-        node_kernel.launches[k] = 0
+    zero_counts(node_kernel)
     unknowns, recs = solve_frames(device, cfg, 3)
     launches = dict(node_kernel.launches)
     log(
@@ -501,8 +550,7 @@ def wall_path(node_kernel, device, name, cfg, frames):
     gc.collect()  # the previous path's results, so that the peak is this run's
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for k in node_kernel.launches:
-        node_kernel.launches[k] = 0
+    zero_counts(node_kernel)
     t0 = time.perf_counter()
     history, records, _, unknowns = run_simulation(cfg, device, frames)
     wall = time.perf_counter() - t0
@@ -598,24 +646,346 @@ def phase_float32(device):
         raise AssertionError(f"f32 frame failed: {rec}")
 
 
+def sweep_inputs(refinements, dtype, device, kernel):
+    """(tables, support points, xq, normals, jxw) as the matrix-free setup
+    builds them on create_sphere(refinements), wall at y = WALL_Y."""
+    from bemstokes_tpu_torch.fem.geometry import euler_from_mesh, support_points
+    from bemstokes_tpu_torch.mesh import build_scalar_space, create_sphere
+    from bemstokes_tpu_torch.ops.assemble import AssemblyConfig, build_assembly_tables
+    from bemstokes_tpu_torch.physics.rigid import build_mass_operator
+
+    mesh = create_sphere(refinements=refinements)
+    space = build_scalar_space(mesh, 1)
+    tables = build_assembly_tables(
+        space, space, AssemblyConfig(dtype=dtype, kernel=kernel, wall_axis=1, wall_position=WALL_Y)
+    )
+    euler = torch.as_tensor(euler_from_mesh(mesh.vertices, space), dtype=dtype, device=device)
+    _, (xq, normals, jxw) = build_mass_operator(euler, tables)
+    return tables, euler, support_points(euler, space, space), xq, normals, jxw
+
+
+def matvec_bound(kernel, dtype, nr, n, m):
+    """(bound_ms, bound_by) of one sweep-matvec with one column of V and one
+    of K: every input read once and both outputs written once over the
+    memory rate, against its operations over the peak rate."""
+    item = torch.finfo(dtype).bits // 8
+    nbytes = item * (3 * nr + 7 * n * m + 2 * 3 * (n + nr))
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = FLOPS_PER_INTERACTION_MATVEC[kernel] * nr * n * m / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_matvec_vs_plain(matfree_node, node_kernel, device):
+    """K5 against its plain version and against the materialized kernels;
+    returns, per Green's function, the record of create_sphere(5) whole, f64,
+    (BV, BK) = (1, 1), with the capacity shape's time beside it."""
+    from bemstokes_tpu_torch.ops.assemble import node_sweep_inputs
+
+    cases = [
+        ("sphere3", 3, None),
+        (f"sphere{REFINEMENTS}_slab{SLAB_ROWS}", REFINEMENTS, SLAB_ROWS),
+        (f"sphere{REFINEMENTS}", REFINEMENTS, None),
+        (f"sphere{CAPACITY_REFINEMENTS}_slab{SLAB_ROWS}", CAPACITY_REFINEMENTS, SLAB_ROWS),
+    ]
+    rng = np.random.default_rng(0)
+    records = {}
+    for kernel in MATVEC_KERNELS:
+        for dtype in (torch.float64, torch.float32):
+            tol = TOL_MATVEC[dtype]
+            for name, refinements, rows in cases:
+                main_shape = rows is None and refinements == REFINEMENTS and dtype == torch.float64
+                tables, euler, sp, xq, normals, jxw = sweep_inputs(refinements, dtype, device, kernel)
+                xi = sp if rows is None else sp[:rows]
+                st, arrs = matfree_node.build_sweep(tables, xi, xq, normals, jxw)
+                XV = torch.as_tensor(rng.standard_normal((3 * st.n, 1)), dtype=dtype, device=device)
+                XK = torch.as_tensor(rng.standard_normal((3 * st.n, 10)), dtype=dtype, device=device)
+                # one plain run serves both batch shapes: its columns are
+                # independent of one another
+                Vr, Kr = matfree_node.sweep_matvec_reference(
+                    st, arrs, XV, XK, row_tile=64, col_chunk=1024
+                )
+                worst, abs_err = 0.0, 0.0
+                for BK in (1, 10):
+                    V, K = matfree_node.sweep_matvec(st, arrs, XV, XK[:, :BK])
+                    V2, K2 = matfree_node.sweep_matvec(st, arrs, XV, XK[:, :BK])
+                    torch.cuda.synchronize()
+                    if not (torch.equal(V, V2) and torch.equal(K, K2)):
+                        raise AssertionError(f"{kernel} sweep_matvec: two calls gave different bits")
+                    if not bool(torch.isfinite(V).all() and torch.isfinite(K).all()):
+                        raise AssertionError(f"{kernel} sweep_matvec: result not finite")
+                    worst = max(worst, rel(V, Vr), rel(K, Kr[:, :BK]))
+                    if BK == 1:
+                        abs_err = max((V - Vr).abs().max().item(), (K - Kr[:, :1]).abs().max().item())
+                materialized = ""
+                if main_shape:
+                    Vd, Kd = node_kernel.node_sweep(
+                        *node_sweep_inputs(euler, xi, tables),
+                        kernel=kernel, wall_axis=1, wall_position=WALL_Y,
+                    )
+                    err_m = max(rel(V, Vd @ XV), rel(K, Kd @ XK))
+                    del Vd, Kd
+                    materialized = f"; against V @ x, K @ x of the materialized kernel {err_m:.3e} (tol 1e-12)"
+                    if not err_m <= 1e-12:
+                        raise AssertionError(f"{kernel} sweep_matvec disagrees with the materialized operators")
+                nr, n, m = st.nr, st.n, st.vmax * st.nq
+                ms = {
+                    BK: cuda_ms(lambda: matfree_node.sweep_matvec(st, arrs, XV, XK[:, :BK]), reps=5)
+                    for BK in (1, 10)
+                }
+                bound_ms, bound_by = matvec_bound(kernel, dtype, nr, n, m)
+                log(
+                    f"sweep_matvec {kernel} {name} {str(dtype)[6:]} rows={nr} cols={n} m={m}: "
+                    f"rel err {worst:.3e} (tol {tol:.0e}), same bits twice; "
+                    f"(1,1) {ms[1]:.3f} ms, (1,10) {ms[10]:.3f} ms, bound (1,1) {bound_ms:.3f} ms by {bound_by} "
+                    f"({nr * n * m / (ms[1] * 1e-3):.4e} interactions/s){materialized}"
+                )
+                if not worst <= tol:
+                    raise AssertionError(f"{kernel} sweep_matvec disagrees with its plain version on {name} {dtype}")
+                if main_shape:
+                    t0 = torch.cuda.Event(enable_timing=True)
+                    t1 = torch.cuda.Event(enable_timing=True)
+                    t0.record()
+                    matfree_node.sweep_matvec_reference(
+                        st, arrs, XV, XK[:, :1], row_tile=64, col_chunk=1024
+                    )
+                    t1.record()
+                    torch.cuda.synchronize()
+                    records[kernel] = dict(
+                        max_abs_err=abs_err,
+                        max_rel_err=worst,
+                        ms=ms[1],
+                        plain_ms=t0.elapsed_time(t1),
+                        bound_ms=bound_ms,
+                        bound_by=bound_by,
+                        # no one PyTorch call computes a fused sweep-matvec
+                        library_ms=None,
+                    )
+                del arrs, Vr, Kr, V, K, V2, K2
+                torch.cuda.empty_cache()
+            # the capacity shape whole: timed only (its plain version would
+            # take tens of seconds)
+            tables, _, sp, xq, normals, jxw = sweep_inputs(CAPACITY_REFINEMENTS, dtype, device, kernel)
+            st, arrs = matfree_node.build_sweep(tables, sp, xq, normals, jxw)
+            XV = torch.as_tensor(rng.standard_normal((3 * st.n, 1)), dtype=dtype, device=device)
+            XK = torch.as_tensor(rng.standard_normal((3 * st.n, 10)), dtype=dtype, device=device)
+            ms = {
+                BK: cuda_ms(lambda: matfree_node.sweep_matvec(st, arrs, XV, XK[:, :BK]), reps=3)
+                for BK in (1, 10)
+            }
+            nr, n, m = st.nr, st.n, st.vmax * st.nq
+            bound_ms, bound_by = matvec_bound(kernel, dtype, nr, n, m)
+            log(
+                f"sweep_matvec {kernel} sphere{CAPACITY_REFINEMENTS} {str(dtype)[6:]} rows={nr} cols={n} m={m}: "
+                f"(1,1) {ms[1]:.3f} ms, (1,10) {ms[10]:.3f} ms, bound (1,1) {bound_ms:.3f} ms by {bound_by} "
+                f"({nr * n * m / (ms[1] * 1e-3):.4e} interactions/s)"
+            )
+            if dtype == torch.float64:
+                records[kernel].update(capacity_ms=ms[1], capacity_bound_ms=bound_ms)
+            del arrs
+            torch.cuda.empty_cache()
+    return records
+
+
+def matfree_problem(device, kernel, refinements, **kw):
+    """StokesBEMProblem on create_sphere(refinements) for phase 5's
+    free-space (ImposedVelocity along x) or wall configuration."""
+    from bemstokes_tpu_torch.config import ProblemConfig
+    from bemstokes_tpu_torch.mesh import create_sphere
+    from bemstokes_tpu_torch.problem import StokesBEMProblem
+
+    if kernel == "free_space":
+        cfg = ProblemConfig(
+            grid_type="ImposedVelocity", imposed_component=0, force_pole="Origin",
+            body_manifold="sphere", **kw,
+        )
+    else:
+        cfg = wall_config(kernel, refinements, **kw)
+    return StokesBEMProblem(create_sphere(refinements=refinements), cfg, device=device)
+
+
+def solve_once(prob):
+    from bemstokes_tpu_torch.problem import result_to_numpy
+
+    if prob.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = prob.solve_frame(prob.initial_euler(), np.zeros(3 * prob.n))
+    if prob.device.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    keep = ("stokes_forces", "rigid_velocities", "rigid_forces_pole", "iterations", "converged",
+            "residual", "gmres_residual")
+    return {k: result_to_numpy(res[k]) for k in keep}, seconds
+
+
+def worst_rel(ra, rb):
+    """Largest relative difference of forces and rigid velocities."""
+    return max(
+        np.abs(ra[key] - rb[key]).max() / np.abs(rb[key]).max()
+        for key in ("stokes_forces", "rigid_velocities")
+    )
+
+
+def phase_matfree_small(matfree_node, device):
+    """Matrix-free frames on small spheres: the card against the CPU, where
+    the sweep runs its plain version (create_sphere(2): on the CPU one plain
+    sweep of create_sphere(3) takes seconds and a frame takes 50 to 70 of
+    them), and the card against itself on create_sphere(3)."""
+    from bemstokes_tpu_torch.config import SolverConfig
+
+    for kernel in MATVEC_KERNELS:
+        kw = dict(matrix_free=True, matfree_block_nodes=32, solver=SolverConfig(tolerance=1e-10))
+        zero_counts(matfree_node)
+        card, _ = solve_once(matfree_problem(device, kernel, 2, **kw))
+        launches = dict(matfree_node.launches)
+        host, _ = solve_once(matfree_problem("cpu", kernel, 2, **kw))
+        diff = worst_rel(card, host)
+        kw["matfree_block_nodes"] = 128
+        first, _ = solve_once(matfree_problem(device, kernel, 3, **kw))
+        again, _ = solve_once(matfree_problem(device, kernel, 3, **kw))
+        log(
+            f"matrix-free small input ({kernel}): create_sphere(2), card vs CPU max rel diff of forces "
+            f"and rigid velocities {diff:.3e} (tol 1e-10), iterations card {card['iterations']}, CPU "
+            f"{host['iterations']}, K5 launches {launches}; create_sphere(3) twice on the card: "
+            f"iterations {first['iterations']} and {again['iterations']}, max rel diff "
+            f"{worst_rel(again, first):.3e}"
+        )
+        if not (card["converged"] and host["converged"] and diff <= 1e-10):
+            raise AssertionError(f"matrix-free {kernel}: the card disagrees with the CPU")
+        if card["iterations"] != host["iterations"]:
+            raise AssertionError(f"matrix-free {kernel}: card and CPU iteration counts differ")
+        if not (first["converged"] and first["iterations"] == again["iterations"]):
+            raise AssertionError(f"matrix-free {kernel}: two runs on the card took different iterations")
+        if launches[kernel] < card["iterations"] or sum(launches.values()) != launches[kernel]:
+            raise AssertionError(f"matrix-free {kernel}: unexpected K5 launches {launches}")
+
+
+def phase_matfree_vs_materialized(matfree_node, node_kernel, device):
+    """18,444 unknowns: each Green's function solved materialized and
+    matrix-free; returns K5's launches per Green's function."""
+    from bemstokes_tpu_torch.config import SolverConfig
+
+    out = {}
+    for kernel in MATVEC_KERNELS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        solver = SolverConfig(tolerance=1e-11)
+        dense, t_dense = solve_once(matfree_problem(device, kernel, REFINEMENTS, solver=solver))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(matfree_node, node_kernel)
+        free, t_free = solve_once(
+            matfree_problem(device, kernel, REFINEMENTS, solver=solver, matrix_free=True)
+        )
+        launches = dict(matfree_node.launches)
+        diff = worst_rel(free, dense)
+        log(
+            f"matrix-free vs materialized ({kernel}, 18,444 unknowns, f64, tolerance 1e-11): max rel "
+            f"diff of forces and rigid velocities {diff:.3e} (tol 1e-7); matrix-free {t_free:.3f} s, "
+            f"{free['iterations']} iterations, converged {free['converged']}, residual "
+            f"{free['residual']:.3e}; materialized {t_dense:.3f} s, {dense['iterations']} iterations; "
+            f"K5 launches {launches}, block assemblies {dict(node_kernel.launches)}, "
+            f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
+        )
+        if not (free["converged"] and dense["converged"] and diff <= 1e-7):
+            raise AssertionError(f"matrix-free {kernel} frame disagrees with the materialized frame")
+        if launches[kernel] < free["iterations"] or sum(launches.values()) != launches[kernel]:
+            raise AssertionError(f"matrix-free {kernel}: unexpected K5 launches {launches}")
+        out[kernel] = launches[kernel]
+    return out
+
+
+def phase_capacity(matfree_node, device):
+    """The 73,740-unknown frame, f64 and f32, twice each; returns K5's
+    launches in the f64 run."""
+    from bemstokes_tpu_torch.config import SolverConfig
+
+    settings = {
+        "float64": (SolverConfig(), 1e-4),
+        "float32": (
+            SolverConfig(
+                preconditioner_dtype="float32", gmres_restart=25, tolerance=3e-5, max_steps=200
+            ),
+            DRAG_TOL,
+        ),
+    }
+    out = {}
+    for dtype, (solver, drag_tol) in settings.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(matfree_node)
+        prob = matfree_problem(
+            device, "free_space", CAPACITY_REFINEMENTS, dtype=dtype, solver=solver,
+            matrix_free=True, matfree_block_nodes=1024,
+        )
+        unknowns = 3 * prob.n + prob.num_rigid
+        if (prob.n, unknowns) != (24578, 73740):
+            raise AssertionError(f"capacity frame: {prob.n} nodes, {unknowns} unknowns")
+        frames = [solve_once(prob) for _ in range(2)]
+        launches = dict(matfree_node.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # the operator action alone, as the GMRES loop calls it
+        solver_state = prob._matfree
+        sys_state, _, _ = solver_state._setup(prob.initial_euler(), np.zeros(3 * prob.n), None)
+        mv = solver_state._matvec(sys_state)
+        mv_ms = cuda_ms(lambda: mv(sys_state["rhs"]), reps=3)
+        m = solver_state.st.vmax * solver_state.st.nq
+        for k, (res, seconds) in enumerate(frames):
+            err = float(abs(abs(res["rigid_forces_pole"][0]) - 6 * np.pi) / (6 * np.pi))
+            log(
+                f"capacity frame {dtype} nodes={prob.n} unknowns={unknowns} frame {k}: {seconds:.3f} s, "
+                f"{res['iterations']} iterations, converged {res['converged']}, residual "
+                f"{res['residual']:.3e}, drag error {err:.4e} (tol {drag_tol:.1e})"
+            )
+            finite = bool(np.isfinite(res["stokes_forces"]).all() and np.isfinite(res["rigid_velocities"]).all())
+            if not (finite and err <= drag_tol and (res["converged"] or dtype == "float32")):
+                raise AssertionError(f"capacity frame {dtype} failed: {res['iterations']} iterations, drag error {err}")
+        log(
+            f"capacity frame {dtype}: matvec {mv_ms / 1e3:.4f} s "
+            f"({prob.n * prob.n * m / (mv_ms * 1e-3):.4e} interactions/s), K5 launches in two frames "
+            f"{launches}, max_memory_allocated {peak:.3f} GiB; one materialized operator would be "
+            f"{(3 * prob.n) ** 2 * torch.finfo(prob.asm_cfg.dtype).bits / 8 / 1e9:.1f} GB"
+        )
+        if launches["free_space"] < frames[0][0]["iterations"] or sum(launches.values()) != launches["free_space"]:
+            raise AssertionError(f"capacity frame {dtype}: unexpected K5 launches {launches}")
+        out[dtype] = launches["free_space"]
+        del prob, solver_state, sys_state, mv
+    return out["float64"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    from bemstokes_tpu_torch.ops import node_kernel
+    from bemstokes_tpu_torch.ops import cuda_build, matfree_node, node_kernel
 
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
-    phase_versions(node_kernel)
-    phase_build(node_kernel)
+    phase_versions(cuda_build)
+    phase_build(cuda_build)
     records = phase_kernel_vs_plain(node_kernel, device)
     phase_small_reference(device)
     launches = {"free_space": phase_free_space_path(node_kernel, device)}
     launches.update(phase_wall_paths(node_kernel, device))
     phase_float32(device)
+    matvec_records = phase_matvec_vs_plain(matfree_node, node_kernel, device)
+    phase_matfree_small(matfree_node, device)
+    matvec_launches = phase_matfree_vs_materialized(matfree_node, node_kernel, device)
+    # K5's free-space count is the capacity frame's: its main path
+    matvec_launches["free_space"] = phase_capacity(matfree_node, device)
     kernels = [
         dict(route="cuda", launches=launches[kernel], **KERNELS[kernel], **records[kernel])
         for kernel in KERNELS
+    ] + [
+        dict(
+            route="cuda",
+            launches=matvec_launches[kernel],
+            **MATVEC_KERNELS[kernel],
+            **matvec_records[kernel],
+        )
+        for kernel in MATVEC_KERNELS
     ]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(card_line())

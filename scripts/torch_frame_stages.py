@@ -3,6 +3,7 @@
 
     python3 scripts/torch_frame_stages.py [--kernel no_slip|free_surface|free_space]
                                           [--refinements 5] [--frames 3]
+                                          [--matrix-free [--block-nodes 1024]]
 
 Runs `SwimmerSimulation(...).run(0, frames)` of bemstokes_tpu_torch for the
 unit sphere 2 radii above the image plane (chip_smoke.py's configuration) on
@@ -13,7 +14,12 @@ and their sum is close to the frame), and the frame-loop work around the
 solve (geometry, state, result files).  Frame 0 factors a fresh LU; later
 frames reuse it.  Two frames of a 98-node sphere run first, untimed, so that
 frame 0 does not pay the process's one-time CUDA set-up (`--no-warmup`
-leaves them out).  Prints the card's name and power limit first.
+leaves them out).  With `--matrix-free` the frames take the matrix-free
+solve (`matfree.py`) and the stages are its own: the setup sweep, the block
+factors, the Schur tail, GMRES and the finish, with the K5 sweeps inside the
+setup and GMRES also summed on their own; `--refinements 6` is the
+73,740-unknown shape that no materialized path holds on one card.  Prints
+the card's name and power limit first.
 """
 
 import argparse
@@ -29,6 +35,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+import bemstokes_tpu_torch.matfree as matfree  # noqa: E402
 import bemstokes_tpu_torch.ops.assemble as asm  # noqa: E402
 import bemstokes_tpu_torch.problem as problem  # noqa: E402
 import bemstokes_tpu_torch.swimmer as swimmer  # noqa: E402
@@ -56,6 +63,8 @@ def main():
     ap.add_argument("--refinements", type=int, default=5)
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--no-warmup", action="store_true")
+    ap.add_argument("--matrix-free", action="store_true")
+    ap.add_argument("--block-nodes", type=int, default=1024)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_frame_stages: no CUDA device; nothing was run", file=sys.stderr)
@@ -80,13 +89,28 @@ def main():
         consider_rigid_displacements=True,
         rigid_displacement_axes=(True, True, True),
         time_step=5.0,
+        matrix_free=args.matrix_free,
+        matfree_block_nodes=args.block_nodes,
     )
     if not args.no_warmup:
         with tempfile.TemporaryDirectory() as out:
             small = dataclasses.replace(cfg, internal_sphere_refinements=2)
             swimmer.SwimmerSimulation(small, out).run(0, 2)
     stages = {}
+    # stages that run inside another named stage: left out of the sum
+    nested = set()
+    if args.matrix_free:
+        nested = {"K5 sweeps (within setup and GMRES)", "L2 normal (CG, within setup)"}
+        mf_cls = matfree.MatfreeSolver
+        mf_cls._setup = timed(stages, "setup sweep (geometry, COO deltas, one batched K5 sweep)", mf_cls._setup)
+        mf_cls._build_blocks = timed(stages, "block factors (assemble_rows + LU per block)", mf_cls._build_blocks)
+        mf_cls._schur = timed(stages, "Schur tail", mf_cls._schur)
+        mf_cls._gmres = timed(stages, "GMRES (K5 matvecs, block solves)", mf_cls._gmres)
+        matfree.sweep_matvec = timed(stages, "K5 sweeps (within setup and GMRES)", matfree.sweep_matvec)
+        matfree.normal_vector_l2 = timed(stages, "L2 normal (CG, within setup)", matfree.normal_vector_l2)
     # the stages of one solve_frame, by the module attribute each is called through
+    if args.matrix_free:
+        nested |= {"node sweep kernel", "column sample tables", "singular delta", "near delta"}
     asm.node_sweep = timed(stages, "node sweep kernel", asm.node_sweep)
     asm.node_sweep_inputs = timed(stages, "column sample tables", asm.node_sweep_inputs)
     asm._add_singular_rows = timed(stages, "singular delta", asm._add_singular_rows)
@@ -115,10 +139,8 @@ def main():
             torch.cuda.synchronize()
             total = time.perf_counter() - t0
             solve = stages["solve_frame, whole"]
-            named = sum(
-                v for k, v in stages.items()
-                if k not in ("solve_frame, whole", "result, state and VTU files", "frame geometry (host)")
-            )
+            outside = {"solve_frame, whole", "result, state and VTU files", "frame geometry (host)"}
+            named = sum(v for k, v in stages.items() if k not in outside | nested)
             stages["solve_frame, rest (geometry, rigid modes, projections)"] = solve - named
             stages["frame, whole"] = total
             print(

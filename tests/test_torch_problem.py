@@ -183,14 +183,15 @@ def test_solve_directly_matches_jax():
     "change",
     [
         dict(monolithic=False),
-        dict(matrix_free=True),
         dict(print_matrices=True),
         dict(solver=SolverConfig(preconditioner_type="ILU")),
         dict(solver=SolverConfig(preconditioner_type="Jacobi")),
     ],
-    ids=["resistance", "matrix_free", "print_matrices", "ilu", "jacobi"],
+    ids=["resistance", "print_matrices", "ilu", "jacobi"],
 )
 def test_unported_solve_branches_raise(change):
+    """The matrix-free solve left this list when `matfree.py` and K5 were
+    ported (tests/test_torch_matfree.py)."""
     cfg = from_dict(dataclasses.asdict(ProblemConfig(**change)))
     pt = ProblemT(fac_t.create_sphere(refinements=1), cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -402,10 +402,12 @@ def test_unported_simulations_raise(change, tmp_path):
 
 @pytest.mark.parametrize(
     "change",
-    [dict(matrix_free=True), dict(solver=SolverConfig(preconditioner_type="Jacobi"))],
-    ids=["matrix_free", "jacobi"],
+    [dict(monolithic=False), dict(solver=SolverConfig(preconditioner_type="Jacobi"))],
+    ids=["resistance", "jacobi"],
 )
 def test_unported_solves_raise_in_the_loop(change, tmp_path):
+    """The matrix-free loop left this list when it was ported
+    (tests/test_torch_matfree.py)."""
     cfg = from_dict(dataclasses.asdict(sphere_cfg("no_slip", 1, **change)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SimT(cfg, str(tmp_path), device="cpu").run(0, 1)
