@@ -14,9 +14,12 @@ paths and public names (`ops/assemble.py`, `StokesBEMProblem`,
   written for sm_90a (`ops/node_kernel.py`; `csrc/node_sweep.cu` for free
   space, `csrc/node_sweep_image.cu` for the free-surface and no-slip wall
   images), the ports of the Pallas node sweep
-  `bemstokes_tpu/ops/pallas_node.py`;
-- the entry points (`StokesBEMProblem`, `SwimmerSimulation`) run on the CUDA
-  card unless the caller passes `device="cpu"`.
+  `bemstokes_tpu/ops/pallas_node.py`; the matrix-free matvec
+  (`ops/matfree_node.py`, `csrc/sweep_matvec.cu`) and the slot kernel of the
+  gather assembly (`ops/slot_kernel.py`, `csrc/tile_slots.cu`) likewise;
+- the entry points (`StokesBEMProblem`, `SwimmerSimulation`, the command
+  line `python -m bemstokes_tpu_torch`) run on the CUDA card unless the
+  caller passes `device="cpu"` (`--device cpu`).
 
 Float32 matrix products stay in full float32: TF32 keeps about three decimal
 digits, which BEM conditioning cannot absorb (the JAX package forces

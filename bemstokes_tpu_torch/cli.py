@@ -1,0 +1,122 @@
+"""Command-line entry point (port of `bemstokes_tpu/cli.py`) — the analog of the
+reference executables `bem_stokes_2d/3d [start_frame [end_frame [compose]]]`
+(`source/main.cc:5-74`).
+
+Usage:
+    python -m bemstokes_tpu_torch run   [-p params.{json,prm}] [start [end]] [-o DIR] [--device cuda|cpu]
+    python -m bemstokes_tpu_torch compose [-p params] start end [-o DIR]   # offline re-aggregation
+    python -m bemstokes_tpu_torch params [-p out.json] [--dim 2|3]         # write a template
+                                                        # (reference main.cc:34-37
+                                                        # auto-generates a prm)
+
+Like the reference, `run` executes the frame loop start..end and writes
+per-frame VTU + checkpoint state to the output directory; `compose` re-reads
+those dumps and aggregates composed motion (reference `composer`,
+`source/bem_stokes.cc:5951-6046`).
+
+The frame solves run on the CUDA card; `--device cpu` asks for the plain
+torch versions on the CPU, and without a card and without that option the
+command fails.  The JAX command line's `--platform` is this `--device`.  Its
+persistent compilation cache, `--profile` (a `jax.profiler` trace) and
+multi-host start-up have no counterpart here: torch runs eagerly, the
+per-phase timers print at the end of a run, and the port has no distributed
+path yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+
+def _build_parser():
+    p = argparse.ArgumentParser(prog="bemstokes_tpu_torch", description=__doc__)
+    sub = p.add_subparsers(dest="command", required=True)
+
+    def common(sp):
+        sp.add_argument("-p", "--params", default=None, help="params .json or .prm")
+        sp.add_argument("--dim", type=int, default=3, choices=(2, 3))
+        sp.add_argument("-o", "--output-dir", default=".")
+        sp.add_argument(
+            "--device",
+            default="cuda",
+            choices=("cuda", "cpu"),
+            help="where the frame solves run: the CUDA card (default; an error "
+            "without one) or the CPU (plain torch versions of every kernel, "
+            "for a host-only validation run)",
+        )
+
+    run = sub.add_parser("run", help="run the frame-loop simulation")
+    common(run)
+    run.add_argument("start_frame", nargs="?", type=int, default=0)
+    run.add_argument("end_frame", nargs="?", type=int, default=None)
+
+    comp = sub.add_parser("compose", help="offline composition of saved frames")
+    common(comp)
+    comp.add_argument("start_frame", type=int)
+    comp.add_argument("end_frame", type=int)
+
+    par = sub.add_parser("params", help="write a template parameter file")
+    par.add_argument("-p", "--params", default="parameters_3d.json")
+    par.add_argument("--dim", type=int, default=3, choices=(2, 3))
+
+    conv = sub.add_parser(
+        "convergence",
+        help="fundamental-solution convergence study over n_cycles "
+        "refinements (reference V_test_with_Green family); not ported yet",
+    )
+    common(conv)
+    conv.add_argument("--cycles", type=int, default=None, help="override n_cycles")
+    conv.add_argument("--source", type=float, nargs="+", default=None)
+    return p
+
+
+def main(argv=None):
+    args = _build_parser().parse_args(argv)
+
+    from .config import ProblemConfig
+    from .config_io import load_config, save_config
+
+    if args.command == "params":
+        cfg = ProblemConfig(dim=args.dim)
+        save_config(cfg, args.params)
+        print(f"wrote template parameters to {args.params}")
+        return 0
+
+    if args.command == "convergence":
+        raise NotImplementedError(
+            "the convergence study is not ported yet (ROADMAP.md: convergence.py, "
+            "module 6)"
+        )
+
+    if args.params:
+        cfg = load_config(args.params, dim=args.dim)
+        cfg.dim = args.dim
+    else:
+        # reference behavior: missing parameter file -> write the template
+        # and proceed with defaults (source/main.cc:34-37)
+        cfg = ProblemConfig(dim=args.dim)
+        path = os.path.join(args.output_dir, f"parameters_{args.dim}d.json")
+        os.makedirs(args.output_dir, exist_ok=True)
+        save_config(cfg, path)
+        print(f"no parameter file given; wrote defaults to {path}", file=sys.stderr)
+
+    from .swimmer import SwimmerSimulation
+
+    # "cuda" is the entry points' default device (None): it raises without a
+    # card and never carries on on the CPU by itself
+    device = "cpu" if args.device == "cpu" else None
+    sim = SwimmerSimulation(cfg, output_dir=args.output_dir, device=device)
+    if args.command == "run":
+        end = args.end_frame if args.end_frame is not None else cfg.n_frames
+        sim.run(args.start_frame, end)
+    else:
+        sim.compose(args.start_frame, args.end_frame)
+    # echo the fully-expanded parameters (used_parameters_*.prm analog)
+    save_config(cfg, os.path.join(args.output_dir, f"used_parameters_{args.dim}d.json"))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

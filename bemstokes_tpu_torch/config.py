@@ -215,11 +215,19 @@ class ProblemConfig:
     matfree_backend: str | None = None
     # numerics
     dtype: str = "float64"
+    # the JAX package's XLA tile sizes; passed on and read by nothing in the
+    # port (its row blocks are sized from memory, `ops/assemble.py`)
     row_tile: int = 32
     cell_chunk: int = 256
-    # JAX assembly knobs, unread by the torch port: it always runs the
-    # node-mode assembly (the K1 kernel on a CUDA tensor, its plain torch
-    # version on a CPU tensor); mixed_precision_bulk raises there
+    # the bulk of the dense assembly.  The JAX package's names ("jax",
+    # "auto", "pallas", "pallas_interpret") and "node" run the port's node
+    # mode (the K1, K2, K3 kernels on a CUDA tensor, their plain torch
+    # version on a CPU tensor); "gather" runs the panel-centric slot path
+    # (K6 in free space: the JAX package's default column mode), "scatter"
+    # its plain index-add oracle and "node_planes" the node mode through the
+    # component-major kernel K4 (`problem.ASSEMBLY_BACKENDS`).  The
+    # matrix-free solve always builds its block factors in node mode.
+    # pallas_reduce is unread by the port; mixed_precision_bulk raises there
     assembly_backend: str = "jax"
     mixed_precision_bulk: bool = False
     pallas_reduce: str = "gemm"

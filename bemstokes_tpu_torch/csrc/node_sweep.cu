@@ -1,10 +1,14 @@
-// K1: the free-space node sweep of the dense single-layer (V) and
+// K1 and K4: the free-space node sweep of the dense single-layer (V) and
 // double-layer (K) collocation operators, for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel bemstokes_tpu/ops/pallas_node.py:129
+// K1 replaces the Pallas TPU kernel bemstokes_tpu/ops/pallas_node.py:129
 // `_node_kernel_t` with kernel="free_space" (launched through
-// `pallas_node_blocks`, ops/assemble.py:725).  Its plain torch version is
-// `node_sweep_reference` in bemstokes_tpu_torch/ops/node_kernel.py.
+// `pallas_node_blocks`, ops/assemble.py:725).  K4 replaces its rows-in-lanes
+// twin bemstokes_tpu/ops/pallas_node.py:46 `_node_kernel`
+// (`pallas_node_blocks(transposed=False)`): the same sums, written
+// component-major as [9, n, nr] with the rows contiguous.  Their plain torch
+// version is `node_sweep_reference` in
+// bemstokes_tpu_torch/ops/node_kernel.py.
 //
 // What it computes.  For every collocation row i (point xi[i]) and column
 // node j, over the m = vmax*nq quadrature samples s of the panels incident
@@ -19,6 +23,15 @@
 // assembly subtracts the same dummy value, so the pair cancels exactly.
 // V and K are written straight into the component-blocked dense layout
 // [3 nr, 3 n], entry (a*nr + i, b*n + j) — no [9, R, C] intermediate.
+// K4 (the `PLANES` instantiation) runs the same sample loop, so its sums
+// have K1's bits, and stores plane 3a + b, column j, row i at
+// ((3a + b) * n + j) * nr + i.  A thread's rows are not neighbours of its
+// warp's (the warp walks columns), so a block passes three planes at a time
+// through the shared memory of its sample tile and writes them with its
+// threads walking rows: ROWS_PER_BLOCK consecutive rows a column.  Of the
+// TPU kernel's layout nothing else is kept: no ones-matrix q-sum, no
+// multiples of 128, and 1/(8 pi) stays in the sums rather than in the
+// weights (which would change K1's bits).
 //
 // What bounds it.  At the 6,146-node sphere (m = 64) one assembly is
 // 6146^2 * 64 = 2.42e9 interactions of ~50 flops plus one rsqrt each,
@@ -38,7 +51,8 @@
 //
 // Interface: plain C, loaded with ctypes.  All arrays are contiguous and of
 // one type T (float or double):
-//   xi [nr, 3], Y [n, m, 3], N [n, m, 3], W [n, m]; V, K [3 nr, 3 n] (out).
+//   xi [nr, 3], Y [n, m, 3], N [n, m, 3], W [n, m]; V, K [3 nr, 3 n] (out;
+//   `node_sweep_planes_*`: [9, n, nr]).
 // Launches on `stream`, does not synchronise, and returns cudaGetLastError().
 
 #include "node_sweep_common.cuh"
@@ -47,7 +61,7 @@ namespace {
 
 using namespace node_sweep;
 
-template <typename T>
+template <typename T, bool PLANES>
 __global__ void __launch_bounds__(TJ* TI)
     node_sweep_kernel(const T* __restrict__ xi, const T* __restrict__ Y,
                       const T* __restrict__ N, const T* __restrict__ W,
@@ -116,6 +130,42 @@ __global__ void __launch_bounds__(TJ* TI)
     }
   }
 
+  if constexpr (PLANES) {
+    // K4: three planes (one row a of the 3x3 block) at a time, transposed
+    // through the sample tile's shared memory
+    static_assert(sizeof(SampleTile<T>) >=
+                      3 * ROWS_PER_BLOCK * (TJ + 1) * sizeof(T),
+                  "the sample tile must hold three staged planes");
+    T(*out)[ROWS_PER_BLOCK][TJ + 1] =
+        reinterpret_cast<T(*)[ROWS_PER_BLOCK][TJ + 1]>(&tile);
+#pragma unroll
+    for (int pass = 0; pass < 6; ++pass) {
+      const int a = pass % 3;
+      const bool is_k = pass >= 3;
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+#pragma unroll
+        for (int b = 0; b < 3; ++b) {
+          const T vab = v[r][ut(a, b)];
+          out[b][r * TI + ty][tx] =
+              is_k ? -k[r][ut(a, b)] : (a == b ? vab + vd[r] : vab);
+        }
+      }
+      __syncthreads();
+      T* __restrict__ dst = is_k ? K : V;
+      for (int e = tid; e < 3 * TJ * ROWS_PER_BLOCK; e += TJ * TI) {
+        const int lr = e % ROWS_PER_BLOCK;
+        const int c = (e / ROWS_PER_BLOCK) % TJ;
+        const int b = e / (ROWS_PER_BLOCK * TJ);
+        const int64_t i = i0 + lr;
+        const int64_t jc = j0 + c;
+        if (i < nr && jc < n) dst[((3 * a + b) * n + jc) * nr + i] = out[b][lr][c];
+      }
+    }
+    return;
+  }
+
   const int64_t j = j0 + tx;
   if (j >= n) return;
   const int64_t ld = 3 * n;
@@ -137,7 +187,7 @@ __global__ void __launch_bounds__(TJ* TI)
   }
 }
 
-template <typename T>
+template <typename T, bool PLANES>
 int launch(const T* xi, const T* Y, const T* N, const T* W, T* V, T* K,
            int64_t nr, int64_t n, int64_t m, void* stream) {
   if (nr <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
@@ -145,7 +195,8 @@ int launch(const T* xi, const T* Y, const T* N, const T* W, T* V, T* K,
   const dim3 grid(static_cast<unsigned>((n + TJ - 1) / TJ),
                   static_cast<unsigned>((nr + ROWS_PER_BLOCK - 1) /
                                         ROWS_PER_BLOCK));
-  node_sweep_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  node_sweep_kernel<T, PLANES>
+      <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       xi, Y, N, W, V, K, nr, n, m);
   return static_cast<int>(cudaGetLastError());
 }
@@ -154,22 +205,20 @@ int launch(const T* xi, const T* Y, const T* N, const T* W, T* V, T* K,
 
 extern "C" {
 
-int node_sweep_f32(const void* xi, const void* Y, const void* N,
-                   const void* W, void* V, void* K, int64_t nr, int64_t n,
-                   int64_t m, void* stream) {
-  return launch(static_cast<const float*>(xi), static_cast<const float*>(Y),
-                static_cast<const float*>(N), static_cast<const float*>(W),
-                static_cast<float*>(V), static_cast<float*>(K), nr, n, m,
-                stream);
-}
+#define NODE_SWEEP_ENTRY(name, T, PLANES)                                      \
+  int name(const void* xi, const void* Y, const void* N, const void* W,        \
+           void* V, void* K, int64_t nr, int64_t n, int64_t m, void* stream) { \
+    return launch<T, PLANES>(                                                  \
+        static_cast<const T*>(xi), static_cast<const T*>(Y),                   \
+        static_cast<const T*>(N), static_cast<const T*>(W),                    \
+        static_cast<T*>(V), static_cast<T*>(K), nr, n, m, stream);             \
+  }
 
-int node_sweep_f64(const void* xi, const void* Y, const void* N,
-                   const void* W, void* V, void* K, int64_t nr, int64_t n,
-                   int64_t m, void* stream) {
-  return launch(static_cast<const double*>(xi), static_cast<const double*>(Y),
-                static_cast<const double*>(N), static_cast<const double*>(W),
-                static_cast<double*>(V), static_cast<double*>(K), nr, n, m,
-                stream);
-}
+NODE_SWEEP_ENTRY(node_sweep_f32, float, false)
+NODE_SWEEP_ENTRY(node_sweep_f64, double, false)
+NODE_SWEEP_ENTRY(node_sweep_planes_f32, float, true)
+NODE_SWEEP_ENTRY(node_sweep_planes_f64, double, true)
+
+#undef NODE_SWEEP_ENTRY
 
 }  // extern "C"

@@ -180,21 +180,25 @@ def add_walls_to_mesh(mesh: SurfaceMesh, cfg) -> SurfaceMesh:
     cyl = getattr(cfg, "cylinder", None)
     if cyl is not None and (cyl.create or cyl.import_mesh):
         if cyl.import_mesh:
-            # the mesh-file readers (bemstokes_tpu/mesh/io.py) are not
-            # ported yet
-            raise NotImplementedError(
-                "cylinder.import_mesh needs the mesh-file readers, not "
-                "ported yet (ROADMAP.md)"
+            from .io import read_mesh
+
+            cw = read_mesh(cyl.mesh_filename, dim=3)
+            cw = SurfaceMesh(
+                cw.vertices,
+                cw.cells,
+                np.full(cw.n_cells, WALL_TYPE_TO_MATERIAL[cyl.wall_type], np.int32),
+                np.full(cw.n_cells, bool(cyl.flip_normal)),
             )
-        cw = create_cylindrical_wall(
-            cyl.radius,
-            cyl.height,
-            cyl.direction,
-            cyl.point_on_axis,
-            cyl.wall_type,
-            cyl.flip_normal,
-            apply_manifold=cyl.apply_manifold,
-        )
+        else:
+            cw = create_cylindrical_wall(
+                cyl.radius,
+                cyl.height,
+                cyl.direction,
+                cyl.point_on_axis,
+                cyl.wall_type,
+                cyl.flip_normal,
+                apply_manifold=cyl.apply_manifold,
+            )
         mesh = mesh.merged_with(cw)
     wr = getattr(cfg, "wall_refinement", None)
     if wr is not None and wr.enabled:

@@ -6,23 +6,38 @@ Layout: for a scalar space with n nodes in dim-d space, V and K are dense
 [d*n, d*n] with component-blocked indices (a*n + i, b*n + j), matching the
 reference's `i + c*N/dim` layout.
 
-The port always runs the JAX package's node mode (`column_mode="node"`):
+`AssemblyConfig.column_mode` picks the formulation of the smooth bulk, as in
+the JAX package; the port's default is "node" (the JAX package's is
+"gather"):
 
-- bulk: every column node's incident panel quadrature is gathered once per
-  frame (`node_column_samples`), then a pure pairwise sweep of collocation
-  rows against those samples gives the dense smooth-rule operators —
-  `ops.node_kernel.node_sweep`, a CUDA kernel (K1, K2 or K3) on a CUDA
-  tensor and its plain torch version on a CPU tensor;
-- singular delta: own-cell pairs were swept with the smooth rule; the
+- "node": every column node's incident panel quadrature is gathered once
+  per frame (`node_column_samples`), then a pure pairwise sweep of
+  collocation rows against those samples gives the dense smooth-rule
+  operators — `ops.node_kernel.node_sweep`, a CUDA kernel (K1, K2 or K3; K4
+  with `node_layout="planes"`) on a CUDA tensor and its plain torch version
+  on a CPU tensor.  Own-cell pairs were swept with the smooth rule; the
   batched singular path adds (singular - smooth) per (cell, local node) as
   COO triplets (`_singular_coo(subtract_smooth=True)`);
-- near delta: under adaptive quadrature (auto-promotion on near contact) the
-  `near_panels` nearest panels of each row are upgraded from the far rule to
-  the full rule, again as COO triplets (`_near_coo`).
+- "gather": panel-centric.  Per row block the Green's functions are
+  evaluated once per (row, panel quadrature point) and contracted with the
+  panel's weighted shape values into slot tensors [Nc*nl, 9, T], own-cell
+  pairs masked — `ops.slot_kernel.tile_slots`, the CUDA kernel K6 on a CUDA
+  tensor in free space, plain torch for the image Green's functions (which
+  the JAX package keeps on its XLA path too) — and one incidence
+  gather-reduce maps slot (c, l) to node column cells_fe[c, l].  The
+  singular path then adds the singular-rule integrals themselves
+  (`subtract_smooth=False`);
+- "scatter": the same slot tensors from the plain torch version on every
+  device, reduced by an index-add over the slots' column nodes: the oracle
+  of the other two.
+
+In every mode, under adaptive quadrature (auto-promotion on near contact)
+the `near_panels` nearest panels of each row are upgraded from the far rule
+to the full rule as COO triplets (`_near_coo`).
 
 With an image kernel (`AssemblyConfig.kernel` "free_surface" or "no_slip",
-wall plane x[wall_axis] = wall_position) the bulk runs K2 or K3 and both
-deltas evaluate the same image Green's functions (`kernels/images.py`) at
+wall plane x[wall_axis] = wall_position) the node bulk runs K2 or K3 and
+both deltas evaluate the same image Green's functions (`kernels/images.py`) at
 the mirrored collocation point.
 
 The host-side tables (`build_assembly_tables`, `_singular_rules`) are a copy
@@ -52,9 +67,18 @@ from .node_kernel import (
     KERNEL_FREE_SPACE,
     KERNEL_FREE_SURFACE,
     KERNEL_NO_SLIP,
+    LAYOUT_DENSE,
+    LAYOUT_PLANES,
     eval_G_Wn,
     node_sweep,
+    planes_to_dense,
 )
+from .slot_kernel import tile_slots, tile_slots_reference
+
+COLUMN_MODES = ("node", "gather", "scatter")
+#: bytes the two slot tensors of one "gather"/"scatter" row block may take
+#: together; it sets the rows per block
+SLOT_BLOCK_BYTES = 2 * 1024**3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +96,20 @@ class AssemblyConfig:
     near_panels: int = 32
     singular_quadrature_order: int = 5
     singular_quadrature_type: str = "Mixed"  # Mixed | Duffy | Telles
+    # the JAX package's XLA tile sizes; accepted so that configs convert and
+    # read by nothing: the port sizes its row blocks from SLOT_BLOCK_BYTES
+    # and its plain versions chunk by their own arguments
+    row_tile: int = 32
+    cell_chunk: int = 256
     dtype: torch.dtype = torch.float64
+    # formulation of the smooth bulk: "node" | "gather" | "scatter" (see the
+    # module docstring)
+    column_mode: str = "node"
+    # output layout of the node-mode sweep: "dense" (K1, K2, K3) or "planes"
+    # (K4: component-major [9, n, nr], brought to the dense form afterwards;
+    # free space only).  The counterpart of the JAX package's environment
+    # variable BEMSTOKES_PALLAS_NODE_LAYOUT
+    node_layout: str = LAYOUT_DENSE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,6 +280,8 @@ def _check_slice(cfg: AssemblyConfig):
         )
     if cfg.kernel not in (KERNEL_FREE_SPACE, KERNEL_FREE_SURFACE, KERNEL_NO_SLIP):
         raise ValueError(cfg.kernel)
+    if cfg.column_mode not in COLUMN_MODES:
+        raise ValueError(f"column_mode must be one of {COLUMN_MODES}, got {cfg.column_mode!r}")
 
 
 def scatter_coo(M: torch.Tensor, ri, ci, vals) -> torch.Tensor:
@@ -285,8 +324,8 @@ def assemble_rows(
     tables: AssemblyTables,
 ):
     """Row-block assembly: (V, K) [d*nr, d*n] for a contiguous block of
-    collocation nodes — the node-mode dense pass plus the near and singular
-    COO deltas."""
+    collocation nodes — the smooth bulk in the configured column mode plus
+    the near and singular COO deltas."""
     cfg = tables.cfg
     _check_slice(cfg)
     dt = cfg.dtype
@@ -294,16 +333,116 @@ def assemble_rows(
     support_pts = support_pts.to(dt)
     xi = xi.to(dt)
     nr = xi.shape[0]
-    V, K = node_sweep(
-        *node_sweep_inputs(euler, xi, tables),
-        kernel=cfg.kernel,
-        wall_axis=cfg.wall_axis,
-        wall_position=cfg.wall_position,
-    )
+    node_mode = cfg.column_mode == "node"
+    if node_mode:
+        V, K = node_sweep(
+            *node_sweep_inputs(euler, xi, tables),
+            kernel=cfg.kernel,
+            wall_axis=cfg.wall_axis,
+            wall_position=cfg.wall_position,
+            layout=cfg.node_layout,
+        )
+        if cfg.node_layout == LAYOUT_PLANES:
+            V, K = planes_to_dense(V), planes_to_dense(K)
+    else:
+        V, K = _panel_bulk(euler, xi, node_ids, tables)
     V, K = _add_near_corrections(V, K, euler, support_pts, xi, node_ids, tables, nr)
+    # node mode swept own-cell pairs with the smooth rule, the panel-centric
+    # modes masked them
     return _add_singular_rows(
-        V, K, euler, support_pts, tables, r0, nr, subtract_smooth=True
+        V, K, euler, support_pts, tables, r0, nr, subtract_smooth=node_mode
     )
+
+
+def smooth_panel_geometry(euler: torch.Tensor, tables: AssemblyTables):
+    """(xq [Nc, nq, d], unit normals [Nc, nq, d], JxW [Nc, nq]) of every panel
+    on the smooth (dense-pass) rule under the geometry `euler`, in the tables'
+    dtype."""
+    euler = euler.to(tables.cfg.dtype)
+    return panel_geometry(
+        euler[_t(tables.cells_nodes_map, euler, torch.long)],
+        _t(tables.phi_map, euler),
+        _t(tables.dphi_map, euler),
+        _t(tables.q_weights, euler),
+        _t(tables.flip_sign, euler),
+        ambient_dim=tables.cfg.dim,
+    )
+
+
+def slot_block_rows(tables: AssemblyTables) -> int:
+    """Rows per block of the panel-centric modes: the most for which the two
+    slot tensors [Nc*nl, 9, T] stay within SLOT_BLOCK_BYTES together, in
+    whole multiples of 128 (the kernel's rows per thread block) once there is
+    room for that."""
+    Nc, nl = tables.cells_nodes_fe.shape
+    item = torch.finfo(tables.cfg.dtype).bits // 8
+    rows = max(1, SLOT_BLOCK_BYTES // (2 * Nc * nl * 9 * item))
+    return rows // 128 * 128 if rows >= 128 else rows
+
+
+def slot_inputs(euler: torch.Tensor, tables: AssemblyTables):
+    """The panel arguments (xq, nrm, wphi) of `tile_slots` under the geometry
+    `euler`: the smooth-rule quadrature points and unit normals [Nc, nq, 3]
+    and the JxW-weighted shape values [Nc, nq, nl], contiguous, in the
+    tables' dtype."""
+    xq, normals, jxw = smooth_panel_geometry(euler, tables)
+    wphi = jxw[:, :, None] * _t(tables.phi_fe, jxw)[None]  # [Nc, nq, nl]
+    return xq.contiguous(), normals.contiguous(), wphi.contiguous()
+
+
+def own_cell_keep(tables: AssemblyTables, node_ids: torch.Tensor, like: torch.Tensor):
+    """keep [Nc, T]: 0 where row node_ids[t] is a node of panel c (a singular
+    pair, left to the singular rule), 1 elsewhere."""
+    cells_fe = _t(tables.cells_nodes_fe, like, torch.long)
+    sing = torch.any(cells_fe[:, :, None] == node_ids[None, None, :], dim=1)
+    return (~sing).to(like.dtype).contiguous()
+
+
+def gather_reduce(slots: torch.Tensor, tables: AssemblyTables) -> torch.Tensor:
+    """The incidence gather-reduce: slot tensor [Nc*nl, 9, T] -> node columns
+    [n, 9, T], column j the sum of its incident slots `tables.inc_slot[j]`
+    (one index_select per valence position; no scatter)."""
+    inc_slot = _t(tables.inc_slot, slots, torch.long)  # [n, vmax]
+    inc_mask = _t(tables.inc_mask, slots)
+    out = None
+    for v in range(inc_slot.shape[1]):
+        part = slots.index_select(0, inc_slot[:, v]) * inc_mask[:, v, None, None]
+        out = part if out is None else out.add_(part)
+    return out
+
+
+def _panel_bulk(euler, xi, node_ids, tables: AssemblyTables):
+    """The smooth bulk of the "gather" and "scatter" modes: dense (V, K)
+    [d*nr, d*n] with own-cell pairs left out, in row blocks of
+    `slot_block_rows`."""
+    cfg = tables.cfg
+    d = cfg.dim
+    n = tables.n_nodes
+    nr = xi.shape[0]
+    xq, nrm, wphi = slot_inputs(euler, tables)
+    plain = dict(kernel=cfg.kernel, wall_axis=cfg.wall_axis, wall_position=cfg.wall_position)
+    scatter = cfg.column_mode == "scatter"
+    cols = _t(tables.cells_nodes_fe, xi, torch.long).reshape(-1)  # slot -> column node
+    V = torch.empty((d, nr, d, n), dtype=cfg.dtype, device=xi.device)
+    K = torch.empty_like(V)
+    T = slot_block_rows(tables)
+    for t0 in range(0, nr, T):
+        xi_t = xi[t0 : t0 + T].contiguous()
+        keep = own_cell_keep(tables, node_ids[t0 : t0 + T], xi_t)
+        if scatter or cfg.kernel != KERNEL_FREE_SPACE:
+            Vs, Ks = tile_slots_reference(xi_t, xq, nrm, wphi, keep, **plain)
+        else:
+            Vs, Ks = tile_slots(xi_t, xq, nrm, wphi, keep)
+        for slots, M in ((Vs, V), (Ks, K)):
+            if scatter:
+                Mt = torch.zeros((n,) + slots.shape[1:], dtype=cfg.dtype, device=xi.device)
+                Mt.index_add_(0, cols, slots)
+            else:
+                Mt = gather_reduce(slots, tables)
+            # [n, (a, b), t] -> rows (a, t), columns (b, n)
+            M[:, t0 : t0 + T] = Mt.reshape(n, d, d, -1).permute(1, 3, 2, 0)
+        del Vs, Ks
+    return V.reshape(d * nr, d * n), K.reshape(d * nr, d * n)
 
 
 def node_sweep_inputs(euler: torch.Tensor, xi: torch.Tensor, tables: AssemblyTables):
@@ -312,19 +451,9 @@ def node_sweep_inputs(euler: torch.Tensor, xi: torch.Tensor, tables: AssemblyTab
     into per-column-node sample tables, contiguous, in the tables' dtype.
     The kernel choice and the wall plane travel in `tables.cfg`
     (`assemble_rows` passes them on)."""
-    dt = tables.cfg.dtype
-    euler = euler.to(dt)
-    cells_map = _t(tables.cells_nodes_map, euler, torch.long)
-    xq, normals, jxw = panel_geometry(
-        euler[cells_map],
-        _t(tables.phi_map, euler),
-        _t(tables.dphi_map, euler),
-        _t(tables.q_weights, euler),
-        _t(tables.flip_sign, euler),
-        ambient_dim=tables.cfg.dim,
-    )  # [Nc, nq, d], [Nc, nq, d], [Nc, nq]
+    xq, normals, jxw = smooth_panel_geometry(euler, tables)
     Yj, Nj, Wj, _, _ = node_column_samples(tables, xq, normals, jxw)
-    return xi.to(dt).contiguous(), Yj.contiguous(), Nj.contiguous(), Wj.contiguous()
+    return xi.to(tables.cfg.dtype).contiguous(), Yj.contiguous(), Nj.contiguous(), Wj.contiguous()
 
 
 def node_column_samples(tables: AssemblyTables, xq, normals, jxw):
@@ -476,7 +605,8 @@ def _singular_coo(
     With `subtract_smooth` (the node-mode bulk) the dense pass already added
     an own-cell contribution with the smooth rule; this path adds
     (singular - smooth) so the net own-cell value is the singular-rule
-    integral."""
+    integral.  Without it (the "gather" and "scatter" bulks, which mask
+    own-cell pairs) the triplets are the singular-rule integrals."""
     cfg = tables.cfg
     _check_slice(cfg)
     d = cfg.dim

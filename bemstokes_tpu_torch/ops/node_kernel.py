@@ -1,19 +1,23 @@
-"""The node sweeps K1, K2 and K3: the O(N^2) bulk of the dense V and K
+"""The node sweeps K1, K2, K3 and K4: the O(N^2) bulk of the dense V and K
 operators, as CUDA kernels for Hopper beside their plain torch version.
 
-They replace the Pallas TPU kernel `bemstokes_tpu/ops/pallas_node.py:129`
-`_node_kernel_t`, one per value of its `kernel` argument:
+K1, K2 and K3 replace the Pallas TPU kernel
+`bemstokes_tpu/ops/pallas_node.py:129` `_node_kernel_t`, one per value of its
+`kernel` argument, and K4 its rows-in-lanes twin `:46` `_node_kernel`:
 
 - K1, `kernel="free_space"`: `csrc/node_sweep.cu`;
 - K2, `kernel="free_surface"` (mirror image, wall-normal row sign) and
-- K3, `kernel="no_slip"` (the Blake image system): `csrc/node_sweep_image.cu`.
+- K3, `kernel="no_slip"` (the Blake image system): `csrc/node_sweep_image.cu`;
+- K4, `kernel="free_space", layout="planes"`: K1's sums written
+  component-major as `[9, n, nr]`, rows contiguous, a second instantiation
+  in `csrc/node_sweep.cu` (free space only, like the TPU kernel).
 
 Each kernel source carries the note on what bounds it on the card and what
-its design does about that.  The TPU kernel's layout, tile and reduce knobs
-(`pallas_row_tile`, `pallas_col_chunk`, `pallas_reduce`,
-`BEMSTOKES_PALLAS_NODE_LAYOUT`, the rows-in-lanes twin `_node_kernel`) have
-no meaning here: the CUDA kernels have one layout and write the dense
-component-blocked operators directly.
+its design does about that.  The TPU kernel's tile and reduce knobs
+(`pallas_row_tile`, `pallas_col_chunk`, `pallas_reduce`) have no meaning
+here, and its layout switch `BEMSTOKES_PALLAS_NODE_LAYOUT` is the explicit
+`layout` argument: "dense" writes the component-blocked operators directly,
+"planes" the component-major form.
 
 `node_sweep(xi, Yj, Nj, Wj, kernel=...)` runs the kernel on CUDA tensors and
 the plain version on CPU tensors; there is no fallback from one to the
@@ -47,14 +51,23 @@ _IMAGE_KIND = {KERNEL_FREE_SURFACE: 1, KERNEL_NO_SLIP: 2}
 #: kernel launches made by `node_sweep`, per kernel (plain counters: set them
 #: to 0 before a run and read them after to see that the run went through
 #: the kernel)
-launches = {KERNEL_FREE_SPACE: 0, KERNEL_FREE_SURFACE: 0, KERNEL_NO_SLIP: 0}
+launches = {KERNEL_FREE_SPACE: 0, KERNEL_FREE_SURFACE: 0, KERNEL_NO_SLIP: 0, "planes": 0}
+
+LAYOUT_DENSE = "dense"  # [3 nr, 3 n], entry (a*nr + i, b*n + j)
+LAYOUT_PLANES = "planes"  # [9, n, nr], entry (3a + b, j, i): K4
 
 
 def _library(source):
     def declare(lib):
         head = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3
         if source == SOURCES[KERNEL_FREE_SPACE]:
-            names, tail = ("node_sweep_f32", "node_sweep_f64"), []
+            names = (
+                "node_sweep_f32",
+                "node_sweep_f64",
+                "node_sweep_planes_f32",
+                "node_sweep_planes_f64",
+            )
+            tail = []
         else:
             names = ("node_sweep_image_f32", "node_sweep_image_f64")
             tail = [ctypes.c_int, ctypes.c_int, ctypes.c_double]
@@ -84,9 +97,15 @@ def _check_inputs(xi, Yj, Nj, Wj):
     return nr, n, m
 
 
-def _check_kernel(kernel, wall_axis):
+def _check_kernel(kernel, wall_axis, layout=LAYOUT_DENSE):
     if kernel not in SOURCES:
         raise ValueError(f"node_sweep: unknown kernel {kernel!r}")
+    if layout not in (LAYOUT_DENSE, LAYOUT_PLANES):
+        raise ValueError(f"node_sweep: unknown layout {layout!r}")
+    if layout == LAYOUT_PLANES and kernel != KERNEL_FREE_SPACE:
+        raise ValueError(
+            f"node_sweep: the planes layout is free space only, got kernel {kernel!r}"
+        )
     if kernel != KERNEL_FREE_SPACE and wall_axis not in (0, 1, 2):
         raise ValueError(f"node_sweep: wall_axis must be 0, 1 or 2, got {wall_axis!r}")
 
@@ -99,6 +118,7 @@ def node_sweep(
     kernel: str = KERNEL_FREE_SPACE,
     wall_axis: int = 1,
     wall_position: float = 0.0,
+    layout: str = LAYOUT_DENSE,
 ):
     """Dense (V, K) [3*nr, 3*n] of collocation rows xi [nr, 3] against the
     column-node sample tables Yj, Nj [n, m, 3], Wj [n, m] (from
@@ -106,15 +126,25 @@ def node_sweep(
     (a*nr + i, b*n + j), for the free-space Green's functions or, with
     `kernel="free_surface"` / `"no_slip"`, the image system of the plane wall
     x[wall_axis] = wall_position.  Own-cell pairs are included with the
-    smooth rule (the singular delta replaces them).
+    smooth rule (the singular delta replaces them).  With `layout="planes"`
+    (free space only) the same sums come component-major as [9, n, nr],
+    entry (3a + b, j, i), rows contiguous (`planes_to_dense` brings them to
+    the dense form).
 
-    A CUDA tensor launches the kernel K1, K2 or K3 (float32 or float64,
+    A CUDA tensor launches the kernel K1, K2, K3 or K4 (float32 or float64,
     contiguous inputs) or raises; a CPU tensor runs `node_sweep_reference`."""
     nr, n, m = _check_inputs(xi, Yj, Nj, Wj)
-    _check_kernel(kernel, wall_axis)
+    _check_kernel(kernel, wall_axis, layout)
     if xi.device.type == "cpu":
         return node_sweep_reference(
-            xi, Yj, Nj, Wj, kernel=kernel, wall_axis=wall_axis, wall_position=wall_position
+            xi,
+            Yj,
+            Nj,
+            Wj,
+            kernel=kernel,
+            wall_axis=wall_axis,
+            wall_position=wall_position,
+            layout=layout,
         )
     if xi.device.type != "cuda":
         raise ValueError(f"node_sweep: no kernel for device {xi.device}")
@@ -125,13 +155,17 @@ def node_sweep(
             raise ValueError(f"node_sweep: {name} must be contiguous")
     suffix = "f64" if xi.dtype == torch.float64 else "f32"
     lib = _library(SOURCES[kernel])
-    if kernel == KERNEL_FREE_SPACE:
+    planes = layout == LAYOUT_PLANES
+    if planes:
+        fn, extra = getattr(lib, f"node_sweep_planes_{suffix}"), ()
+    elif kernel == KERNEL_FREE_SPACE:
         fn, extra = getattr(lib, f"node_sweep_{suffix}"), ()
     else:
         fn = getattr(lib, f"node_sweep_image_{suffix}")
         extra = (_IMAGE_KIND[kernel], int(wall_axis), float(wall_position))
     with torch.cuda.device(xi.device):
-        V = torch.empty((3 * nr, 3 * n), dtype=xi.dtype, device=xi.device)
+        shape = (9, n, nr) if planes else (3 * nr, 3 * n)
+        V = torch.empty(shape, dtype=xi.dtype, device=xi.device)
         K = torch.empty_like(V)
         rc = fn(
             xi.data_ptr(),
@@ -148,8 +182,16 @@ def node_sweep(
         )
     if rc != 0:
         raise RuntimeError(f"node_sweep: {kernel} kernel launch failed with CUDA error {rc}")
-    launches[kernel] += 1
+    launches["planes" if planes else kernel] += 1
     return V, K
+
+
+def planes_to_dense(P):
+    """Component-major planes [9, n, nr] as the dense component-blocked
+    operator [3 nr, 3 n], entry (a*nr + i, b*n + j) (the `blocks_to_dense`
+    relayout of `bemstokes_tpu/ops/assemble.py:743-753`)."""
+    _, n, nr = P.shape
+    return P.reshape(3, 3, n, nr).permute(0, 3, 1, 2).reshape(3 * nr, 3 * n)
 
 
 def eval_G_Wn(kernel: str, wall_axis: int, R, R_img, normals):
@@ -178,15 +220,16 @@ def node_sweep_reference(
     kernel: str = KERNEL_FREE_SPACE,
     wall_axis: int = 1,
     wall_position: float = 0.0,
+    layout: str = LAYOUT_DENSE,
 ):
-    """Plain torch version of the K1, K2 and K3 kernels, modelled on the JAX
+    """Plain torch version of the K1, K2, K3 and K4 kernels, modelled on the JAX
     package's XLA node pass (`bemstokes_tpu/ops/assemble.py:764-819`) and
     built on `kernels/stokeslet.py` and `kernels/images.py`: rows in tiles of
     `row_tile`, columns in chunks of `col_chunk`, so the pairwise
     intermediates stay [row_tile, col_chunk, m, 3, 3] (a single
     [nr, n, m, 3] tensor would be 58 GB at the 6,146-node sphere)."""
     nr, n, m = _check_inputs(xi, Yj, Nj, Wj)
-    _check_kernel(kernel, wall_axis)
+    _check_kernel(kernel, wall_axis, layout)
     dt, dev = xi.dtype, xi.device
     V = torch.empty((3, nr, 3, n), dtype=dt, device=dev)
     K = torch.empty((3, nr, 3, n), dtype=dt, device=dev)
@@ -217,4 +260,10 @@ def node_sweep_reference(
             K[:, i0 : i0 + row_tile, :, j0 : j0 + col_chunk] = -torch.einsum(
                 "tjmab,jm->atbj", Wn, Wcc
             )
+    if layout == LAYOUT_PLANES:
+        # [a, i, b, j] -> [3a + b, j, i]
+        return (
+            V.permute(0, 2, 3, 1).reshape(9, n, nr),
+            K.permute(0, 2, 3, 1).reshape(9, n, nr),
+        )
     return V.reshape(3 * nr, 3 * n), K.reshape(3 * nr, 3 * n)

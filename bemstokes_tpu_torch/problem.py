@@ -73,6 +73,24 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md: {item})")
 
 
+#: `ProblemConfig.assembly_backend` -> (column_mode, node_layout) of the
+#: port's AssemblyConfig.  The JAX package's backend names keep the port on
+#: its node mode (K1, K2, K3), as before; "gather" (K6 in free space),
+#: "scatter" (the plain oracle) and "node_planes" (K4) name the port's other
+#: bulks.  The JAX package reads "gather" and "scatter" as its XLA gather
+#: path, so a config that names them loads there too.
+ASSEMBLY_BACKENDS = {
+    "jax": ("node", "dense"),
+    "auto": ("node", "dense"),
+    "pallas": ("node", "dense"),
+    "pallas_interpret": ("node", "dense"),
+    "node": ("node", "dense"),
+    "node_planes": ("node", "planes"),
+    "gather": ("gather", "dense"),
+    "scatter": ("scatter", "dense"),
+}
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point of the port runs on: the one asked for, or
     the CUDA card when none is.  Without a card it raises; it never carries
@@ -193,6 +211,21 @@ class StokesBEMProblem:
                 q_order = q_order + quad.promote_boost
                 self.quadrature_promoted = True
 
+        if self.cfg.assembly_backend not in ASSEMBLY_BACKENDS:
+            raise ValueError(
+                f"assembly_backend must be one of {sorted(ASSEMBLY_BACKENDS)}, "
+                f"got {self.cfg.assembly_backend!r}"
+            )
+        column_mode, node_layout = ASSEMBLY_BACKENDS[self.cfg.assembly_backend]
+        if self.cfg.matrix_free:
+            # the matrix-free block factors (`assemble_rows`) stay on node mode
+            column_mode, node_layout = "node", "dense"
+        if node_layout == "planes" and kernel != KERNEL_FREE_SPACE:
+            raise ValueError(
+                'assembly_backend="node_planes" is free space only (like the '
+                "JAX package's rows_sublane layout); the image kernels write "
+                "the dense layout"
+            )
         self.asm_cfg = AssemblyConfig(
             dim=self.dim,
             kernel=kernel,
@@ -203,7 +236,11 @@ class StokesBEMProblem:
             near_panels=quad.near_panels,
             singular_quadrature_order=quad.singular_order,
             singular_quadrature_type=quad.singular_type,
+            row_tile=self.cfg.row_tile,
+            cell_chunk=self.cfg.cell_chunk,
             dtype=dt,
+            column_mode=column_mode,
+            node_layout=node_layout,
         )
         self.tables = build_assembly_tables(self.fe_space, self.map_space, self.asm_cfg)
 

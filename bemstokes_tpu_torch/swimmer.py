@@ -15,9 +15,9 @@ integration.  The state math runs on the host in numpy, as in the JAX
 package; the frame solves run on the problem's device (the CUDA card unless
 the caller passes `device="cpu"`).
 
-Geometry sources ported: the analytic flagellum handler and the sphere(s)
-built in code.  Gaits read from frame mesh files, distributed runs and 2D
-raise NotImplementedError naming their `ROADMAP.md` item.  `SwimmerState`
+Geometry sources: the analytic flagellum handler, the sphere(s) built in
+code and gaits read from frame mesh files (`mesh/io.py`).  Distributed runs
+and 2D raise NotImplementedError naming their `ROADMAP.md` item.  `SwimmerState`
 files have the JAX package's fields, so a state saved by either package
 loads in the other.
 """
@@ -33,13 +33,20 @@ import torch
 from .config import ProblemConfig
 from .fem.geometry import euler_from_mesh, support_points
 from .mesh.factories import add_walls_to_mesh
+from .mesh.io import read_mesh
 from .mesh.io_vtu import write_vtu
 from .physics.kinematics import (
     rotation_matrix_from_quaternion,
     update_rotation_matrix_np,
 )
 from .physics.rigid import flatten
-from .problem import StokesBEMProblem, _not_ported, resolve_device, result_to_numpy
+from .problem import (
+    StokesBEMProblem,
+    _not_ported,
+    _resolve_manifold,
+    resolve_device,
+    result_to_numpy,
+)
 from .utils import timers
 
 
@@ -80,6 +87,10 @@ def _spherical_head_remap(euler: np.ndarray, body_mask: np.ndarray) -> np.ndarra
 
 
 class SwimmerSimulation:
+    # per-pass anisotropy-cut plan: decided on the first mesh read, replayed
+    # on every later frame so the gait keeps one topology
+    _aniso_plan = None
+
     def __init__(
         self,
         cfg: ProblemConfig,
@@ -155,16 +166,33 @@ class SwimmerSimulation:
 
     # ------------------------------------------------------------------
     def _read_frame_mesh(self, frame: int):
-        raise _not_ported(
-            "a gait read from frame mesh files (use_flagellum_handler or "
-            "build_sphere_in_code build the geometry in code)",
-            "postprocess.py, cli.py, config_io.py and the mesh readers mesh/io.py",
+        cfg = self.cfg
+        path = (
+            f"{cfg.input_grid_path}{cfg.input_grid_base_name}{frame}."
+            f"{cfg.input_grid_format}"
         )
+        mesh = read_mesh(path, dim=cfg.dim, force_material=0)
+        if cfg.remove_tria_anisotropies:
+            # reference GridTools::remove_anisotropy on the reference tria
+            # (`source/bem_stokes.cc:662-664`) and each frame tria
+            # (`:2305-2307`); the frame-0 cut decisions are replayed on later
+            # frames so every frame shares the base mesh's topology
+            from .mesh.refine import remove_anisotropy
+
+            mesh, plan = remove_anisotropy(
+                mesh,
+                manifold=_resolve_manifold(cfg),
+                plan=self._aniso_plan,
+            )
+            if self._aniso_plan is None:
+                self._aniso_plan = plan
+        return mesh
 
     def euler_for_frame(self, frame: int) -> np.ndarray:
         """Frame geometry under the current rigid state (reference
         `compute_euler_vector` `:2247-2440`: gait geometry from the flagellum
-        handler or the mesh built in code, optional spherical-head remap,
+        handler, the mesh built in code or a frame mesh file, optional
+        spherical-head remap,
         then rotate body nodes by the accumulated rotation and add
         accumulated displacements).  A host array."""
         if self.cfg.use_flagellum_handler:
@@ -186,7 +214,12 @@ class SwimmerSimulation:
                 self.mesh.vertices, self.problem.map_space, self.problem.manifold
             )
         else:
-            self._read_frame_mesh(frame % self.cfg.n_frames)
+            frame_mesh = add_walls_to_mesh(
+                self._read_frame_mesh(frame % self.cfg.n_frames), self.cfg
+            )
+            euler = euler_from_mesh(
+                frame_mesh.vertices, self.problem.map_space, self.problem.manifold
+            )
         if self.cfg.spherical_head:
             euler = _spherical_head_remap(euler, self.map_body_mask[:, 0] > 0)
         Rm = self.state.rotation

@@ -6,9 +6,10 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. versions (torch, CUDA, nvcc) and the card's name and power limit;
-2. the build of the kernels from csrc/ (the node sweeps K1, K2, K3 and the
-   fused sweep-matvec K5; one nvcc per source, started together), with each
-   kernel's registers and spills as ptxas reports them;
+2. the build of the kernels from csrc/ (the node sweeps K1, K2, K3 and K4,
+   the fused sweep-matvec K5 and the slot kernel K6; one nvcc per source,
+   started together), with each kernel's registers and spills as ptxas
+   reports them;
 3. K1 (free space), K2 (free-surface image) and K3 (Blake no-slip image)
    against their plain torch version on the card, f64 and f32, at the shapes
    the main paths give them: create_sphere(3) whole, a 512-row slab of
@@ -56,10 +57,35 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    1e-7, with the K5 launch counters set to 0 before each and read after;
 10. the capacity frame, which no materialized path can hold on one card:
    create_sphere(6), 24,578 nodes, 73,740 unknowns, ImposedVelocity along x,
-   matfree_block_nodes = 1024, twice each: in f64 with the solver's
+   matfree_block_nodes = 1024, one frame each: in f64 with the solver's
    defaults (drag error <= 1e-4 against 6 pi, converged) and in f32 with
    preconditioner_dtype = float32, gmres_restart = 25, tolerance = 3e-5,
-   max_steps = 200 (drag error <= 2.5e-4).
+   max_steps = 200 (drag error <= 2.5e-4);
+11. K4 (the free-space sweep stored component-major, [9, n, nr]) against its
+   plain version and against K1's dense result (the same bits after
+   `planes_to_dense`), f64 and f32, at create_sphere(3) whole, a 512-row slab
+   of create_sphere(5) and create_sphere(5) whole, timed beside K1;
+12. K6 (`tile_slots`) against its plain version, f64 and f32: Q1 panels at
+   create_sphere(3) whole and at one row block of create_sphere(5), Q2 panels
+   at create_sphere(3); a second call must give the same bits; in f32 kernel
+   and plain version are also held against the f64 kernel; timed over all
+   row blocks of create_sphere(5) (6,146 rows x 6,144 panels x 16 points)
+   with the incidence gather-reduce timed apart; then `assemble_V_K` in
+   gather mode against node mode on the card at create_sphere(5) (1e-10);
+13. small inputs in gather mode, the card against the CPU: three free-space
+   frames on create_sphere(3), 1e-10 and equal iterations;
+14. the gather path at full width, launch counters set to 0 before and read
+   after: StokesBEMProblem on create_sphere(5), 18,444 unknowns, f64,
+   assembly_backend = "gather", three frames (fresh LU, two stale): drag
+   error <= 2.5e-4 and forces within 1e-8 of phase 5's node-mode frames;
+   one frame through K4 (assembly_backend = "node_planes") equal to phase
+   5's frame 0 to 1e-12; one f32 gather frame; and the largest error of the
+   f32 K against f64, over all entries and over the own-node 3x3 blocks,
+   for the gather and the node assembly, bulk alone and with the deltas;
+15. the command line: `python3 -m bemstokes_tpu_torch run -p <json> 0 2 -o
+   <dir>` as a subprocess on the card, on a gait of three gmsh files that the
+   script writes from create_sphere(5), gather mode: exit code 0, the state
+   and result files of both frames finite, the stroke swims along x.
 
 Before the last line it prints the card's name and power limit and one JSON
 object {"kernels": [...]} with each kernel's launches on its main path, its
@@ -68,6 +94,7 @@ error against the plain version, both times and its bound; the last line is
 prints no result.
 """
 
+import dataclasses
 import gc
 import json
 import subprocess
@@ -100,6 +127,7 @@ def tolerance(kernel, dtype):
 DRAG_TOL = 2.5e-4
 
 CAPACITY_REFINEMENTS = 6  # create_sphere(6): 24,578 nodes, 73,740 unknowns
+CAPACITY_FRAMES = 1  # frames per type in the capacity phase
 #: K5 against its plain version, relative to max|V x| and max|K x|.  In f32
 #: the kernel contracts each sample with the vector before it sums, takes
 #: every inverse power from one rsqrt and sums the column nodes in splits;
@@ -136,6 +164,21 @@ KERNELS = {
         replaces="bemstokes_tpu/ops/pallas_node.py:259",
     ),
 }
+PLANES_KERNEL = dict(
+    name="node_sweep_planes",
+    source="bemstokes_tpu_torch/csrc/node_sweep.cu",
+    replaces="bemstokes_tpu/ops/pallas_node.py:46",
+)
+SLOT_KERNEL = dict(
+    name="tile_slots",
+    source="bemstokes_tpu_torch/csrc/tile_slots.cu",
+    replaces="bemstokes_tpu/ops/pallas_assemble.py:45",
+)
+#: K6 against its plain version, relative to max|V_slots| and max|K_slots|.
+#: Own-cell pairs are masked, so no slot is a sum of large cancelling terms;
+#: what is left in f32 is the rsqrt, the FMA contraction and the order of the
+#: nq-sum.
+TOL_SLOTS = {torch.float64: 1e-12, torch.float32: 2e-5}
 MATVEC_KERNELS = {
     kernel: dict(
         name=f"sweep_matvec_{kernel}",
@@ -229,7 +272,7 @@ def phase_versions(cuda_build):
 def phase_build(cuda_build):
     t0 = time.perf_counter()
     built = cuda_build.build_all()
-    if "sweep_matvec.cu" not in built or "node_sweep.cu" not in built:
+    if not {"sweep_matvec.cu", "node_sweep.cu", "node_sweep_image.cu", "tile_slots.cu"} <= set(built):
         raise AssertionError(f"kernel sources missing from the build: {sorted(built)}")
     log(f"kernel build {time.perf_counter() - t0:.2f} s: " + ", ".join(p.name for p, _ in built.values()))
     for name, (_, output) in built.items():
@@ -274,6 +317,238 @@ def bound(kernel, dtype, nr, n, m):
 
 def rel(A, B):
     return ((A - B).abs().max() / B.abs().max()).item()
+
+
+def event_ms(fn):
+    """Device time of one fn() (no warm-up: the plain versions' one run)."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def phase_planes_vs_plain(node_kernel, device):
+    """K4 (the component-major store of the free-space sweep) against its
+    plain version and against K1's dense result, timed beside K1; returns the
+    record of create_sphere(5) whole, f64."""
+    cases = [
+        ("sphere3", 3, None),
+        (f"sphere{REFINEMENTS}_slab{SLAB_ROWS}", REFINEMENTS, SLAB_ROWS),
+        (f"sphere{REFINEMENTS}", REFINEMENTS, None),
+    ]
+    record = None
+    for dtype in (torch.float64, torch.float32):
+        tol = TOL[dtype]
+        for name, refinements, rows in cases:
+            xi, Yj, Nj, Wj = kernel_inputs(refinements, dtype, device)
+            if rows is not None:
+                xi = xi[:rows].contiguous()
+            V, K = node_kernel.node_sweep(xi, Yj, Nj, Wj, layout="planes")
+            Vd, Kd = node_kernel.node_sweep(xi, Yj, Nj, Wj)
+            torch.cuda.synchronize()
+            same_bits = torch.equal(node_kernel.planes_to_dense(V), Vd) and torch.equal(
+                node_kernel.planes_to_dense(K), Kd
+            )
+            del Vd, Kd
+            (Vr, Kr), plain_ms = event_ms(
+                lambda: node_kernel.node_sweep_reference(
+                    xi, Yj, Nj, Wj, row_tile=64, col_chunk=1024, layout="planes"
+                )
+            )
+            abs_err = max((V - Vr).abs().max().item(), (K - Kr).abs().max().item())
+            rel_v, rel_k = rel(V, Vr), rel(K, Kr)
+            finite = bool(torch.isfinite(V).all() and torch.isfinite(K).all())
+            del V, K, Vr, Kr
+            ms = cuda_ms(lambda: node_kernel.node_sweep(xi, Yj, Nj, Wj, layout="planes"), reps=10)
+            ms_dense = cuda_ms(lambda: node_kernel.node_sweep(xi, Yj, Nj, Wj), reps=10)
+            nr, n, m = xi.shape[0], Yj.shape[0], Yj.shape[1]
+            bound_ms, bound_by = bound("free_space", dtype, nr, n, m)
+            log(
+                f"planes (K4) {name} {str(dtype)[6:]} rows={nr} cols={n} m={m}: "
+                f"rel err V {rel_v:.3e} K {rel_k:.3e} (tol {tol:.0e}), max abs err {abs_err:.3e}; "
+                f"K1's bits after planes_to_dense: {same_bits}; K4 {ms:.3f} ms, K1 {ms_dense:.3f} ms, "
+                f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms by {bound_by}"
+            )
+            if not (finite and same_bits and rel_v <= tol and rel_k <= tol):
+                raise AssertionError(f"K4 disagrees with its plain version or with K1 on {name} {dtype}")
+            if rows is None and refinements == REFINEMENTS and dtype == torch.float64:
+                record = dict(
+                    max_abs_err=abs_err,
+                    max_rel_err=max(rel_v, rel_k),
+                    ms=ms,
+                    plain_ms=plain_ms,
+                    bound_ms=bound_ms,
+                    bound_by=bound_by,
+                    library_ms=None,
+                    dense_ms=ms_dense,
+                )
+            del xi, Yj, Nj, Wj
+            torch.cuda.empty_cache()
+    return record
+
+
+def slot_case(refinements, degree, dtype, device):
+    """(tables, euler, support points, xq, nrm, wphi) of the gather assembly
+    on create_sphere(refinements) with Q`degree` elements."""
+    from bemstokes_tpu_torch.fem.geometry import euler_from_mesh, support_points
+    from bemstokes_tpu_torch.mesh import build_scalar_space, create_sphere
+    from bemstokes_tpu_torch.ops.assemble import AssemblyConfig, build_assembly_tables, slot_inputs
+
+    mesh = create_sphere(refinements=refinements)
+    space = build_scalar_space(mesh, degree)
+    tables = build_assembly_tables(
+        space, space, AssemblyConfig(dtype=dtype, column_mode="gather")
+    )
+    euler = torch.as_tensor(euler_from_mesh(mesh.vertices, space), dtype=dtype, device=device)
+    return tables, euler, support_points(euler, space, space), *slot_inputs(euler, tables)
+
+
+def slots_bound(dtype, nt, nc, nq, nl):
+    """(bound_ms, bound_by) of the slot kernel: every input read once and both
+    slot tensors written once over the memory rate, against its operations
+    over the peak rate.  Operations, counted from csrc/tile_slots.cu with a
+    multiply-add as two and an rsqrt as one: 52 per (row, panel point) and
+    pass to evaluate G and W.n, 24 per local node to contract them, and 27
+    per (row, slot) for `keep` and the sign."""
+    item = torch.finfo(dtype).bits // 8
+    passes = -(-nl // (3 if nl > 4 and nl % 3 == 0 else 4))
+    nbytes = item * (3 * nt + nc * nq * (6 + nl) + nc * nt + 2 * 9 * nc * nl * nt)
+    flops = nt * nc * (nq * (52 * passes + 24 * nl) + 27 * nl)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_slots_vs_plain(slot_kernel, device):
+    """K6 against its plain version; returns the record of all row blocks of
+    create_sphere(5), f64."""
+    from bemstokes_tpu_torch.ops import assemble
+
+    cases = [
+        ("sphere3_Q1", 3, 1, False),
+        (f"sphere{REFINEMENTS}_Q1_block", REFINEMENTS, 1, True),
+        ("sphere3_Q2", 3, 2, False),
+    ]
+    V64 = K64 = None
+    for dtype in (torch.float64, torch.float32):
+        tol = TOL_SLOTS[dtype]
+        for name, refinements, degree, main_shape in cases:
+            tables, euler, sp, xq, nrm, wphi = slot_case(refinements, degree, dtype, device)
+            # one row block, as `assemble_rows` cuts them (f64 rows at both
+            # types, so that f32 can be held against the f64 kernel)
+            T = assemble.slot_block_rows(with_cfg(tables, dtype=torch.float64))
+            xi = sp[:T].contiguous()
+            ids = torch.arange(xi.shape[0], device=device)
+            keep = assemble.own_cell_keep(tables, ids, xi)
+            V, K = slot_kernel.tile_slots(xi, xq, nrm, wphi, keep)
+            V2, K2 = slot_kernel.tile_slots(xi, xq, nrm, wphi, keep)
+            torch.cuda.synchronize()
+            if not (torch.equal(V, V2) and torch.equal(K, K2)):
+                raise AssertionError(f"tile_slots {name}: two calls gave different bits")
+            del V2, K2
+            Vr, Kr = slot_kernel.tile_slots_reference(xi, xq, nrm, wphi, keep)
+            rel_v, rel_k = rel(V, Vr), rel(K, Kr)
+            finite = bool(torch.isfinite(V).all() and torch.isfinite(K).all())
+            far = ""
+            if main_shape and dtype == torch.float64:
+                V64, K64 = V, K
+            elif main_shape:
+                far = (
+                    f"; against the f64 kernel: kernel V {rel(V, V64):.3e} K {rel(K, K64):.3e}, "
+                    f"plain V {rel(Vr, V64):.3e} K {rel(Kr, K64):.3e}"
+                )
+                V64 = K64 = None
+            nc, nq, nl = wphi.shape
+            log(
+                f"tile_slots (K6) {name} {str(dtype)[6:]} rows={xi.shape[0]} panels={nc} nq={nq} nl={nl} "
+                f"masked pairs={int((keep == 0).sum())}: rel err V {rel_v:.3e} K {rel_k:.3e} "
+                f"(tol {tol:.0e}), same bits twice{far}"
+            )
+            if not (finite and rel_v <= tol and rel_k <= tol):
+                raise AssertionError(f"tile_slots disagrees with its plain version on {name} {dtype}")
+            del V, K, Vr, Kr
+            torch.cuda.empty_cache()
+
+    # timed over all row blocks of create_sphere(5), the gather-reduce apart
+    records = {}
+    for dtype in (torch.float64, torch.float32):
+        tables, euler, sp, xq, nrm, wphi = slot_case(REFINEMENTS, 1, dtype, device)
+        T = assemble.slot_block_rows(tables)
+        ids = torch.arange(sp.shape[0], device=device)
+        blocks = [
+            (sp[t0 : t0 + T].contiguous(), assemble.own_cell_keep(tables, ids[t0 : t0 + T], sp))
+            for t0 in range(0, sp.shape[0], T)
+        ]
+
+        def all_blocks():
+            for xi, keep in blocks:
+                slot_kernel.tile_slots(xi, xq, nrm, wphi, keep)
+
+        ms = cuda_ms(all_blocks, reps=3)
+        # the plain version over the same blocks, one run, and the largest
+        # difference over all blocks
+        abs_err = 0.0
+        t_plain = 0.0
+        for xi, keep in blocks:
+            V, K = slot_kernel.tile_slots(xi, xq, nrm, wphi, keep)
+            (Vr, Kr), t = event_ms(lambda: slot_kernel.tile_slots_reference(xi, xq, nrm, wphi, keep))
+            t_plain += t
+            abs_err = max(abs_err, (V - Vr).abs().max().item(), (K - Kr).abs().max().item())
+            del V, K, Vr, Kr
+        xi, keep = blocks[0]  # a full block
+        V, K = slot_kernel.tile_slots(xi, xq, nrm, wphi, keep)
+        gather_ms = cuda_ms(
+            lambda: (assemble.gather_reduce(V, tables), assemble.gather_reduce(K, tables)), reps=3
+        )
+        del V, K
+        bulk_ms = cuda_ms(lambda: assemble._panel_bulk(euler, sp, ids, tables), reps=2)
+        nc, nq, nl = wphi.shape
+        nt = sp.shape[0]
+        bound_ms, bound_by = slots_bound(dtype, nt, nc, nq, nl)
+        log(
+            f"tile_slots (K6) sphere{REFINEMENTS} {str(dtype)[6:]} rows={nt} panels={nc} nq={nq} nl={nl}, "
+            f"{len(blocks)} row blocks of {T}: kernel {ms:.3f} ms ({nt * nc * nq / (ms * 1e-3):.4e} "
+            f"evaluations/s, {2 * 9 * nc * nl * nt * torch.finfo(dtype).bits / 8 / (ms * 1e-3) / 1e12:.3f} TB/s stored), "
+            f"plain {t_plain:.3f} ms, bound {bound_ms:.3f} ms by {bound_by}, max abs err {abs_err:.3e}; "
+            f"gather-reduce of one {T}-row block (V and K) {gather_ms:.3f} ms; "
+            f"the whole gather bulk (kernel, gather-reduce, relayout) {bulk_ms:.3f} ms"
+        )
+        records[dtype] = dict(
+            max_abs_err=abs_err,
+            ms=ms,
+            plain_ms=t_plain,
+            bound_ms=bound_ms,
+            bound_by=bound_by,
+            # no one PyTorch call computes the slot tensors
+            library_ms=None,
+            gather_block_ms=gather_ms,
+            bulk_ms=bulk_ms,
+        )
+        del blocks
+        torch.cuda.empty_cache()
+
+    # the whole assembly, gather against node mode
+    dtype = torch.float64
+    tables, euler, sp, *_ = slot_case(REFINEMENTS, 1, dtype, device)
+    Vg, Kg = assemble.assemble_V_K(euler, sp, tables)
+    Vn, Kn = assemble.assemble_V_K(euler, sp, with_cfg(tables, column_mode="node"))
+    err_v, err_k = rel(Vg, Vn), rel(Kg, Kn)
+    del Vg, Kg, Vn, Kn
+    torch.cuda.empty_cache()
+    log(
+        f"assemble_V_K create_sphere({REFINEMENTS}) f64 on the card, gather against node mode: "
+        f"V {err_v:.3e} K {err_k:.3e} of max (tol 1e-10)"
+    )
+    if not (err_v <= 1e-10 and err_k <= 1e-10):
+        raise AssertionError("the gather assembly disagrees with node mode on the card")
+    return records[torch.float64]
+
+
+def with_cfg(tables, **changes):
+    """Assembly tables with fields of their AssemblyConfig replaced."""
+    return dataclasses.replace(tables, cfg=dataclasses.replace(tables.cfg, **changes))
 
 
 def phase_kernel_vs_plain(node_kernel, device):
@@ -397,7 +672,9 @@ def solve_frames(device, cfg, frames):
     for e in frames_of(e0)[:frames]:
         res = prob.solve_frame(e, sdot)
         records[-1]["drag_rel_err"] = float(drag_error(res))
-        log(f"frame {cfg.dtype} unknowns={unknowns} " + json.dumps(records[-1]))
+        records[-1]["stokes_forces"] = res["stokes_forces"].cpu().numpy()
+        shown = {k: v for k, v in records[-1].items() if k != "stokes_forces"}
+        log(f"frame {cfg.dtype} {cfg.assembly_backend} unknowns={unknowns} " + json.dumps(shown))
         del res
     return unknowns, records
 
@@ -542,7 +819,7 @@ def phase_free_space_path(node_kernel, device):
             raise AssertionError(f"frame {r['frame']} failed: {r}")
     if launches["free_space"] < 1:
         raise AssertionError("the free-space path did not launch K1")
-    return launches["free_space"]
+    return launches["free_space"], [r["stokes_forces"] for r in recs]
 
 
 def wall_path(node_kernel, device, name, cfg, frames):
@@ -589,7 +866,7 @@ def phase_wall_paths(node_kernel, device):
         raise AssertionError("no-slip sphere: frame 0 must factor the LU and frames 1-2 reuse it")
     if not (abs(mobility[0] - exact) <= 1e-3 and mobility[0] < mobility[1] < mobility[2]):
         raise AssertionError("no-slip sphere: wrong mobility")
-    if launches != {"free_space": 0, "free_surface": 0, "no_slip": 3}:
+    if launches != {"free_space": 0, "free_surface": 0, "no_slip": 3, "planes": 0}:
         raise AssertionError(f"no-slip sphere: expected 3 launches of K3 alone, got {launches}")
     out["no_slip"] = launches["no_slip"]
 
@@ -601,7 +878,7 @@ def phase_wall_paths(node_kernel, device):
     log(f"free-surface sphere: 6 pi U_x = {mobility} (band 1 .. 1.3)")
     if not all(1.0 < mob < 1.3 for mob in mobility):
         raise AssertionError("free-surface sphere: mobility outside its band")
-    if launches != {"free_space": 0, "free_surface": 3, "no_slip": 0}:
+    if launches != {"free_space": 0, "free_surface": 3, "no_slip": 0, "planes": 0}:
         raise AssertionError(f"free-surface sphere: expected 3 launches of K2 alone, got {launches}")
     out["free_surface"] = launches["free_surface"]
 
@@ -897,8 +1174,8 @@ def phase_matfree_vs_materialized(matfree_node, node_kernel, device):
 
 
 def phase_capacity(matfree_node, device):
-    """The 73,740-unknown frame, f64 and f32, twice each; returns K5's
-    launches in the f64 run."""
+    """The 73,740-unknown frame, f64 and f32, CAPACITY_FRAMES each; returns
+    K5's launches in the f64 run."""
     from bemstokes_tpu_torch.config import SolverConfig
 
     settings = {
@@ -923,7 +1200,7 @@ def phase_capacity(matfree_node, device):
         unknowns = 3 * prob.n + prob.num_rigid
         if (prob.n, unknowns) != (24578, 73740):
             raise AssertionError(f"capacity frame: {prob.n} nodes, {unknowns} unknowns")
-        frames = [solve_once(prob) for _ in range(2)]
+        frames = [solve_once(prob) for _ in range(CAPACITY_FRAMES)]
         launches = dict(matfree_node.launches)
         peak = torch.cuda.max_memory_allocated() / 2**30
         # the operator action alone, as the GMRES loop calls it
@@ -944,7 +1221,7 @@ def phase_capacity(matfree_node, device):
                 raise AssertionError(f"capacity frame {dtype} failed: {res['iterations']} iterations, drag error {err}")
         log(
             f"capacity frame {dtype}: matvec {mv_ms / 1e3:.4f} s "
-            f"({prob.n * prob.n * m / (mv_ms * 1e-3):.4e} interactions/s), K5 launches in two frames "
+            f"({prob.n * prob.n * m / (mv_ms * 1e-3):.4e} interactions/s), K5 launches in {CAPACITY_FRAMES} frame(s) "
             f"{launches}, max_memory_allocated {peak:.3f} GiB; one materialized operator would be "
             f"{(3 * prob.n) ** 2 * torch.finfo(prob.asm_cfg.dtype).bits / 8 / 1e9:.1f} GB"
         )
@@ -955,11 +1232,213 @@ def phase_capacity(matfree_node, device):
     return out["float64"]
 
 
+def phase_gather_small(device):
+    """Small inputs in gather mode: the card (K6) against the CPU (its plain
+    version)."""
+    from bemstokes_tpu_torch.config import ProblemConfig
+    from bemstokes_tpu_torch.mesh import create_sphere
+    from bemstokes_tpu_torch.problem import StokesBEMProblem, result_to_numpy
+
+    cfg = ProblemConfig(grid_type="ImposedVelocity", imposed_component=0, assembly_backend="gather")
+    out = []
+    for dev in (device, torch.device("cpu")):
+        prob = StokesBEMProblem(create_sphere(refinements=3), cfg, device=dev)
+        e0 = prob.initial_euler().cpu().numpy()
+        out.append([result_to_numpy(prob.solve_frame(e, np.zeros(3 * prob.n))) for e in frames_of(e0)])
+    worst = 0.0
+    for rc, rh in zip(*out):
+        for key in ("rigid_forces_pole", "stokes_forces"):
+            worst = max(worst, np.abs(rc[key] - rh[key]).max() / np.abs(rh[key]).max())
+        if rc["iterations"] != rh["iterations"]:
+            raise AssertionError("gather mode: card and CPU GMRES iteration counts differ")
+    log(
+        f"small input in gather mode (create_sphere(3), 3 free-space frames): card vs CPU max rel "
+        f"force diff {worst:.3e} (tol 1e-10), iterations {[r['iterations'] for r in out[0]]}"
+    )
+    if not worst <= 1e-10:
+        raise AssertionError("the gather path on the card disagrees with the CPU reference")
+
+
+def own_node_errors(device):
+    """The f32 K operator against the f64 one at create_sphere(5), largest
+    difference over all entries and over the own-node 3x3 blocks (row node =
+    column node), relative to max|K|: the smooth bulk alone and the assembled
+    operator, in node and in gather mode."""
+    from bemstokes_tpu_torch.ops import assemble
+
+    def operators(dtype, mode):
+        tables, euler, sp, *_ = slot_case(REFINEMENTS, 1, dtype, device)
+        tables = with_cfg(tables, column_mode=mode)
+        ids = torch.arange(sp.shape[0], device=device)
+        if mode == "node":
+            _, bulk = assemble.node_sweep(*assemble.node_sweep_inputs(euler, sp, tables))
+        else:
+            _, bulk = assemble._panel_bulk(euler, sp, ids, tables)
+        _, full = assemble.assemble_V_K(euler, sp, tables)
+        return bulk.double(), full.double()
+
+    out = {}
+    for mode in ("node", "gather"):
+        b64, f64 = operators(torch.float64, mode)
+        b32, f32 = operators(torch.float32, mode)
+        n = b64.shape[0] // 3
+        idx = torch.arange(n, device=device)
+        for name, A, B in (("bulk", b32, b64), ("assembled", f32, f64)):
+            diff = (A - B).abs()
+            own = diff.view(3, n, 3, n)[:, idx, :, idx].max().item()
+            out[mode, name] = (diff.max().item() / B.abs().max().item(), own / B.abs().max().item())
+        del b64, f64, b32, f32
+        torch.cuda.empty_cache()
+    log(
+        "f32 K against f64 at create_sphere(5), (largest error, largest own-node error) / max|K|: "
+        + "; ".join(f"{mode} {name} ({a:.3e}, {b:.3e})" for (mode, name), (a, b) in out.items())
+    )
+    return out
+
+
+def phase_gather_path(node_kernel, slot_kernel, device, node_forces):
+    """This slice's path at full width: gather-mode frames (K6), one frame
+    through K4 and one f32 gather frame; returns the launches of K6 and K4."""
+    from bemstokes_tpu_torch.config import ProblemConfig, SolverConfig
+
+    base = dict(grid_type="ImposedVelocity", imposed_component=0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(node_kernel, slot_kernel)
+    unknowns, recs = solve_frames(device, ProblemConfig(assembly_backend="gather", **base), 3)
+    launches = dict(slot_kernel.launches)
+    others = dict(node_kernel.launches)
+    diffs = [
+        float(np.abs(r["stokes_forces"] - f).max() / np.abs(f).max()) for r, f in zip(recs, node_forces)
+    ]
+    log(
+        f"gather path f64: K6 launches {launches}, node-sweep launches {others}, forces against the "
+        f"node-mode frames {diffs} (tol 1e-8), "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
+    )
+    if unknowns != 3 * (6 * 4**REFINEMENTS + 2) + 6:
+        raise AssertionError(f"gather path: {unknowns} unknowns")
+    if [r["refactored"] for r in recs] != [True, False, False]:
+        raise AssertionError("gather path: frame 0 must factor a fresh LU and frames 1-2 reuse it")
+    for r, d in zip(recs, diffs):
+        if not (r["converged"] and r["finite"] and r["drag_rel_err"] <= DRAG_TOL and d <= 1e-8):
+            raise AssertionError(f"gather frame {r['frame']} failed: drag {r['drag_rel_err']}, diff {d}")
+    if launches["tile_slots"] < 3 or any(others.values()):
+        raise AssertionError(f"gather path: unexpected launches {launches} {others}")
+
+    # one frame with the node sweep stored component-major (K4)
+    zero_counts(node_kernel, slot_kernel)
+    _, (rec,) = solve_frames(device, ProblemConfig(assembly_backend="node_planes", **base), 1)
+    planes = dict(node_kernel.launches)
+    diff = float(np.abs(rec["stokes_forces"] - node_forces[0]).max() / np.abs(node_forces[0]).max())
+    log(f"K4 frame f64: launches {planes}, forces against the node-mode frame 0 {diff:.3e} (tol 1e-12)")
+    if not (rec["converged"] and diff <= 1e-12):
+        raise AssertionError("the K4 frame disagrees with the K1 frame")
+    if planes != {"free_space": 0, "free_surface": 0, "no_slip": 0, "planes": 1}:
+        raise AssertionError(f"K4 frame: expected one launch of K4 alone, got {planes}")
+
+    # one f32 gather frame
+    cfg32 = ProblemConfig(
+        dtype="float32", solver=SolverConfig(tolerance=1e-5), assembly_backend="gather", **base
+    )
+    _, (rec32,) = solve_frames(device, cfg32, 1)
+    if not (rec32["converged"] and rec32["finite"] and rec32["drag_rel_err"] <= DRAG_TOL):
+        raise AssertionError(f"f32 gather frame failed: {rec32['drag_rel_err']}")
+    errors = own_node_errors(device)
+    # own-cell pairs are masked in the gather bulk: no entry is a sum of
+    # large cancelling terms there (node mode's own-node entries are ~1e-2)
+    if not errors["gather", "bulk"][0] <= 1e-3:
+        raise AssertionError("the f32 gather bulk of K is further from f64 than 1e-3 of max|K|")
+    return launches["tile_slots"], planes["planes"]
+
+
+def write_msh(path, vertices, cells):
+    """A gmsh v2 file of a quad surface mesh (cells lexicographic, as
+    `SurfaceMesh` stores them; the file holds them counterclockwise)."""
+    n, nc = len(vertices), len(cells)
+    with open(path, "w") as f:
+        f.write(f"$MeshFormat\n2.2 0 8\n$EndMeshFormat\n$Nodes\n{n}\n")
+        np.savetxt(f, np.column_stack([np.arange(1, n + 1), vertices]), fmt="%d %.17g %.17g %.17g")
+        f.write(f"$EndNodes\n$Elements\n{nc}\n")
+        rows = np.column_stack(
+            [np.arange(1, nc + 1), np.full((nc, 4), [3, 2, 0, 0]), cells[:, [0, 1, 3, 2]] + 1]
+        )
+        np.savetxt(f, rows, fmt="%d")
+        f.write("$EndElements\n")
+
+
+def phase_command_line():
+    """`python3 -m bemstokes_tpu_torch run` as a subprocess on the card: a
+    gait of three frame mesh files (create_sphere(5) growing into a pear
+    along x), gather mode, frames 0 and 1."""
+    import os
+
+    from bemstokes_tpu_torch.config import ProblemConfig
+    from bemstokes_tpu_torch.config_io import save_config
+    from bemstokes_tpu_torch.mesh import create_sphere
+    from bemstokes_tpu_torch.swimmer import SwimmerState
+
+    mesh = create_sphere(refinements=REFINEMENTS)
+    with tempfile.TemporaryDirectory() as tmp:
+        grids = os.path.join(tmp, "grids")
+        os.makedirs(grids)
+        for k in range(3):
+            scale = 1.0 + 0.04 * k * mesh.vertices[:, :1]
+            write_msh(os.path.join(grids, f"gait_{k}.msh"), mesh.vertices * scale, mesh.cells)
+        cfg = ProblemConfig(
+            grid_type="Real",
+            n_frames=3,
+            time_step=0.1,
+            input_grid_path=grids + os.sep,
+            input_grid_base_name="gait_",
+            input_grid_format="msh",
+            consider_rigid_displacements=True,
+            rigid_displacement_axes=(True, True, True),
+            assembly_backend="gather",
+        )
+        params, out = os.path.join(tmp, "params.json"), os.path.join(tmp, "out")
+        save_config(cfg, params)
+        t0 = time.perf_counter()
+        done = subprocess.run(
+            [sys.executable, "-m", "bemstokes_tpu_torch", "run", "-p", params, "0", "2", "-o", out],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True,
+            text=True,
+            timeout=600,
+        )
+        seconds = time.perf_counter() - t0
+        for line in done.stdout.splitlines():
+            if line.startswith("frame "):
+                log(f"command line: {line}")
+        if done.returncode != 0:
+            raise AssertionError(f"the command line run exited {done.returncode}:\n{done.stderr[-2000:]}")
+        U = []
+        for k in range(2):
+            state = SwimmerState.load(os.path.join(out, f"state_{k}.npz"))
+            res = np.load(os.path.join(out, f"result_{k}.npz"))
+            ok = state.frame == k and all(np.isfinite(res[key]).all() for key in res.files)
+            ok = ok and np.isfinite(state.displacements).all() and res["euler"].shape == (mesh.n_vertices, 3)
+            if not ok or not os.path.exists(os.path.join(out, f"stokes_{k}.vtu")):
+                raise AssertionError(f"command line run: bad state or result files of frame {k}")
+            U.append(res["rigid_velocities"])
+        used = os.path.exists(os.path.join(out, "used_parameters_3d.json"))
+        log(
+            f"command line: `python3 -m bemstokes_tpu_torch run -p params.json 0 2 -o out`, gait of 3 gmsh "
+            f"files ({mesh.n_vertices} nodes), gather mode: exit 0 in {seconds:.1f} s; U = "
+            f"{[u.tolist() for u in U]}"
+        )
+        # the fore end grows: the stroke moves the body along x, and only along x
+        for u in U:
+            if not (used and abs(u[0]) > 1e-3 and np.all(np.abs(u[1:]) < 1e-6 * abs(u[0]) + 1e-9)):
+                raise AssertionError(f"command line run: unexpected rigid velocities {u}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    from bemstokes_tpu_torch.ops import cuda_build, matfree_node, node_kernel
+    from bemstokes_tpu_torch.ops import cuda_build, matfree_node, node_kernel, slot_kernel
 
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
@@ -967,7 +1446,8 @@ def main():
     phase_build(cuda_build)
     records = phase_kernel_vs_plain(node_kernel, device)
     phase_small_reference(device)
-    launches = {"free_space": phase_free_space_path(node_kernel, device)}
+    launches = {}
+    launches["free_space"], node_forces = phase_free_space_path(node_kernel, device)
     launches.update(phase_wall_paths(node_kernel, device))
     phase_float32(device)
     matvec_records = phase_matvec_vs_plain(matfree_node, node_kernel, device)
@@ -975,6 +1455,11 @@ def main():
     matvec_launches = phase_matfree_vs_materialized(matfree_node, node_kernel, device)
     # K5's free-space count is the capacity frame's: its main path
     matvec_launches["free_space"] = phase_capacity(matfree_node, device)
+    planes_record = phase_planes_vs_plain(node_kernel, device)
+    slots_record = phase_slots_vs_plain(slot_kernel, device)
+    phase_gather_small(device)
+    slots_launches, planes_launches = phase_gather_path(node_kernel, slot_kernel, device, node_forces)
+    phase_command_line()
     kernels = [
         dict(route="cuda", launches=launches[kernel], **KERNELS[kernel], **records[kernel])
         for kernel in KERNELS
@@ -986,6 +1471,9 @@ def main():
             **matvec_records[kernel],
         )
         for kernel in MATVEC_KERNELS
+    ] + [
+        dict(route="cuda", launches=planes_launches, **PLANES_KERNEL, **planes_record),
+        dict(route="cuda", launches=slots_launches, **SLOT_KERNEL, **slots_record),
     ]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(card_line())

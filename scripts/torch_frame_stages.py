@@ -4,6 +4,8 @@
     python3 scripts/torch_frame_stages.py [--kernel no_slip|free_surface|free_space]
                                           [--refinements 5] [--frames 3]
                                           [--matrix-free [--block-nodes 1024]]
+                                          [--column-mode node|gather|scatter|node_planes]
+                                          [--dtype float64|float32]
 
 Runs `SwimmerSimulation(...).run(0, frames)` of bemstokes_tpu_torch for the
 unit sphere 2 radii above the image plane (chip_smoke.py's configuration) on
@@ -18,8 +20,12 @@ leaves them out).  With `--matrix-free` the frames take the matrix-free
 solve (`matfree.py`) and the stages are its own: the setup sweep, the block
 factors, the Schur tail, GMRES and the finish, with the K5 sweeps inside the
 setup and GMRES also summed on their own; `--refinements 6` is the
-73,740-unknown shape that no materialized path holds on one card.  Prints
-the card's name and power limit first.
+73,740-unknown shape that no materialized path holds on one card.  With
+`--column-mode gather` (or `scatter`) the assembly takes the panel-centric
+bulk and the stages name it whole and, within it, the slot kernel K6 (plain
+torch beside a wall), the incidence gather-reduce and its inputs;
+`node_planes` runs the node sweep through K4 (free space only).  Prints the
+card's name and power limit first.
 """
 
 import argparse
@@ -65,6 +71,10 @@ def main():
     ap.add_argument("--no-warmup", action="store_true")
     ap.add_argument("--matrix-free", action="store_true")
     ap.add_argument("--block-nodes", type=int, default=1024)
+    ap.add_argument(
+        "--column-mode", default="node", choices=["node", "gather", "scatter", "node_planes"]
+    )
+    ap.add_argument("--dtype", default="float64", choices=["float64", "float32"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_frame_stages: no CUDA device; nothing was run", file=sys.stderr)
@@ -91,6 +101,8 @@ def main():
         time_step=5.0,
         matrix_free=args.matrix_free,
         matfree_block_nodes=args.block_nodes,
+        assembly_backend=args.column_mode,
+        dtype=args.dtype,
     )
     if not args.no_warmup:
         with tempfile.TemporaryDirectory() as out:
@@ -111,6 +123,14 @@ def main():
     # the stages of one solve_frame, by the module attribute each is called through
     if args.matrix_free:
         nested |= {"node sweep kernel", "column sample tables", "singular delta", "near delta"}
+    if args.column_mode in ("gather", "scatter"):
+        nested |= {"slot kernel (K6, or plain torch)", "incidence gather-reduce", "slot inputs and keep masks"}
+        asm._panel_bulk = timed(stages, "panel-centric bulk, whole", asm._panel_bulk)
+        asm.tile_slots = timed(stages, "slot kernel (K6, or plain torch)", asm.tile_slots)
+        asm.tile_slots_reference = timed(stages, "slot kernel (K6, or plain torch)", asm.tile_slots_reference)
+        asm.gather_reduce = timed(stages, "incidence gather-reduce", asm.gather_reduce)
+        asm.slot_inputs = timed(stages, "slot inputs and keep masks", asm.slot_inputs)
+        asm.own_cell_keep = timed(stages, "slot inputs and keep masks", asm.own_cell_keep)
     asm.node_sweep = timed(stages, "node sweep kernel", asm.node_sweep)
     asm.node_sweep_inputs = timed(stages, "column sample tables", asm.node_sweep_inputs)
     asm._add_singular_rows = timed(stages, "singular delta", asm._add_singular_rows)
@@ -130,7 +150,10 @@ def main():
 
     with tempfile.TemporaryDirectory() as out:
         sim = swimmer.SwimmerSimulation(cfg, out)
-        print(f"kernel {args.kernel}, {3 * sim.problem.n + 6} unknowns, {cfg.dtype}")
+        print(
+            f"kernel {args.kernel}, {3 * sim.problem.n + 6} unknowns, {cfg.dtype}, "
+            f"column mode {args.column_mode}"
+        )
         for frame in range(args.frames):
             stages.clear()
             torch.cuda.synchronize()

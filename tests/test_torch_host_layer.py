@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 import bemstokes_tpu.config as cfg_j
+import bemstokes_tpu.config_io as cio_j
 import bemstokes_tpu.fem.geometry as geo_j
 import bemstokes_tpu.mesh.constraints as con_j
 import bemstokes_tpu.mesh.dofs as dofs_j
@@ -17,10 +18,13 @@ import bemstokes_tpu.mesh.factories as fac_j
 import bemstokes_tpu.mesh.proximity as prox_j
 import bemstokes_tpu.mesh.refine as ref_j
 import bemstokes_tpu.mesh.surface_mesh as sm_j
+import bemstokes_tpu.mesh.io as io_j
 import bemstokes_tpu.mesh.io_vtu as vtu_j
+import bemstokes_tpu._native as native_j
 import bemstokes_tpu.ops.assemble as asm_j
 import bemstokes_tpu.utils.dealii_io as dio_j
 import bemstokes_tpu_torch.config as cfg_t
+import bemstokes_tpu_torch.config_io as cio_t
 import bemstokes_tpu_torch.fem.geometry as geo_t
 import bemstokes_tpu_torch.mesh.constraints as con_t
 import bemstokes_tpu_torch.mesh.dofs as dofs_t
@@ -28,7 +32,9 @@ import bemstokes_tpu_torch.mesh.factories as fac_t
 import bemstokes_tpu_torch.mesh.proximity as prox_t
 import bemstokes_tpu_torch.mesh.refine as ref_t
 import bemstokes_tpu_torch.mesh.surface_mesh as sm_t
+import bemstokes_tpu_torch.mesh.io as io_t
 import bemstokes_tpu_torch.mesh.io_vtu as vtu_t
+import bemstokes_tpu_torch._native as native_t
 import bemstokes_tpu_torch.ops.assemble as asm_t
 import bemstokes_tpu_torch.utils.dealii_io as dio_t
 
@@ -218,6 +224,72 @@ def test_config_from_dict_roundtrip():
     assert [f.name for f in dataclasses.fields(cfg_t.ProblemConfig)] == [
         f.name for f in dataclasses.fields(cfg_j.ProblemConfig)
     ]
+
+
+def _code(fn):
+    """A function's compiled body: equal for two copies of one source."""
+    def body(c):
+        consts = tuple(body(k) if hasattr(k, "co_code") else k for k in c.co_consts[1:])
+        return c.co_code, consts, c.co_names, c.co_varnames
+
+    return body(fn.__code__)
+
+
+@pytest.mark.parametrize(
+    "name", ["_ccw_quad_to_lex", "read_msh", "read_inp", "read_vtk", "read_obj"]
+)
+def test_mesh_readers_are_the_original_code(name):
+    """`mesh/io.py`: the numpy readers are the JAX package's, statement for
+    statement (tests/test_torch_cli.py reads files through both)."""
+    assert _code(getattr(io_t, name)) == _code(getattr(io_j, name))
+
+
+@pytest.mark.parametrize(
+    "name", ["parse_prm", "config_from_dict", "load_config", "save_config", "_set_path", "_to_floats"]
+)
+def test_config_io_is_the_original_code(name):
+    assert _code(getattr(cio_t, name)) == _code(getattr(cio_j, name))
+
+
+def test_config_io_tables_identical():
+    for table in ("PRM_MAP", "PRM_MAP_SOLVER"):
+        tj, tt = getattr(cio_j, table), getattr(cio_t, table)
+        assert list(tj) == list(tt)
+        for key in tj:
+            assert tj[key][0] == tt[key][0] and tj[key][1].__name__ == tt[key][1].__name__
+    assert cio_j.PRM_MAP_FLAGELLUM == cio_t.PRM_MAP_FLAGELLUM
+    assert cio_j.N_WALLS == cio_t.N_WALLS
+    for rx in ("_WALL_RE", "_QUAT_RE", "_RIGID_AXIS_RE", "_FE_RE"):
+        assert getattr(cio_j, rx).pattern == getattr(cio_t, rx).pattern
+
+
+def test_native_reader_binding_is_the_original_code():
+    """`_native.py` binds the same library the same way (the reader half)."""
+    assert _code(native_t.read_mesh_native) == _code(native_j.read_mesh_native)
+    assert _code(native_t._build) == _code(native_j._build)
+    assert native_t._SO == native_j._SO
+    assert native_t._MeshBuf._fields_ == native_j._MeshBuf._fields_
+
+
+def test_cylinder_import_reads_a_mesh_file(tmp_path):
+    """`add_walls_to_mesh` with `cylinder.import_mesh`: the wall read from a
+    file, in both packages."""
+    tube = fac_t.create_cylindrical_wall(radius=2.0, height=3.0)
+    path = str(tmp_path / "tube.inp")
+    with open(path, "w") as f:
+        f.write("%d %d 0 0 0\n" % (tube.n_vertices, tube.n_cells))
+        for k, v in enumerate(tube.vertices):
+            f.write("%d %.17g %.17g %.17g\n" % (k + 1, *v))
+        for k, c in enumerate(tube.cells[:, [0, 1, 3, 2]]):
+            f.write("%d 0 quad %d %d %d %d\n" % (k + 1, *(c + 1)))
+    out = []
+    for cfg_mod, fac in ((cfg_j, fac_j), (cfg_t, fac_t)):
+        cfg = cfg_mod.ProblemConfig(
+            cylinder=cfg_mod.CylinderConfig(import_mesh=True, mesh_filename=path, wall_type="free_surface")
+        )
+        out.append(fac.add_walls_to_mesh(fac.create_sphere(refinements=1), cfg))
+    _same(out[0], out[1])
+    assert out[1].n_cells == 24 + tube.n_cells
 
 
 def _imports(path):

@@ -1,10 +1,16 @@
-"""K1, the node-sweep kernel (`bemstokes_tpu_torch/ops/node_kernel.py`).
+"""K1, the node-sweep kernel, and K4, its component-major twin
+(`bemstokes_tpu_torch/ops/node_kernel.py`).
 
 On the CPU: the wrapper runs the plain torch version and launches nothing,
 and the plain version agrees with a per-pair numpy evaluation of the
 Stokeslet / stresslet sums (f64, 1e-13 relative to max|V|, max|K|),
 including the dummy offset on an exact r^2 = 0 pair, zero-weight padding
 and ragged tiles.
+
+The planes layout (K4): the plain version equals the dense form exactly
+after `planes_to_dense`, and agrees with the Pallas TPU kernel it replaces,
+`pallas_node_blocks(..., transposed=False, interpret=True)` fed through
+`node_sweep_soa` at T = CJ = 128, to 1e-12 of max in f64.
 
 On a card (marker `cuda`): the CUDA kernel against its plain version on the
 same inputs at the create_sphere(3) shapes, relative to max|V| and max|K|:
@@ -17,10 +23,13 @@ Run the card tests with `python3 -m pytest tests/test_torch_node_kernel.py
 
 import math
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from bemstokes_tpu.ops.assemble import node_sweep_soa
+from bemstokes_tpu.ops.pallas_node import pallas_node_blocks
 from bemstokes_tpu_torch.fem.geometry import euler_from_mesh, support_points
 from bemstokes_tpu_torch.mesh import build_scalar_space, create_sphere
 from bemstokes_tpu_torch.ops import node_kernel
@@ -113,6 +122,50 @@ def test_sphere_inputs_shapes():
     assert Wj.shape == (386, 64) and all(t.is_contiguous() for t in (xi, Yj, Nj, Wj))
 
 
+@pytest.mark.parametrize("nr", [7, 3])
+def test_planes_layout_is_the_dense_form_relaid(nr):
+    xi, Y, N, W = _random_inputs(nr=nr)
+    V, K = node_kernel.node_sweep_reference(xi, Y, N, W)
+    Vp, Kp = node_kernel.node_sweep(xi, Y, N, W, layout="planes")
+    assert Vp.shape == Kp.shape == (9, Y.shape[0], nr)
+    assert torch.equal(node_kernel.planes_to_dense(Vp), V)
+    assert torch.equal(node_kernel.planes_to_dense(Kp), K)
+    # entry (3a + b, j, i) is entry (a*nr + i, b*n + j) of the dense form
+    n = Y.shape[0]
+    assert Vp[3 * 1 + 2, 4, nr - 1] == V[1 * nr + nr - 1, 2 * n + 4]
+
+
+def test_planes_layout_is_free_space_only():
+    args = _random_inputs()
+    for fn in (node_kernel.node_sweep, node_kernel.node_sweep_reference):
+        with pytest.raises(ValueError, match="free space only"):
+            fn(*args, kernel="no_slip", layout="planes")
+        with pytest.raises(ValueError, match="layout"):
+            fn(*args, layout="rows")
+
+
+@pytest.mark.parametrize("rows", [None, 37])
+def test_planes_layout_matches_pallas_rows_in_lanes_kernel(rows):
+    """create_sphere(2) (98 nodes, m = 64) through the TPU kernel's program
+    layout, one 128 x 128 program; the padded rows and columns are cut."""
+    xi, Yj, Nj, Wj = _sphere_inputs(torch.float64, "cpu", refinements=2)
+    if rows is not None:
+        xi = xi[5 : 5 + rows].contiguous()
+    nr, n = xi.shape[0], Yj.shape[0]
+    V, K = node_kernel.node_sweep(xi, Yj, Nj, Wj, layout="planes")
+    xi_p, Y_soa, N_soa, W_b = node_sweep_soa(
+        *(jnp.asarray(a.numpy()) for a in (xi, Yj, Nj, Wj)),
+        d=3, nq=16, vmax=4, T=128, CJ=128, bulk_dt=jnp.float64,
+    )
+    Vp, Kp = pallas_node_blocks(
+        xi_p, Y_soa, N_soa, W_b, CJ=128, nq=16, vmax=4, T=128, interpret=True, transposed=False
+    )
+    assert Vp.shape == (9, 128, 128)
+    for A, P in ((V, Vp), (K, Kp)):
+        P = np.asarray(P)[:, :n, :nr]
+        assert np.max(np.abs(A.numpy() - P)) <= 1e-12 * np.max(np.abs(P))
+
+
 @pytest.fixture
 def cuda_device():
     """The card, decided inside the test run (never at import)."""
@@ -153,3 +206,24 @@ def test_kernel_rejects_non_contiguous(cuda_device):
     xi, Y, N, W = (a.to(cuda_device) for a in _random_inputs(seed=4))
     with pytest.raises(ValueError, match="contiguous"):
         node_kernel.node_sweep(xi.T.contiguous().T, Y, N, W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("rows", [None, 37])
+def test_planes_kernel_matches_plain_version_and_k1(cuda_device, dtype, tol, rows):
+    """K4 against its plain version, and K1's bits after `planes_to_dense`
+    (both kernels run the same sample loop)."""
+    xi, Yj, Nj, Wj = _sphere_inputs(dtype, cuda_device)
+    if rows is not None:
+        xi = xi[5 : 5 + rows].contiguous()
+    before = node_kernel.launches["planes"]
+    V, K = node_kernel.node_sweep(xi, Yj, Nj, Wj, layout="planes")
+    torch.cuda.synchronize()
+    assert node_kernel.launches["planes"] == before + 1
+    Vr, Kr = node_kernel.node_sweep_reference(xi, Yj, Nj, Wj, layout="planes")
+    assert ((V - Vr).abs().max() / Vr.abs().max()).item() <= tol
+    assert ((K - Kr).abs().max() / Kr.abs().max()).item() <= tol
+    Vd, Kd = node_kernel.node_sweep(xi, Yj, Nj, Wj)
+    assert torch.equal(node_kernel.planes_to_dense(V), Vd)
+    assert torch.equal(node_kernel.planes_to_dense(K), Kd)
