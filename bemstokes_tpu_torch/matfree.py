@@ -4,8 +4,9 @@
 Every materialized path stores V, K and A as [3n, 3n] buffers plus an LU:
 four dense squares, 43.5 GB each in f64 at 73,740 unknowns.  This path forms
 none of them: the GMRES matvec recomputes the operator inside the fused node
-sweep (`ops.matfree_node.sweep_matvec`, the kernel K5 on a CUDA tensor) and
-adds the exact sparse corrections:
+sweep (`ops.matfree_node.sweep_matvec`, the kernel K5 on a CUDA tensor; where
+every column of the system is single-layer, as on every all-body mesh, it
+sweeps V alone) and adds the exact sparse corrections:
 
 - singular / near-pair quadrature deltas as COO triplets
   (`ops.assemble._singular_coo` / `_near_coo`: the same arrays the
@@ -284,6 +285,11 @@ class MatfreeSolver:
             tmp_torque = Pt(KX[:, off + R + 1] + self._sa_apply(sa_vals, Pt_tq))
 
         sel_V = operator_column_mask(p._node_material_t, flatten(nv["normal"]), n, d)
+        # which operators the matvec needs: every column single-layer (bodies,
+        # no-slip and Dirichlet walls: every all-body mesh), every column
+        # double-layer, or both.  One host read a frame, none a matvec.
+        n_sel = int(sel_V.sum())
+        side = "V" if n_sel == dn else "K" if n_sel == 0 else "both"
 
         # ---- rhs (mirrors ops.monolithic.build_monolithic_system) ----
         rhs_tail = torch.zeros((R,), dtype=dt, device=dev)
@@ -342,6 +348,7 @@ class MatfreeSolver:
             l2g=l2g,
             sa_vals=sa_vals,
             sel_V=sel_V,
+            side=side,
             tmp_N=tmp_N,
             tmp_torque=tmp_torque,
             torque_dual=torque_dual,
@@ -354,27 +361,40 @@ class MatfreeSolver:
 
     # ------------------------------------------------------------------
     def _matvec(self, sys):
-        """The monolithic operator action (closure over the frame state)."""
+        """The monolithic operator action (closure over the frame state).
+
+        `sys["side"]` says which operators it applies: "both" splits the
+        unknown into its single-layer part u and its double-layer part w and
+        sweeps V @ u and K @ w in one two-sided launch; "V" (or "K") sweeps
+        the one operator alone, with a zero-width batch for the other, and
+        leaves out the other's delta, rank-1 and solid-angle terms, whose
+        input would be exactly zero: the same result bit for bit (up to the
+        sign of a zero when only K is applied)."""
         cfg = self.p.cfg
         dn, R = self.dn, self.R
         scale = cfg.assemble_scaling
         sel = sys["sel_V"]
+        side = sys["side"]
         coo, dV, dK = sys["coo"], sys["dV"], sys["dK"]
         vec_u = sys["n_pure_f"] - sys["Vn"]
         w_dual = sys["Mn_pure_f"] / sys["l2g"]
         zero = torch.zeros((), dtype=self.dt, device=sel.device)
+        none = torch.zeros((dn, 0), dtype=self.dt, device=sel.device)
 
         def mv(x):
             xs = x[:dn]
             tail = x[dn : dn + R]
-            u = torch.where(sel, xs, zero)
-            w = torch.where(sel, zero, xs)
+            u = none if side == "K" else xs if side == "V" else torch.where(sel, xs, zero)
+            w = none if side == "V" else xs if side == "K" else torch.where(sel, zero, xs)
             Vu, Kw = sweep_matvec(self.st, sys["arrs"], u, w)
-            Vu = Vu + _delta_apply(coo, dV, u, dn)
-            Kw = Kw + _delta_apply(coo, dK, w, dn)
-            Vu = Vu + vec_u * torch.dot(w_dual, u)
-            Kw = Kw + self._sa_apply(sys["sa_vals"], w)
-            top = Vu - Kw - scale * (tail @ sys["tmp_N"])
+            if side != "K":
+                Vu = Vu + _delta_apply(coo, dV, u, dn)
+                Vu = Vu + vec_u * torch.dot(w_dual, u)
+            if side != "V":
+                Kw = Kw + _delta_apply(coo, dK, w, dn)
+                Kw = Kw + self._sa_apply(sys["sa_vals"], w)
+            head = Vu if side == "V" else -Kw if side == "K" else Vu - Kw
+            top = head - scale * (tail @ sys["tmp_N"])
             if self.with_torque:
                 top = top - scale * sys["tmp_torque"] * x[-1]
             if cfg.grid_type == GRID_IMPOSED_VELOCITY:

@@ -14,6 +14,11 @@ Semantics are those of the materialized node sweep (`ops/node_kernel.py`):
 the same sample tables, the same dummy offset on exact r^2 = 0 pairs, so the
 singular delta COO cancels them.
 
+Launch shapes: the batch widths pick the kernel's instantiation
+(`launch_shape`): one column each of V and K, one column of V alone (the
+GMRES matvec of an all-body mesh, `matfree.py`), one of K alone, or chunks
+of four columns for anything wider (the setup sweep).
+
 What the TPU kernel needed and this one does not: the repeat of every node
 value over its samples (`_prep_x`), the ones-matrix reduction, the padded
 128-lane output with its 3 B <= 128 cap on the batch (any BV, BK >= 0 is
@@ -46,6 +51,17 @@ _KIND = {KERNEL_FREE_SPACE: 0, KERNEL_FREE_SURFACE: 1, KERNEL_NO_SLIP: 2}
 #: kernel launches made by `sweep_matvec`, per Green's function (plain
 #: counters: set them to 0 before a run and read them after)
 launches = {KERNEL_FREE_SPACE: 0, KERNEL_FREE_SURFACE: 0, KERNEL_NO_SLIP: 0}
+#: the same launches per Green's function and launch shape (`launch_shape`)
+shape_launches = {
+    (kernel, shape): 0 for kernel in launches for shape in ("1x1", "1x0", "0x1", "wide")
+}
+
+
+def launch_shape(BV: int, BK: int) -> str:
+    """Which of the kernel's instantiations serves a (BV, BK) batch: "1x1"
+    (two-sided), "1x0" (V only), "0x1" (K only), or "wide" (chunks of four
+    columns, each two-sided or one-sided as its columns are)."""
+    return f"{BV}x{BK}" if BV <= 1 and BK <= 1 else "wide"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,19 +120,21 @@ def build_sweep(tables: AssemblyTables, xi, xq, normals, jxw):
     return st, build_sweep_arrays(st, tables, xi, xq, normals, jxw)
 
 
-def _library():
-    def declare(lib):
-        lib.sweep_matvec_part_elems.argtypes = [ctypes.c_int64] * 4
-        lib.sweep_matvec_part_elems.restype = ctypes.c_int64
-        for name in ("sweep_matvec_f32", "sweep_matvec_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = (
-                [ctypes.c_void_p] * 9
-                + [ctypes.c_int64] * 5
-                + [ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_void_p]
-            )
-            fn.restype = ctypes.c_int
+def declare(lib):
+    """Argument and result types of the library's entry points."""
+    lib.sweep_matvec_part_elems.argtypes = [ctypes.c_int64] * 4
+    lib.sweep_matvec_part_elems.restype = ctypes.c_int64
+    for name in ("sweep_matvec_f32", "sweep_matvec_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = (
+            [ctypes.c_void_p] * 9
+            + [ctypes.c_int64] * 5
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
 
+
+def _library():
     return cuda_build.library(SOURCE, declare)
 
 
@@ -146,7 +164,8 @@ def sweep_matvec(st: SweepStatic, arrs, XV, XK):
     """(V @ XV, K @ XK) of the smooth bulk pass.  XV [d*n, BV] and
     XK [d*n, BK] are component-blocked flat columns (any BV, BK >= 0);
     returns (VX [d*nr, BV], KX [d*nr, BK]).  1-D inputs are treated as
-    single columns and returned 1-D.
+    single columns and returned 1-D.  A side of width 0 is not computed at
+    all: (1, 0) and (0, 1) launch the kernel's one-sided instantiations.
 
     CUDA tensors launch the kernel K5 (float32 or float64) or raise; CPU
     tensors run `sweep_matvec_reference`."""
@@ -213,7 +232,26 @@ def _sweep_matvec_cuda(st: SweepStatic, arrs, XV, XK):
     if rc != 0:
         raise RuntimeError(f"sweep_matvec: {st.kernel} kernel launch failed with CUDA error {rc}")
     launches[st.kernel] += 1
+    shape_launches[st.kernel, launch_shape(BV, BK)] += 1
     return VX, KX
+
+
+def rsqrt_pos(x):
+    """The kernel's float64 inverse square root (`rsqrt_pos` of
+    `csrc/node_sweep_common.cuh`) of a contiguous CUDA tensor, alone: for the
+    tests that hold it against 1 / sqrt."""
+    if x.device.type != "cuda" or x.dtype != torch.float64 or not x.is_contiguous():
+        raise ValueError("rsqrt_pos: takes a contiguous float64 CUDA tensor")
+    lib = _library()
+    fn = lib.sweep_matvec_rsqrt_f64
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), y.data_ptr(), x.numel(), torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rsqrt_pos: kernel launch failed with CUDA error {rc}")
+    return y
 
 
 def sweep_matvec_reference(

@@ -40,13 +40,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      counter-rotates, U[3] = -omega_gait to 2e-3, the rest below 5e-3;
 6. one f32 free-space frame at 18,444 unknowns (GMRES tolerance 1e-5);
 7. K5 (`sweep_matvec`, all three Green's functions) against its plain torch
-   version on the card, f64 and f32, with (BV, BK) = (1, 1), the GMRES
-   matvec, and (1, 10), the setup sweep: create_sphere(3) whole, a 512-row
-   slab of create_sphere(5), create_sphere(5) whole and a 512-row slab of
-   create_sphere(6); a second call must give the same bits; at
-   create_sphere(5) in f64 also against V @ x, K @ x of the operators K1, K2
-   and K3 materialize (1e-12); timed at create_sphere(5) and at the capacity
-   shape create_sphere(6) (24,578 nodes);
+   version on the card, f64 and f32, in each launch shape (BV, BK): (1, 0),
+   V alone, the GMRES matvec of an all-body mesh; (0, 1), K alone; (1, 1),
+   two-sided; and (1, 10), the setup sweep: create_sphere(3) whole, a
+   512-row slab of create_sphere(5), create_sphere(5) whole and a 512-row
+   slab of create_sphere(6); a second call must give the same bits; at
+   create_sphere(5) in f64 every shape also against V @ x, K @ x of the
+   operators K1, K2 and K3 materialize (1e-12); timed at create_sphere(5)
+   and at the capacity shape create_sphere(6) (24,578 nodes); before it, the
+   kernel's f64 inverse square root alone against 1 / sqrt;
 8. the matrix-free path, small, for each Green's function: a matrix-free
    frame on create_sphere(2), the card against the CPU (1e-10, equal
    iterations), and one on create_sphere(3) twice on the card with equal
@@ -54,10 +56,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 9. the matrix-free path at 18,444 unknowns, f64, GMRES tolerance 1e-11:
    frame 0 of phase 5's free-space, no-slip and free-surface configurations
    solved materialized and matrix-free, rigid velocities and forces within
-   1e-7, with the K5 launch counters set to 0 before each and read after;
+   1e-7, with the K5 launch counters set to 0 before each and read after:
+   on these all-body meshes every GMRES matvec must have gone through the
+   V-only kernel, none through the two-sided one, the setup sweep through
+   the wide one (the counters are kept per Green's function and shape);
 10. the capacity frame, which no materialized path can hold on one card:
    create_sphere(6), 24,578 nodes, 73,740 unknowns, ImposedVelocity along x,
-   matfree_block_nodes = 1024, one frame each: in f64 with the solver's
+   matfree_block_nodes = 1024, one frame each, with the same check of the
+   launch shapes: in f64 with the solver's
    defaults (drag error <= 1e-4 against 6 pi, converged) and in f32 with
    preconditioner_dtype = float32, gmres_restart = 25, tolerance = 3e-5,
    max_steps = 200 (drag error <= 2.5e-4);
@@ -135,9 +141,15 @@ CAPACITY_FRAMES = 1  # frames per type in the capacity phase
 #: K's own-node terms are large and cancel, so the two differ by a few 1e-6
 #: of the largest entry; 5e-5 is K3's bound, kept for the same reason.
 TOL_MATVEC = {torch.float64: 1e-12, torch.float32: 5e-5}
-# K5, (BV, BK) = (1, 1): operations per (row, sample) interaction, counted
-# from csrc/sweep_matvec.cu with a multiply-add as two and an rsqrt as one.
-FLOPS_PER_INTERACTION_MATVEC = {"free_space": 52, "free_surface": 102, "no_slip": 175}
+# K5: operations per (row, sample) interaction of each narrow launch shape
+# (BV, BK), counted from csrc/sweep_matvec.cu with a multiply-add as two and
+# an rsqrt as one.  (1, 0), V alone, is the GMRES matvec of an all-body mesh.
+FLOPS_PER_INTERACTION_MATVEC = {
+    "free_space": {(1, 1): 45, (1, 0): 25, (0, 1): 30},
+    "free_surface": {(1, 1): 77, (1, 0): 43, (0, 1): 53},
+    "no_slip": {(1, 1): 128, (1, 0): 58, (0, 1): 91},
+}
+MATVEC_SHAPES = ((1, 0), (0, 1), (1, 1), (1, 10))  # the last: the setup sweep
 
 # Floating-point operations per (row, sample) interaction, counted from the
 # kernel sources with a multiply-add as two and an rsqrt as one.
@@ -255,10 +267,40 @@ def card_line():
     ).stdout.strip()
 
 
+def clock_under_load(fn):
+    """`nvidia-smi`'s SM clock, its maximum and the power draw, read while
+    three calls of fn() are in flight on the card."""
+    for _ in range(3):
+        fn()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw", "--format=csv,noheader"],
+        capture_output=True,
+        text=True,
+        check=True,
+    ).stdout.strip()
+    torch.cuda.synchronize()
+    return out
+
+
 def zero_counts(*modules):
     for mod in modules:
-        for k in mod.launches:
-            mod.launches[k] = 0
+        for counts in (mod.launches, getattr(mod, "shape_launches", {})):
+            for k in counts:
+                counts[k] = 0
+
+
+def shapes_of(matfree_node, kernel):
+    """K5's launches of one Green's function per launch shape."""
+    return {
+        shape: count for (k, shape), count in matfree_node.shape_launches.items() if k == kernel
+    }
+
+
+def check_one_sided(name, kernel, shapes, iterations):
+    """An all-body mesh: every GMRES matvec through the V-only kernel, none
+    two-sided, the setup sweep through the wide one."""
+    if not (shapes["1x0"] >= iterations and shapes["1x1"] == 0 and shapes["0x1"] == 0 and shapes["wide"] >= 1):
+        raise AssertionError(f"{name} ({kernel}): unexpected K5 launch shapes {shapes}")
 
 
 def phase_versions(cuda_build):
@@ -941,23 +983,50 @@ def sweep_inputs(refinements, dtype, device, kernel):
     return tables, euler, support_points(euler, space, space), xq, normals, jxw
 
 
-def matvec_bound(kernel, dtype, nr, n, m):
-    """(bound_ms, bound_by) of one sweep-matvec with one column of V and one
-    of K: every input read once and both outputs written once over the
-    memory rate, against its operations over the peak rate."""
+def matvec_bound(kernel, dtype, nr, n, m, shape=(1, 0)):
+    """(bound_ms, bound_by) of one sweep-matvec of a narrow launch shape
+    (BV, BK): every input read once (the normals only where K is swept) and
+    the outputs written once over the memory rate, against its operations
+    over the peak rate."""
+    BV, BK = shape
     item = torch.finfo(dtype).bits // 8
-    nbytes = item * (3 * nr + 7 * n * m + 2 * 3 * (n + nr))
+    nbytes = item * (3 * nr + (4 + 3 * BK) * n * m + (BV + BK) * 3 * (n + nr))
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = FLOPS_PER_INTERACTION_MATVEC[kernel] * nr * n * m / PEAK_FLOPS[dtype]
+    t_ops = FLOPS_PER_INTERACTION_MATVEC[kernel][shape] * nr * n * m / PEAK_FLOPS[dtype]
     return 1e3 * max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def check_rsqrt(matfree_node, device):
+    """K5's f64 inverse square root alone against 1 / sqrt in extended
+    precision, over the r^2 the sweeps see and far beyond."""
+    rng = np.random.default_rng(3)
+    x = np.exp(rng.uniform(np.log(1e-12), np.log(1e8), 1_000_000))
+    xd = torch.as_tensor(x, device=device)
+    y = matfree_node.rsqrt_pos(xd).cpu().numpy()
+    exact = 1 / np.sqrt(x.astype(np.longdouble))
+    err = float(np.abs((y - exact) / exact).max())
+    lib = float(np.abs((torch.rsqrt(xd).cpu().numpy() - exact) / exact).max())
+    log(
+        f"rsqrt_pos (K5's f64 inverse square root) on 1e6 values in 1e-12 .. 1e8: largest relative "
+        f"error {err:.3e} = {err / 2.0**-53:.3f} x 2^-53 (torch.rsqrt {lib:.3e}; tol 2^-52)"
+    )
+    if not err <= 2.0**-52:
+        raise AssertionError("rsqrt_pos is further than one ulp from 1 / sqrt")
+
+
+def shape_name(shape):
+    return f"({shape[0]},{shape[1]})"
+
+
 def phase_matvec_vs_plain(matfree_node, node_kernel, device):
-    """K5 against its plain version and against the materialized kernels;
-    returns, per Green's function, the record of create_sphere(5) whole, f64,
-    (BV, BK) = (1, 1), with the capacity shape's time beside it."""
+    """K5 against its plain version and against the materialized kernels, for
+    every launch shape: V alone (1, 0), K alone (0, 1), two-sided (1, 1) and
+    the setup sweep (1, 10); returns, per Green's function, the record of
+    create_sphere(5) whole, f64, V alone (the GMRES matvec of the all-body
+    paths), with the other shapes' and the capacity shape's times beside it."""
     from bemstokes_tpu_torch.ops.assemble import node_sweep_inputs
 
+    check_rsqrt(matfree_node, device)
     cases = [
         ("sphere3", 3, None),
         (f"sphere{REFINEMENTS}_slab{SLAB_ROWS}", REFINEMENTS, SLAB_ROWS),
@@ -966,6 +1035,26 @@ def phase_matvec_vs_plain(matfree_node, node_kernel, device):
     ]
     rng = np.random.default_rng(0)
     records = {}
+
+    def sweep(st, arrs, XV, XK, shape):
+        return matfree_node.sweep_matvec(st, arrs, XV[:, : shape[0]], XK[:, : shape[1]])
+
+    def times(st, arrs, XV, XK, reps):
+        return {
+            shape: cuda_ms(lambda: sweep(st, arrs, XV, XK, shape), reps=reps)
+            for shape in MATVEC_SHAPES
+        }
+
+    def shown(ms, kernel, dtype, nr, n, m):
+        parts = []
+        for shape in MATVEC_SHAPES:
+            text = f"{shape_name(shape)} {ms[shape]:.3f} ms"
+            if shape in FLOPS_PER_INTERACTION_MATVEC[kernel]:
+                bound_ms, bound_by = matvec_bound(kernel, dtype, nr, n, m, shape)
+                text += f" (bound {bound_ms:.3f} by {bound_by})"
+            parts.append(text)
+        return ", ".join(parts) + f" ({nr * n * m / (ms[1, 0] * 1e-3):.4e} interactions/s V alone)"
+
     for kernel in MATVEC_KERNELS:
         for dtype in (torch.float64, torch.float32):
             tol = TOL_MATVEC[dtype]
@@ -976,68 +1065,81 @@ def phase_matvec_vs_plain(matfree_node, node_kernel, device):
                 st, arrs = matfree_node.build_sweep(tables, xi, xq, normals, jxw)
                 XV = torch.as_tensor(rng.standard_normal((3 * st.n, 1)), dtype=dtype, device=device)
                 XK = torch.as_tensor(rng.standard_normal((3 * st.n, 10)), dtype=dtype, device=device)
-                # one plain run serves both batch shapes: its columns are
+                # one plain run serves every launch shape: its columns are
                 # independent of one another
                 Vr, Kr = matfree_node.sweep_matvec_reference(
                     st, arrs, XV, XK, row_tile=64, col_chunk=1024
                 )
-                worst, abs_err = 0.0, 0.0
-                for BK in (1, 10):
-                    V, K = matfree_node.sweep_matvec(st, arrs, XV, XK[:, :BK])
-                    V2, K2 = matfree_node.sweep_matvec(st, arrs, XV, XK[:, :BK])
-                    torch.cuda.synchronize()
-                    if not (torch.equal(V, V2) and torch.equal(K, K2)):
-                        raise AssertionError(f"{kernel} sweep_matvec: two calls gave different bits")
-                    if not bool(torch.isfinite(V).all() and torch.isfinite(K).all()):
-                        raise AssertionError(f"{kernel} sweep_matvec: result not finite")
-                    worst = max(worst, rel(V, Vr), rel(K, Kr[:, :BK]))
-                    if BK == 1:
-                        abs_err = max((V - Vr).abs().max().item(), (K - Kr[:, :1]).abs().max().item())
-                materialized = ""
                 if main_shape:
                     Vd, Kd = node_kernel.node_sweep(
                         *node_sweep_inputs(euler, xi, tables),
                         kernel=kernel, wall_axis=1, wall_position=WALL_Y,
                     )
-                    err_m = max(rel(V, Vd @ XV), rel(K, Kd @ XK))
+                    Vm, Km = Vd @ XV, Kd @ XK
                     del Vd, Kd
-                    materialized = f"; against V @ x, K @ x of the materialized kernel {err_m:.3e} (tol 1e-12)"
+                worst, abs_err, err_m = 0.0, 0.0, 0.0
+                for shape in MATVEC_SHAPES:
+                    BV, BK = shape
+                    V, K = sweep(st, arrs, XV, XK, shape)
+                    V2, K2 = sweep(st, arrs, XV, XK, shape)
+                    torch.cuda.synchronize()
+                    if V.shape != (3 * st.nr, BV) or K.shape != (3 * st.nr, BK):
+                        raise AssertionError(f"{kernel} sweep_matvec {shape}: wrong output shapes")
+                    if not (torch.equal(V, V2) and torch.equal(K, K2)):
+                        raise AssertionError(f"{kernel} sweep_matvec {shape}: two calls gave different bits")
+                    if not bool(torch.isfinite(V).all() and torch.isfinite(K).all()):
+                        raise AssertionError(f"{kernel} sweep_matvec {shape}: result not finite")
+                    if BV:
+                        worst = max(worst, rel(V, Vr))
+                    if BK:
+                        worst = max(worst, rel(K, Kr[:, :BK]))
+                    if shape == (1, 0):
+                        abs_err = (V - Vr).abs().max().item()
+                    if main_shape:
+                        if BV:
+                            err_m = max(err_m, rel(V, Vm))
+                        if BK:
+                            err_m = max(err_m, rel(K, Km[:, :BK]))
+                    del V, K, V2, K2
+                materialized = ""
+                if main_shape:
+                    del Vm, Km
+                    materialized = (
+                        f"; every shape against V @ x, K @ x of the materialized kernel {err_m:.3e} (tol 1e-12)"
+                    )
                     if not err_m <= 1e-12:
                         raise AssertionError(f"{kernel} sweep_matvec disagrees with the materialized operators")
                 nr, n, m = st.nr, st.n, st.vmax * st.nq
-                ms = {
-                    BK: cuda_ms(lambda: matfree_node.sweep_matvec(st, arrs, XV, XK[:, :BK]), reps=5)
-                    for BK in (1, 10)
-                }
-                bound_ms, bound_by = matvec_bound(kernel, dtype, nr, n, m)
+                ms = times(st, arrs, XV, XK, reps=5)
                 log(
                     f"sweep_matvec {kernel} {name} {str(dtype)[6:]} rows={nr} cols={n} m={m}: "
-                    f"rel err {worst:.3e} (tol {tol:.0e}), same bits twice; "
-                    f"(1,1) {ms[1]:.3f} ms, (1,10) {ms[10]:.3f} ms, bound (1,1) {bound_ms:.3f} ms by {bound_by} "
-                    f"({nr * n * m / (ms[1] * 1e-3):.4e} interactions/s){materialized}"
+                    f"rel err over the shapes {worst:.3e} (tol {tol:.0e}), same bits twice; "
+                    f"{shown(ms, kernel, dtype, nr, n, m)}{materialized}"
                 )
                 if not worst <= tol:
                     raise AssertionError(f"{kernel} sweep_matvec disagrees with its plain version on {name} {dtype}")
                 if main_shape:
-                    t0 = torch.cuda.Event(enable_timing=True)
-                    t1 = torch.cuda.Event(enable_timing=True)
-                    t0.record()
-                    matfree_node.sweep_matvec_reference(
-                        st, arrs, XV, XK[:, :1], row_tile=64, col_chunk=1024
+                    _, plain_ms = event_ms(
+                        lambda: matfree_node.sweep_matvec_reference(
+                            st, arrs, XV, XK[:, :0], row_tile=64, col_chunk=1024
+                        )
                     )
-                    t1.record()
-                    torch.cuda.synchronize()
+                    bound_ms, bound_by = matvec_bound(kernel, dtype, nr, n, m)
                     records[kernel] = dict(
                         max_abs_err=abs_err,
                         max_rel_err=worst,
-                        ms=ms[1],
-                        plain_ms=t0.elapsed_time(t1),
+                        ms=ms[1, 0],
+                        plain_ms=plain_ms,
                         bound_ms=bound_ms,
                         bound_by=bound_by,
                         # no one PyTorch call computes a fused sweep-matvec
                         library_ms=None,
+                        shape="(1,0): V alone",
+                        k_alone_ms=ms[0, 1],
+                        two_sided_ms=ms[1, 1],
+                        setup_ms=ms[1, 10],
                     )
-                del arrs, Vr, Kr, V, K, V2, K2
+                del arrs, Vr, Kr
                 torch.cuda.empty_cache()
             # the capacity shape whole: timed only (its plain version would
             # take tens of seconds)
@@ -1045,19 +1147,20 @@ def phase_matvec_vs_plain(matfree_node, node_kernel, device):
             st, arrs = matfree_node.build_sweep(tables, sp, xq, normals, jxw)
             XV = torch.as_tensor(rng.standard_normal((3 * st.n, 1)), dtype=dtype, device=device)
             XK = torch.as_tensor(rng.standard_normal((3 * st.n, 10)), dtype=dtype, device=device)
-            ms = {
-                BK: cuda_ms(lambda: matfree_node.sweep_matvec(st, arrs, XV, XK[:, :BK]), reps=3)
-                for BK in (1, 10)
-            }
+            ms = times(st, arrs, XV, XK, reps=3)
+            clock = clock_under_load(lambda: sweep(st, arrs, XV, XK, (1, 0)))
             nr, n, m = st.nr, st.n, st.vmax * st.nq
-            bound_ms, bound_by = matvec_bound(kernel, dtype, nr, n, m)
             log(
                 f"sweep_matvec {kernel} sphere{CAPACITY_REFINEMENTS} {str(dtype)[6:]} rows={nr} cols={n} m={m}: "
-                f"(1,1) {ms[1]:.3f} ms, (1,10) {ms[10]:.3f} ms, bound (1,1) {bound_ms:.3f} ms by {bound_by} "
-                f"({nr * n * m / (ms[1] * 1e-3):.4e} interactions/s)"
+                f"{shown(ms, kernel, dtype, nr, n, m)}; SM clock, its maximum and power under this load: {clock}"
             )
             if dtype == torch.float64:
-                records[kernel].update(capacity_ms=ms[1], capacity_bound_ms=bound_ms)
+                records[kernel].update(
+                    capacity_ms=ms[1, 0],
+                    capacity_bound_ms=matvec_bound(kernel, dtype, nr, n, m)[0],
+                    capacity_two_sided_ms=ms[1, 1],
+                    capacity_setup_ms=ms[1, 10],
+                )
             del arrs
             torch.cuda.empty_cache()
     return records
@@ -1115,6 +1218,7 @@ def phase_matfree_small(matfree_node, device):
         zero_counts(matfree_node)
         card, _ = solve_once(matfree_problem(device, kernel, 2, **kw))
         launches = dict(matfree_node.launches)
+        check_one_sided("matrix-free small input", kernel, shapes_of(matfree_node, kernel), card["iterations"])
         host, _ = solve_once(matfree_problem("cpu", kernel, 2, **kw))
         diff = worst_rel(card, host)
         kw["matfree_block_nodes"] = 128
@@ -1139,7 +1243,8 @@ def phase_matfree_small(matfree_node, device):
 
 def phase_matfree_vs_materialized(matfree_node, node_kernel, device):
     """18,444 unknowns: each Green's function solved materialized and
-    matrix-free; returns K5's launches per Green's function."""
+    matrix-free; returns K5's launches per Green's function, in all and by
+    launch shape."""
     from bemstokes_tpu_torch.config import SolverConfig
 
     out = {}
@@ -1156,26 +1261,28 @@ def phase_matfree_vs_materialized(matfree_node, node_kernel, device):
             matfree_problem(device, kernel, REFINEMENTS, solver=solver, matrix_free=True)
         )
         launches = dict(matfree_node.launches)
+        shapes = shapes_of(matfree_node, kernel)
         diff = worst_rel(free, dense)
         log(
             f"matrix-free vs materialized ({kernel}, 18,444 unknowns, f64, tolerance 1e-11): max rel "
             f"diff of forces and rigid velocities {diff:.3e} (tol 1e-7); matrix-free {t_free:.3f} s, "
             f"{free['iterations']} iterations, converged {free['converged']}, residual "
             f"{free['residual']:.3e}; materialized {t_dense:.3f} s, {dense['iterations']} iterations; "
-            f"K5 launches {launches}, block assemblies {dict(node_kernel.launches)}, "
+            f"K5 launches {launches}, by launch shape {shapes}, block assemblies {dict(node_kernel.launches)}, "
             f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
         )
         if not (free["converged"] and dense["converged"] and diff <= 1e-7):
             raise AssertionError(f"matrix-free {kernel} frame disagrees with the materialized frame")
         if launches[kernel] < free["iterations"] or sum(launches.values()) != launches[kernel]:
             raise AssertionError(f"matrix-free {kernel}: unexpected K5 launches {launches}")
-        out[kernel] = launches[kernel]
+        check_one_sided("matrix-free vs materialized", kernel, shapes, free["iterations"])
+        out[kernel] = launches[kernel], shapes
     return out
 
 
 def phase_capacity(matfree_node, device):
     """The 73,740-unknown frame, f64 and f32, CAPACITY_FRAMES each; returns
-    K5's launches in the f64 run."""
+    K5's launches in the f64 run, in all and by launch shape."""
     from bemstokes_tpu_torch.config import SolverConfig
 
     settings = {
@@ -1202,6 +1309,7 @@ def phase_capacity(matfree_node, device):
             raise AssertionError(f"capacity frame: {prob.n} nodes, {unknowns} unknowns")
         frames = [solve_once(prob) for _ in range(CAPACITY_FRAMES)]
         launches = dict(matfree_node.launches)
+        shapes = shapes_of(matfree_node, "free_space")
         peak = torch.cuda.max_memory_allocated() / 2**30
         # the operator action alone, as the GMRES loop calls it
         solver_state = prob._matfree
@@ -1222,12 +1330,15 @@ def phase_capacity(matfree_node, device):
         log(
             f"capacity frame {dtype}: matvec {mv_ms / 1e3:.4f} s "
             f"({prob.n * prob.n * m / (mv_ms * 1e-3):.4e} interactions/s), K5 launches in {CAPACITY_FRAMES} frame(s) "
-            f"{launches}, max_memory_allocated {peak:.3f} GiB; one materialized operator would be "
+            f"{launches}, by launch shape {shapes}, max_memory_allocated {peak:.3f} GiB; one materialized operator would be "
             f"{(3 * prob.n) ** 2 * torch.finfo(prob.asm_cfg.dtype).bits / 8 / 1e9:.1f} GB"
         )
-        if launches["free_space"] < frames[0][0]["iterations"] or sum(launches.values()) != launches["free_space"]:
+        if launches["free_space"] < sum(res["iterations"] for res, _ in frames) or sum(launches.values()) != launches["free_space"]:
             raise AssertionError(f"capacity frame {dtype}: unexpected K5 launches {launches}")
-        out[dtype] = launches["free_space"]
+        check_one_sided(
+            f"capacity frame {dtype}", "free_space", shapes, sum(res["iterations"] for res, _ in frames)
+        )
+        out[dtype] = launches["free_space"], shapes
         del prob, solver_state, sys_state, mv
     return out["float64"]
 
@@ -1442,31 +1553,41 @@ def main():
 
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
-    phase_versions(cuda_build)
-    phase_build(cuda_build)
-    records = phase_kernel_vs_plain(node_kernel, device)
-    phase_small_reference(device)
+
+    def phase(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"{fn.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    phase(phase_versions, cuda_build)
+    phase(phase_build, cuda_build)
+    records = phase(phase_kernel_vs_plain, node_kernel, device)
+    phase(phase_small_reference, device)
     launches = {}
-    launches["free_space"], node_forces = phase_free_space_path(node_kernel, device)
-    launches.update(phase_wall_paths(node_kernel, device))
-    phase_float32(device)
-    matvec_records = phase_matvec_vs_plain(matfree_node, node_kernel, device)
-    phase_matfree_small(matfree_node, device)
-    matvec_launches = phase_matfree_vs_materialized(matfree_node, node_kernel, device)
+    launches["free_space"], node_forces = phase(phase_free_space_path, node_kernel, device)
+    launches.update(phase(phase_wall_paths, node_kernel, device))
+    phase(phase_float32, device)
+    matvec_records = phase(phase_matvec_vs_plain, matfree_node, node_kernel, device)
+    phase(phase_matfree_small, matfree_node, device)
+    matvec_launches = phase(phase_matfree_vs_materialized, matfree_node, node_kernel, device)
     # K5's free-space count is the capacity frame's: its main path
-    matvec_launches["free_space"] = phase_capacity(matfree_node, device)
-    planes_record = phase_planes_vs_plain(node_kernel, device)
-    slots_record = phase_slots_vs_plain(slot_kernel, device)
-    phase_gather_small(device)
-    slots_launches, planes_launches = phase_gather_path(node_kernel, slot_kernel, device, node_forces)
-    phase_command_line()
+    matvec_launches["free_space"] = phase(phase_capacity, matfree_node, device)
+    planes_record = phase(phase_planes_vs_plain, node_kernel, device)
+    slots_record = phase(phase_slots_vs_plain, slot_kernel, device)
+    phase(phase_gather_small, device)
+    slots_launches, planes_launches = phase(
+        phase_gather_path, node_kernel, slot_kernel, device, node_forces
+    )
+    phase(phase_command_line)
     kernels = [
         dict(route="cuda", launches=launches[kernel], **KERNELS[kernel], **records[kernel])
         for kernel in KERNELS
     ] + [
         dict(
             route="cuda",
-            launches=matvec_launches[kernel],
+            launches=matvec_launches[kernel][0],
+            launches_by_shape=matvec_launches[kernel][1],
             **MATVEC_KERNELS[kernel],
             **matvec_records[kernel],
         )

@@ -14,6 +14,11 @@ port's materialized frame.
 - Port matrix-free against port materialized: 1e-7, the bound of
   tests/test_matfree.py:62-74; `converged` true.
 
+Which operators the matvec sweeps (`sys["side"]`, decided once a frame): on
+meshes of bodies and no-slip wall panels every column is single-layer and
+the matvec sweeps V alone, equal bit for bit to the two-sided matvec; with
+free-surface or do-nothing wall panels it stays two-sided.
+
 Meshes are built in code: the unit sphere (98 nodes; sheared by a seeded
 linear map for the near-pair quadrature, so that the selection of the
 nearest panels meets no exact tie), a sphere above a resolved, locally
@@ -331,3 +336,88 @@ def test_frame_loop_moves_the_body(loop_runs):
     U = [h["rigid_velocities"][1] for h in ht]
     assert 0 < U[0] < U[1]  # the wall's drag falls as the sphere moves away
     assert st.state.displacements[:, 1].max() > 0
+
+
+# ---- which operators the matvec sweeps ---------------------------------------
+
+
+def _matvec_state(wall_type):
+    """(solver, frame state) of the sphere alone (`wall_type` None) or above a
+    resolved wall of that type, set up for the matrix-free matvec."""
+    walls = ()
+    if wall_type is not None:
+        walls = (
+            WallConfig(enabled=True, wall_type=wall_type, position=(0.0, -2.0, 0.0), span=(8.0, 0.0, 8.0)),
+        )
+    cfg = from_dict(
+        dataclasses.asdict(
+            ProblemConfig(
+                grid_type="ImposedVelocity",
+                imposed_component=0,
+                force_pole="Origin",
+                matrix_free=True,
+                matfree_block_nodes=64,
+                walls=walls,
+            )
+        )
+    )
+    mesh = fac_t.create_sphere(refinements=1)
+    prob = ProblemT(fac_t.add_walls_to_mesh(mesh, cfg) if walls else mesh, cfg, device="cpu")
+    solver = MatfreeSolver(prob)
+    sys, _, _ = solver._setup(prob.initial_euler(), np.zeros(3 * prob.n), None)
+    return solver, sys
+
+
+def _swept_widths(monkeypatch, mv, x):
+    """mv(x), and the (BV, BK) of every sweep it asked for."""
+    import bemstokes_tpu_torch.matfree as matfree_t
+
+    seen = []
+    inner = matfree_t.sweep_matvec
+
+    def spy(st, arrs, XV, XK):
+        seen.append(tuple(1 if X.ndim == 1 else X.shape[1] for X in (XV, XK)))
+        return inner(st, arrs, XV, XK)
+
+    monkeypatch.setattr(matfree_t, "sweep_matvec", spy)
+    out = mv(x)
+    monkeypatch.setattr(matfree_t, "sweep_matvec", inner)
+    return out, seen
+
+
+@pytest.mark.parametrize("wall_type", [None, "no_slip"])
+def test_all_single_layer_columns_sweep_V_alone(monkeypatch, wall_type):
+    """Bodies and no-slip wall panels: every column is single-layer, the
+    matvec sweeps V alone (a zero-width K batch) and equals the two-sided
+    matvec bit for bit."""
+    solver, sys = _matvec_state(wall_type)
+    assert sys["side"] == "V" and bool(sys["sel_V"].all())
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal(len(sys["rhs"])))
+    one, widths = _swept_widths(monkeypatch, solver._matvec(sys), x)
+    two, widths_two = _swept_widths(monkeypatch, solver._matvec(dict(sys, side="both")), x)
+    assert widths == [(1, 0)] and widths_two == [(1, 1)]
+    assert torch.equal(one, two)
+
+
+@pytest.mark.parametrize("wall_type", ["free_surface", "do_nothing"])
+def test_mixed_columns_keep_the_two_sided_sweep(monkeypatch, wall_type):
+    """Free-surface and do-nothing wall panels carry double-layer columns:
+    the matvec stays two-sided."""
+    solver, sys = _matvec_state(wall_type)
+    sel = sys["sel_V"]
+    assert sys["side"] == "both" and bool(sel.any()) and not bool(sel.all())
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal(len(sys["rhs"])))
+    out, widths = _swept_widths(monkeypatch, solver._matvec(sys), x)
+    assert widths == [(1, 1)] and bool(torch.isfinite(out).all())
+
+
+def test_all_double_layer_columns_sweep_K_alone(monkeypatch):
+    """A mask with no single-layer column (no mesh gives one; forced here)
+    sweeps K alone and equals the two-sided matvec up to the sign of zeros."""
+    solver, sys = _matvec_state(None)
+    sys = dict(sys, sel_V=torch.zeros_like(sys["sel_V"]))
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal(len(sys["rhs"])))
+    one, widths = _swept_widths(monkeypatch, solver._matvec(dict(sys, side="K")), x)
+    two, _ = _swept_widths(monkeypatch, solver._matvec(dict(sys, side="both")), x)
+    assert widths == [(0, 1)]
+    assert torch.equal(one, two)  # equal compares -0.0 and 0.0 as equal

@@ -20,7 +20,10 @@ create_sphere(3), 1e-12 of the largest entry in f64 and 5e-5 in f32 (the
 kernel takes every inverse power from one rsqrt where the plain version
 divides by powers of a square root, and contracts with the vector before it
 sums, so own-node terms that cancel round differently), the same bits on a
-second call, and K5 against `V @ x`, `K @ x` of the materialized kernels.
+second call, and K5 against `V @ x`, `K @ x` of the materialized kernels,
+for every launch shape (two-sided, V only, K only, wide chunks), each wall
+axis, ragged row blocks and ragged seeded tables with an odd sample count;
+and the kernel's f64 inverse square root against 1 / sqrt.
 
 Run the card tests with `python3 -m pytest tests/test_torch_matfree_node.py
 -m cuda` on a machine with a CUDA card and nvcc.
@@ -162,6 +165,33 @@ def test_one_dimensional_vectors_and_empty_batches():
     assert V0.shape == (294, 0) and torch.equal(K0, K2)
 
 
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_one_sided_batches_are_the_two_sided_columns(kernel):
+    """BK = 0 and BV = 0 (the kernel's one-sided launch shapes): the columns
+    of the two-sided call exactly, an empty [3 nr, 0] tensor for the other
+    side, and the JAX package's XLA sweep on the same vectors to 1e-12."""
+    tables, _, sp, xq, normals, jxw = _torch_sweep_inputs(kernel, torch.float64)
+    st, arrs = mfn_t.build_sweep(tables, sp, xq, normals, jxw)
+    XVn, XKn = _vectors(98, 1, 1, seed=4)
+    XV, XK = torch.as_tensor(XVn), torch.as_tensor(XKn)
+    V2, K2 = mfn_t.sweep_matvec(st, arrs, XV, XK)
+    Vv, Kv = mfn_t.sweep_matvec(st, arrs, XV, XK[:, :0])
+    Vk, Kk = mfn_t.sweep_matvec(st, arrs, XV[:, :0], XK)
+    assert Kv.shape == Vk.shape == (294, 0) and Kv.dtype == Vk.dtype == torch.float64
+    assert torch.equal(Vv, V2) and torch.equal(Kk, K2)
+    Vj, Kj = _jax_sweep(kernel, jnp.float64, "jax", XVn, XKn)
+    assert _rel(Vv, Vj) <= 1e-12 and _rel(Kk, Kj) <= 1e-12
+
+
+def test_launch_shape_names_the_instantiation():
+    shapes = {(1, 1): "1x1", (1, 0): "1x0", (0, 1): "0x1", (1, 10): "wide", (0, 5): "wide", (2, 0): "wide"}
+    for (BV, BK), name in shapes.items():
+        assert mfn_t.launch_shape(BV, BK) == name
+    assert set(mfn_t.shape_launches) == {
+        (k, s) for k in KERNELS for s in ("1x1", "1x0", "0x1", "wide")
+    }
+
+
 def test_cpu_wrapper_runs_plain_version():
     """On CPU tensors the wrapper is the plain version and counts no
     launch; the tiles of the plain version do not change its result beyond
@@ -169,10 +199,10 @@ def test_cpu_wrapper_runs_plain_version():
     tables, _, sp, xq, normals, jxw = _torch_sweep_inputs("no_slip", torch.float64)
     st, arrs = mfn_t.build_sweep(tables, sp, xq, normals, jxw)
     XV, XK = (torch.as_tensor(a) for a in _vectors(98, 2, 2, seed=3))
-    before = dict(mfn_t.launches)
+    before, before_shapes = dict(mfn_t.launches), dict(mfn_t.shape_launches)
     V, K = mfn_t.sweep_matvec(st, arrs, XV, XK)
     Vr, Kr = mfn_t.sweep_matvec_reference(st, arrs, XV, XK)
-    assert mfn_t.launches == before
+    assert mfn_t.launches == before and mfn_t.shape_launches == before_shapes
     assert torch.equal(V, Vr) and torch.equal(K, Kr)
     Vs, Ks = mfn_t.sweep_matvec_reference(st, arrs, XV, XK, row_tile=7, col_chunk=5)
     assert _rel(Vs, Vr) <= 1e-13 and _rel(Ks, Kr) <= 1e-13
@@ -220,21 +250,87 @@ def test_kernel_matches_plain_version(cuda_device, dtype, tol, kernel, wall_axis
     )
     for xi in (sp, sp[5:42]):  # whole, and a ragged row block
         st, arrs = mfn_t.build_sweep(tables, xi, xq, normals, jxw)
-        for BV, BK in ((1, 1), (1, 10), (0, 5), (45, 3)):
+        for BV, BK in ((1, 1), (1, 0), (0, 1), (1, 10), (0, 5), (5, 0), (45, 3)):
             XV, XK = (
                 torch.as_tensor(a, dtype=dtype, device=cuda_device)
                 for a in _vectors(386, BV, BK, seed=BV + BK)
             )
             before = mfn_t.launches[kernel]
+            shape = kernel, mfn_t.launch_shape(BV, BK)
+            before_shape = mfn_t.shape_launches[shape]
             V, K = mfn_t.sweep_matvec(st, arrs, XV, XK)
             torch.cuda.synchronize()
             assert mfn_t.launches[kernel] == before + 1
+            assert mfn_t.shape_launches[shape] == before_shape + 1
+            assert V.shape == (3 * st.nr, BV) and K.shape == (3 * st.nr, BK)
             V2, K2 = mfn_t.sweep_matvec(st, arrs, XV, XK)
             assert torch.equal(V, V2) and torch.equal(K, K2)
             Vr, Kr = mfn_t.sweep_matvec_reference(st, arrs, XV, XK, row_tile=64, col_chunk=512)
             if BV:
                 assert _rel(V.cpu(), Vr.cpu()) <= tol
-            assert _rel(K.cpu(), Kr.cpu()) <= tol
+            if BK:
+                assert _rel(K.cpu(), Kr.cpu()) <= tol
+
+
+def _ragged_case(kernel, wall_axis, device):
+    """Seeded tables with ragged sizes (11 rows, 37 column nodes, 7 samples a
+    node) whose rows coincide with a sample exactly (the dummy offset)."""
+    rng = np.random.default_rng(9)
+    n, nr, m = 37, 11, 7
+    Y = rng.standard_normal((n, m, 3))
+    Y[..., wall_axis] += 3.0
+    N = rng.standard_normal((n, m, 3))
+    N /= np.linalg.norm(N, axis=-1, keepdims=True)
+    st = mfn_t.SweepStatic(
+        d=3, n=n, nr=nr, kernel=kernel, wall_axis=wall_axis, wall_position=-1.5,
+        nq=1, vmax=m, dtype=torch.float64,
+    )
+    arrs = dict(xi=Y[:nr, 0].copy(), Y=Y, N=N, W=rng.random((n, m)))
+    return st, {k: torch.as_tensor(v, device=device).contiguous() for k, v in arrs.items()}
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_ragged_tables_with_coincident_rows_are_finite(kernel):
+    """The plain version on the ragged seeded tables the card test uses:
+    finite, and its one-sided calls are its two-sided columns."""
+    st, arrs = _ragged_case(kernel, 2, "cpu")
+    XV, XK = (torch.as_tensor(a) for a in _vectors(37, 2, 3, seed=6))
+    V, K = mfn_t.sweep_matvec(st, arrs, XV, XK)
+    assert torch.isfinite(V).all() and torch.isfinite(K).all()
+    assert torch.equal(mfn_t.sweep_matvec(st, arrs, XV, XK[:, :0])[0], V)
+    assert torch.equal(mfn_t.sweep_matvec(st, arrs, XV[:, :0], XK)[1], K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("wall_axis", [0, 1, 2])
+def test_kernel_on_ragged_tables(cuda_device, kernel, wall_axis):
+    """Ragged nr, n and an odd m (the sample loop's zero-weight padding),
+    rows on a sample (the dummy offset), every launch shape."""
+    st, arrs = _ragged_case(kernel, wall_axis, cuda_device)
+    for BV, BK in ((1, 1), (1, 0), (0, 1), (2, 6), (0, 9), (9, 0)):
+        XV, XK = (
+            torch.as_tensor(a, device=cuda_device) for a in _vectors(37, BV, BK, seed=BV + BK)
+        )
+        V, K = mfn_t.sweep_matvec(st, arrs, XV, XK)
+        Vr, Kr = mfn_t.sweep_matvec_reference(st, arrs, XV, XK)
+        assert torch.isfinite(V).all() and torch.isfinite(K).all()
+        if BV:
+            assert _rel(V.cpu(), Vr.cpu()) <= 1e-12
+        if BK:
+            assert _rel(K.cpu(), Kr.cpu()) <= 1e-12
+
+
+@pytest.mark.cuda
+def test_rsqrt_pos_against_sqrt(cuda_device):
+    """The kernel's f64 inverse square root over the range of r^2 the sweeps
+    see and far beyond it, against 1 / sqrt in extended precision: within
+    one ulp (relative error below 2^-52)."""
+    rng = np.random.default_rng(3)
+    x = np.exp(rng.uniform(np.log(1e-12), np.log(1e8), 1_000_000))
+    y = mfn_t.rsqrt_pos(torch.as_tensor(x, device=cuda_device)).cpu().numpy()
+    exact = 1 / np.sqrt(x.astype(np.longdouble))
+    assert float(np.abs((y - exact) / exact).max()) <= 2.0**-52
 
 
 @pytest.mark.cuda
