@@ -30,24 +30,45 @@
 // through the shared memory of its sample tile and writes them with its
 // threads walking rows: ROWS_PER_BLOCK consecutive rows a column.  Of the
 // TPU kernel's layout nothing else is kept: no ones-matrix q-sum, no
-// multiples of 128, and 1/(8 pi) stays in the sums rather than in the
-// weights (which would change K1's bits).
+// multiples of 128.
 //
 // What bounds it.  At the 6,146-node sphere (m = 64) one assembly is
-// 6146^2 * 64 = 2.42e9 interactions of ~50 flops plus one rsqrt each,
-// i.e. ~1.2e11 FP64 flops, against 2 * 9 * 6146^2 * 8 B = 5.4 GB of f64
-// stores (2.7 GB in f32).  At the card's published FP64 and HBM rates the
-// arithmetic takes a few ms and the stores ~1.6 ms, so the kernel is bound
-// by FP64 arithmetic (and the rsqrt), not by memory.
+// 6146^2 * 64 = 2.42e9 interactions against 2 * 9 * 6146^2 * 8 B = 5.4 GB of
+// f64 stores (2.7 GB in f32), ~1.6 ms at the card's memory rate.  The
+// arithmetic takes longer, and within it the FP64 pipe's issue rate: an SM
+// issues 64 FP64 lanes a clock whether the instruction is a DFMA, a DMUL or
+// a DADD (scripts/torch_sass_count.py --probe), so what the sweep costs is
+// the number of FP64 instructions per interaction, not the operations they
+// stand for.  Counted from the machine code by the same script (PERF.md):
+// 57 before the redesign below, for 65 counted operations.
 //
-// What the design does about it.  The stores are written once and
-// coalesced and the inputs are staged per block in shared memory (the
-// tiling of node_sweep_common.cuh, shared with the image sweeps);
-// each thread keeps its RT rows' 13 accumulators (6 of V, 6 of K and the
-// 1/r diagonal of V, exploiting the symmetry of both 3x3 blocks) in
-// registers for the whole sample loop, and reuses each staged sample for
-// its RT rows.  No tensor cores, TMA or wgmma: a later change can tile
-// further once the card's numbers say where the time goes.
+// What the design does about it.
+// - The stores are written once and coalesced and the inputs are staged per
+//   block in shared memory (the tiling of node_sweep_common.cuh, shared with
+//   the image sweeps); each thread keeps its RT rows' 13 sums (6 of V, 6 of
+//   K and the 1/r diagonal of V, both 3x3 blocks being symmetric) in
+//   registers for the whole sample loop and reuses each staged sample for
+//   its RT rows.
+// - Few FP64 instructions per interaction (39 in the machine code, 38 FP32
+//   in f32): r^2 is two FMAs and a product; the inverse powers come from one
+//   `rsqrt_pos` (five FP64 instructions, no branch, no call); the weight
+//   enters once, in w / r and w / r^3, and K's factor w (R.N) / r^5 is
+//   (R.N / r^2) (w / r^3), so that each of the 12 sums of a row costs one FMA
+//   on the dyad R_a R_b; the constants 1/8pi and 3/4pi (K's sign included)
+//   are applied once per output, at the store.  R.N keeps its
+//   round-to-nearest form (`dot3_rn`): it cancels on a column's own panels.
+//   (Staging the normal times its weight, as K5 does, would cost one
+//   instruction more here: K's factor would need r^-5 apart from w / r^3.)
+// - The r^2 = 0 test is made once per group of samples on the integer pipe,
+//   and the dummy offset lives in a second copy of the group's body behind a
+//   branch that real meshes (Gauss points never sit on a node) never take.
+//   The f32 loop takes two samples a trip (no remainder: samples past a
+//   node's m are staged with weight zero); the f64 loop one, because two
+//   take 152 registers a thread and the SM then holds one block of 256
+//   threads instead of two, which costs more than the unrolling buys
+//   (PERF.md).
+// No tensor cores, TMA or wgmma: the body is pairwise transcendental
+// arithmetic with no matrix product in it.
 //
 // Interface: plain C, loaded with ctypes.  All arrays are contiguous and of
 // one type T (float or double):
@@ -61,16 +82,50 @@ namespace {
 
 using namespace node_sweep;
 
+// The sums of one row: the upper triangles of V's dyad part and of K, and
+// V's diagonal 1/r part.
+template <typename T>
+struct RowSums {
+  T v[6], k[6], vd;
+};
+
+// One (row, sample) interaction added into the row's sums: R = y - xi, its
+// squared length r2, the sample's unit normal n and weight w.  Without the
+// constants: V's sums are those of w (delta_ab / r + R_a R_b / r^3), K's of
+// w (R.N) R_a R_b / r^5.
+template <typename T>
+__device__ __forceinline__ void add_free_space(RowSums<T>& acc, const T (&R)[3], T r2,
+                                               const T (&n)[3], T w) {
+  const T iR = rsqrt_pos(r2), iR2 = iR * iR;
+  const T wiR = w * iR;
+  const T g = wiR * iR2;  // w / r^3
+  acc.vd += wiR;
+  const T t = (dot3_rn(R[0], R[1], R[2], n[0], n[1], n[2]) * iR2) * g;  // w (R.N) / r^5
+  const T d[6] = {R[0] * R[0], R[0] * R[1], R[0] * R[2], R[1] * R[1], R[1] * R[2], R[2] * R[2]};
+#pragma unroll
+  for (int q = 0; q < 6; ++q) {
+    acc.v[q] = fma(g, d[q], acc.v[q]);
+    acc.k[q] = fma(t, d[q], acc.k[q]);
+  }
+}
+
+// Entry (a, b) of a row's V, scaled.
+template <typename T>
+__device__ __forceinline__ T v_entry(const RowSums<T>& acc, int a, int b, T cG) {
+  const T vab = acc.v[ut(a, b)];
+  return cG * (a == b ? vab + acc.vd : vab);
+}
+
 template <typename T, bool PLANES>
 __global__ void __launch_bounds__(TJ* TI)
     node_sweep_kernel(const T* __restrict__ xi, const T* __restrict__ Y,
                       const T* __restrict__ N, const T* __restrict__ W,
                       T* __restrict__ V, T* __restrict__ K, int64_t nr,
                       int64_t n, int64_t m) {
+  // samples a trip: one in f64 (two cost the SM its second block), two in f32
+  constexpr int UNROLL = unroll<T>(1, 2);
+  static_assert(SC % UNROLL == 0, "the sample loop has no remainder");
   __shared__ SampleTile<T> tile;
-
-  const T cG = static_cast<T>(1.0 / (8.0 * 3.14159265358979323846));
-  const T cW = static_cast<T>(-3.0 / (4.0 * 3.14159265358979323846));
 
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
@@ -79,15 +134,15 @@ __global__ void __launch_bounds__(TJ* TI)
   const int64_t i0 = static_cast<int64_t>(blockIdx.y) * ROWS_PER_BLOCK;
 
   T x[RT][3];
-  T v[RT][6], k[RT][6], vd[RT];
+  RowSums<T> acc[RT];
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
     const int64_t i = i0 + r * TI + ty;
 #pragma unroll
     for (int c = 0; c < 3; ++c) x[r][c] = i < nr ? xi[i * 3 + c] : T(0);
 #pragma unroll
-    for (int q = 0; q < 6; ++q) v[r][q] = k[r][q] = T(0);
-    vd[r] = T(0);
+    for (int q = 0; q < 6; ++q) acc[r].v[q] = acc[r].k[q] = T(0);
+    acc[r].vd = T(0);
   }
 
   for (int64_t s0 = 0; s0 < m; s0 += SC) {
@@ -96,40 +151,55 @@ __global__ void __launch_bounds__(TJ* TI)
     __syncthreads();
 
     const int sn = static_cast<int>(m - s0 < SC ? m - s0 : SC);
-    for (int s = 0; s < sn; ++s) {
-      const T y0 = tile.Y[0][s][tx], y1 = tile.Y[1][s][tx], y2 = tile.Y[2][s][tx];
-      const T n0 = tile.N[0][s][tx], n1 = tile.N[1][s][tx], n2 = tile.N[2][s][tx];
-      const T w = tile.W[s][tx];
+    const int sn_whole = (sn + UNROLL - 1) / UNROLL * UNROLL;
+#pragma unroll 1
+    for (int s = 0; s < sn_whole; s += UNROLL) {
+      // the group's pairs first: one test, and a branch that is next to
+      // never taken, keeps the dummy offset's selects out of the loop
+      T R[UNROLL][RT][3], r2[UNROLL][RT], nrm[UNROLL][3], w[UNROLL];
+      bool any = false;
 #pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        T R0 = y0 - x[r][0];
-        T R1 = y1 - x[r][1];
-        T R2 = y2 - x[r][2];
-        T r2 = dot3_rn(R0, R1, R2, R0, R1, R2);
-        if (r2 == T(0)) {
-          R0 = R1 = R2 = T(1);
-          r2 = T(3);
+      for (int u = 0; u < UNROLL; ++u) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) nrm[u][c] = tile.N[c][s + u][tx];
+        w[u] = tile.W[s + u][tx];
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) R[u][r][c] = tile.Y[c][s + u][tx] - x[r][c];
+          const T(&q)[3] = R[u][r];
+          r2[u][r] = fma(q[2], q[2], fma(q[1], q[1], q[0] * q[0]));
+          any = any || is_zero(r2[u][r]);
         }
-        const T invR = rsqrt_t(r2);
-        const T invR2 = invR * invR;
-        const T wiR = w * invR;
-        const T wgs = cG * (wiR * invR2);
-        vd[r] += cG * wiR;
-        // K's terms follow the plain version's rounding step for step
-        // (W.n = (cW R_a R_b) (R.N / r^5), r^-5 = r^-1 (r^-2)^2): on a
-        // column's own panels they are large and cancel, so a different
-        // association alone would show as a K difference there in f32
-        const T t = dot3_rn(R0, R1, R2, n0, n1, n2) * (invR * (invR2 * invR2));
-        const T d[6] = {R0 * R0, R0 * R1, R0 * R2, R1 * R1, R1 * R2, R2 * R2};
+      }
+      if (any) {
 #pragma unroll
-        for (int q = 0; q < 6; ++q) {
-          v[r][q] += wgs * d[q];
-          k[r][q] += ((cW * d[q]) * t) * w;
+        for (int u = 0; u < UNROLL; ++u) {
+#pragma unroll
+          for (int r = 0; r < RT; ++r) {
+            // an exact r^2 = 0 pair: the dummy offset R = (1, 1, 1)
+            if (is_zero(r2[u][r])) {
+              R[u][r][0] = R[u][r][1] = R[u][r][2] = T(1);
+              r2[u][r] = T(3);
+            }
+            add_free_space(acc[r], R[u][r], r2[u][r], nrm[u], w[u]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+#pragma unroll
+          for (int r = 0; r < RT; ++r) add_free_space(acc[r], R[u][r], r2[u][r], nrm[u], w[u]);
         }
       }
     }
   }
 
+  // the constants, once per output: 1/8pi for V, 3/4pi for K (the
+  // stresslet's -3/4pi negated for the exterior problem, reference
+  // `:2941-2947`)
+  const T cG = static_cast<T>(1.0 / (8.0 * 3.14159265358979323846));
+  const T cK = static_cast<T>(3.0 / (4.0 * 3.14159265358979323846));
   if constexpr (PLANES) {
     // K4: three planes (one row a of the 3x3 block) at a time, transposed
     // through the sample tile's shared memory
@@ -147,9 +217,7 @@ __global__ void __launch_bounds__(TJ* TI)
       for (int r = 0; r < RT; ++r) {
 #pragma unroll
         for (int b = 0; b < 3; ++b) {
-          const T vab = v[r][ut(a, b)];
-          out[b][r * TI + ty][tx] =
-              is_k ? -k[r][ut(a, b)] : (a == b ? vab + vd[r] : vab);
+          out[b][r * TI + ty][tx] = is_k ? cK * acc[r].k[ut(a, b)] : v_entry(acc[r], a, b, cG);
         }
       }
       __syncthreads();
@@ -178,10 +246,8 @@ __global__ void __launch_bounds__(TJ* TI)
 #pragma unroll
       for (int b = 0; b < 3; ++b) {
         const int64_t off = (a * nr + i) * ld + b * n + j;
-        const T vab = v[r][ut(a, b)];
-        V[off] = a == b ? vab + vd[r] : vab;
-        // minus sign: exterior problem (reference `:2941-2947`)
-        K[off] = -k[r][ut(a, b)];
+        V[off] = v_entry(acc[r], a, b, cG);
+        K[off] = cK * acc[r].k[ut(a, b)];
       }
     }
   }

@@ -40,21 +40,40 @@
 // a pair; the singular delta of the assembly subtracts the same dummy value
 // and the pair cancels exactly.
 //
-// What bounds them.  Arithmetic, as K1: the stores are the same
-// 2 * 9 * nr * n entries, while each interaction costs two rsqrt and about
-// 2.3 (K2) or 4 (K3) times K1's multiply-adds.
+// What bounds them.  Arithmetic, as K1 (node_sweep.cu): the stores are the
+// same 2 * 9 * nr * n entries, while each interaction costs two inverse
+// square roots and several times K1's multiply-adds; and within the
+// arithmetic the FP64 pipe's issue rate, so what a sweep costs is its FP64
+// instructions per interaction (counted from the machine code by
+// scripts/torch_sass_count.py; PERF.md).
 //
-// What the design does about it.  The TPU kernel keeps one sum per term
-// (about 66 per entry for the no-slip kernel) because it combines them only
-// after its matrix-unit reduction.  Here a thread owns its (row, column)
-// entries and h0 is a per-row scalar in a register, so it forms the full
-// 3x3 G and W.n of a sample (the symmetric dyads p_a p_b and pI_a pI_b are
-// formed once, 6 products each) and adds them into 9 + 9 sums per row: 36
-// accumulators for its RT = 2 rows.  wall_axis is a template parameter, so
-// the row signs and the delta_aw terms are resolved at compile time.  Tiling,
-// staging and stores are those of node_sweep_common.cuh.  No division: every
-// inverse power comes from one rsqrt per distance.
-//
+// What the design does about it.
+// - A thread owns its (row, column) entries and the row's height h0 is a
+//   per-row scalar in a register, so the thread forms the sample's
+//   contributions and adds them into per-row sums, for its RT rows;
+//   wall_axis is a template parameter, so the row signs and the delta_aw
+//   terms are resolved at compile time.  Tiling, staging and stores are
+//   those of node_sweep_common.cuh.
+// - The scaffolding of K1: r^2 and rI^2 share the sum of the two squares
+//   off the wall axis (one product, three FMAs for both); the inverse powers
+//   come from one `rsqrt_pos` per distance; the dummy offset lives behind a
+//   branch that real meshes never take, the r^2 = 0 test made once per group
+//   on the integer pipe.  The f64 loops take two samples a trip, the f32
+//   loops one (each the faster on the card, PERF.md).
+// - K3's arithmetic is regrouped for few FP64 instructions (103 an
+//   interaction in the machine code, against 170 before):
+//   beta = 2 h0 (y_w - wall) from the sample's height above the wall;
+//   pI.N = p.N + 2 h0 N_w (one FMA where a second dot3_rn was);
+//   V's off-wall 2x2 block is symmetric (3 sums, not 4), its diagonal
+//   terms delta_ab (1/r - 1/rI -+ beta / rI^3) are summed as two scalars;
+//   every other sum takes one FMA on a factor formed once per sample and
+//   shared where two entries share it (the wall row's and the wall column's
+//   coefficients of p_b); the weight and the constants 1/8pi, 3/4pi are
+//   applied once (the weight in w / r^3, w / rI^3, w / rI^5; the constants
+//   at the store).  R.N keeps its round-to-nearest form (`dot3_rn`).
+// - K2 keeps the arithmetic it had (its redesign is a later step): the
+//   full 3x3 G and W.n of a sample with the constants inside, added into
+//   9 + 9 sums.
 // Interface: plain C, loaded with ctypes.  All arrays are contiguous and of
 // one type T (float or double):
 //   xi [nr, 3], Y [n, m, 3], N [n, m, 3], W [n, m]; V, K [3 nr, 3 n] (out);
@@ -106,80 +125,140 @@ __device__ __forceinline__ void add_free_surface(T (&v)[9], T (&k)[9],
   }
 }
 
-// One sample of the Blake no-slip kernel added into a row's 9 + 9 sums; h is
-// the row's height above the wall (0 on a dummy pair).
+// The sums of one row.  Free surface: the 9 + 9 entries of V and K, with
+// their constants.  No slip, without the constants and with the weight
+// folded in: V's off-wall symmetric block (a0a0, a0a1, a1a1; a0, a1 the axes
+// off the wall normal w in cyclic order), its wall row (w, a0), (w, a1), its
+// wall column (a0, w), (a1, w), its (w, w) dyad part, the sums of
+// 1/r - 1/rI and of beta / rI^3 (the diagonal terms), and K's 9 entries.
+template <typename T, int KIND>
+struct RowSums {
+  T v[9], k[9];
+};
+template <typename T>
+struct RowSums<T, NO_SLIP> {
+  T vs[3], vwb[2], vbw[2], vww, vdg, vd3, k[9];
+};
+
+// A sample seen from a row: p = y - xi, the wall-normal component of its
+// mirror pI (the others are p's), their squared lengths, and 2 h0.
+template <typename T>
+struct Pair {
+  T p[3];
+  T pIw, r2, rI2, twoh;
+};
+
+// One sample of the Blake no-slip kernel added into a row's sums; sw is the
+// sample's height above the wall, w its weight, n its unit normal.
 template <typename T, int WA>
-__device__ __forceinline__ void add_no_slip(T (&v)[9], T (&k)[9],
-                                            const T (&p)[3], T r2,
-                                            const T (&pI)[3], T rI2,
-                                            const T (&nrm)[3], T w, T h) {
-  const T cG = static_cast<T>(1.0 / (8.0 * PI));
-  const T cWn = static_cast<T>(3.0 / (4.0 * PI));
-  const T iR = rsqrt_t(r2), iR2 = iR * iR, iR3 = iR * iR2, iR5 = iR3 * iR2;
-  const T iI = rsqrt_t(rI2), iI2 = iI * iI, iI3 = iI * iI2, iI5 = iI3 * iI2;
-  const T pn = dot3_rn(p[0], p[1], p[2], nrm[0], nrm[1], nrm[2]);
-  const T pIn = dot3_rn(pI[0], pI[1], pI[2], nrm[0], nrm[1], nrm[2]);
-  const T pIw = pI[WA];
-  const T twoh = T(2) * h;
-  const T beta = twoh * (pIw - h);
-  const T d[6] = {p[0] * p[0], p[0] * p[1], p[0] * p[2],
-                  p[1] * p[1], p[1] * p[2], p[2] * p[2]};
-  const T dI[6] = {pI[0] * pI[0], pI[0] * pI[1], pI[0] * pI[2],
-                   pI[1] * pI[1], pI[1] * pI[2], pI[2] * pI[2]};
+__device__ __forceinline__ void add_no_slip(RowSums<T, NO_SLIP>& acc, const Pair<T>& g,
+                                            const T (&n)[3], T w, T sw) {
+  constexpr int A0 = (WA + 1) % 3, A1 = (WA + 2) % 3;
+  const T(&p)[3] = g.p;
+  const T pw = p[WA], pIw = g.pIw, twoh = g.twoh;
+  const T iR = rsqrt_pos(g.r2), iR2 = iR * iR;
+  const T iI = rsqrt_pos(g.rI2), iI2 = iI * iI;
+  const T beta = twoh * sw;  // 2 h0 (pI_w - h0)
 
-  // ---- V: coefficients of p_a p_b, of pI_a pI_b (wall row / other rows),
-  // of delta_ab (wall row / other rows) and of the SD terms
-  const T wg = cG * w;
-  const T gA = wg * iR3;
-  const T gB = wg * iI3;
-  const T wgb = wg * beta;
-  const T cD5 = T(-3) * wgb * iI5;
-  const T cD3 = wgb * iI3;
-  const T vI_wall = cD5 - gB, vI_other = -cD5 - gB;
-  const T gd = wg * iR - wg * iI;
-  const T vd_wall = gd + cD3, vd_other = gd - cD3;
-  const T cS = wg * twoh * iI3;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-#pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      const int q = ut(a, b);
-      T g = gA * d[q] + (a == WA ? vI_wall : vI_other) * dI[q];
-      if (a == b) g += a == WA ? vd_wall : vd_other;
-      // t_a 2 h0 SD_ab: + on (w, b) and on (a, w), nothing on (w, w)
-      if (a == WA && b != WA) g += cS * pI[b];
-      if (b == WA && a != WA) g += cS * pI[a];
-      v[3 * a + b] += g;
-    }
-  }
+  // ---- V (8 pi G, times w)
+  const T wiR = w * iR, wiI = w * iI;
+  const T gA = wiR * iR2;        // w / r^3: p_a p_b
+  const T gB = wiI * iI2;        // w / rI^3
+  const T iI5w = gB * iI2;       // w / rI^5
+  const T bT = beta * iI5w;      // beta w / rI^5
+  const T cD3 = beta * gB;       // beta w / rI^3: t_a delta_ab
+  const T vI_w = fma(T(-3), bT, -gB);  // pI_a pI_b, wall row
+  const T vI_o = fma(T(3), bT, -gB);   // pI_a pI_b, other rows
+  const T u = gA + vI_o;               // p_a p_b, off-wall block
+  const T cS = twoh * gB;              // 2 h0 SD
+  acc.vdg += wiR - wiI;
+  acc.vd3 += cD3;
+  const T up0 = u * p[A0];
+  acc.vs[0] = fma(up0, p[A0], acc.vs[0]);
+  acc.vs[1] = fma(up0, p[A1], acc.vs[1]);
+  acc.vs[2] = fma(u * p[A1], p[A1], acc.vs[2]);
+  // (w, b) and (b, w), b off the wall: p_b (gA p_w + vI pI_w + cS)
+  const T X = gA * pw, Y = vI_w * pIw;
+  const T A = X + cS;
+  const T Qw = Y + A, Qo = fma(vI_o, pIw, A);
+  acc.vwb[0] = fma(Qw, p[A0], acc.vwb[0]);
+  acc.vwb[1] = fma(Qw, p[A1], acc.vwb[1]);
+  acc.vbw[0] = fma(Qo, p[A0], acc.vbw[0]);
+  acc.vbw[1] = fma(Qo, p[A1], acc.vbw[1]);
+  acc.vww = fma(X, pw, fma(Y, pIw, acc.vww));
 
-  // ---- K (the sums of W (W.n); the store negates them)
-  const T c0 = cWn * w;
-  const T e5 = c0 * iI5;
-  const T kA = -(c0 * pn) * iR5;
-  const T kI = e5 * pIn;
-  const T f = T(5) * beta * iI2;
-  const T kI_wall = kI * (T(1) + f), kI_other = kI * (T(1) - f);
-  const T bT = e5 * beta;
-  const T bU = e5 * twoh;
-  const T bUn = bU * pIn;
-  T sn[3], up[3];
+  // ---- K ((4 pi / 3) W.n, times w)
+  const T pn = dot3_rn(p[0], p[1], p[2], n[0], n[1], n[2]);
+  const T kA = (pn * iR2) * gA;                // w (p.N) / r^5
+  const T pIn = fma(twoh, n[WA], pn);          // pI.N
+  const T kI = pIn * iI5w;                     // w (pI.N) / rI^5
+  const T kIf = kI * (beta * iI2);
+  const T kI_w = fma(T(5), kIf, kI), kI_o = fma(T(-5), kIf, kI);
+  const T bU = twoh * iI5w;                    // 2 h0 w / rI^5
+  const T bUw = bU * pIw;
+  const T kAw = kA * pw;
+  // rows a off the wall: p_b ((kI_o - kA) p_a + bT n_a) - bUw p_a n_b
+  //   (+ bT p_a^2 n_a on the diagonal), and p_a G + bT n_a pI_w at (a, w)
+  const T dk = kI_o - kA;
+  const T G = fma(-bUw, n[WA], fma(kI_o, pIw, -kAw));
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    sn[a] = (a == WA ? -bT : bT) * nrm[a];        // s_a beta N_a / rI^5
-    up[a] = (a == WA ? bU : -bU) * pIw * pI[a];   // -s_a 2 h0 pI_w pI_a / rI^5
+  for (int e = 0; e < 2; ++e) {
+    const int a = e == 0 ? A0 : A1, o = e == 0 ? A1 : A0;
+    const T bTn = bT * n[a];
+    const T C = fma(dk, p[a], bTn);
+    const T E = -(bUw * p[a]);
+    acc.k[3 * a + a] = fma(fma(bTn, p[a], C), p[a], fma(E, n[a], acc.k[3 * a + a]));
+    acc.k[3 * a + o] = fma(C, p[o], fma(E, n[o], acc.k[3 * a + o]));
+    acc.k[3 * a + WA] = fma(G, p[a], fma(bTn, pIw, acc.k[3 * a + WA]));
   }
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-#pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      const int q = ut(a, b);
-      T g = kA * d[q] + (a == WA ? kI_wall : kI_other) * dI[q];
-      g += sn[a] * pI[b] + up[a] * nrm[b];
-      if (a == b) g += sn[a] * dI[q];
-      if (a == WA) g -= bUn * pI[b];
-      k[3 * a + b] += g;
+  // the wall row: p_b (H0 - kA p_w) + n_b bUw pI_w at (w, b), and
+  // -kA p_w^2 + pI_w (H0 + n_w (bUw - bT pI_w)) at (w, w)
+  const T H0 = fma(-bT, n[WA], fma(kI_w, pIw, -(bU * pIn)));
+  const T Hb = H0 - kAw;
+  const T J = bUw * pIw;
+  acc.k[3 * WA + A0] = fma(Hb, p[A0], fma(J, n[A0], acc.k[3 * WA + A0]));
+  acc.k[3 * WA + A1] = fma(Hb, p[A1], fma(J, n[A1], acc.k[3 * WA + A1]));
+  acc.k[3 * WA + WA] =
+      fma(-kAw, pw, fma(fma(n[WA], fma(-bT, pIw, bUw), H0), pIw, acc.k[3 * WA + WA]));
+}
+
+template <typename T, int KIND, int WA>
+__device__ __forceinline__ void add_sample(RowSums<T, KIND>& acc, const Pair<T>& q,
+                                           const T (&n)[3], T w, T sw) {
+  if constexpr (KIND == FREE_SURFACE) {
+    T pI[3] = {q.p[0], q.p[1], q.p[2]};
+    pI[WA] = q.pIw;
+    add_free_surface<T, WA>(acc.v, acc.k, q.p, q.r2, pI, q.rI2, n, w);
+  } else {
+    add_no_slip<T, WA>(acc, q, n, w, sw);
+  }
+}
+
+// Row a, column b of V and K from a row's sums.
+template <typename T, int KIND, int WA>
+__device__ __forceinline__ void entries(const RowSums<T, KIND>& acc, int a, int b, T& v, T& k) {
+  if constexpr (KIND == FREE_SURFACE) {
+    v = acc.v[3 * a + b];
+    // minus sign: exterior problem (reference `:2941-2947`)
+    k = -acc.k[3 * a + b];
+  } else {
+    constexpr int A0 = (WA + 1) % 3;
+    const T cG = static_cast<T>(1.0 / (8.0 * PI));
+    // the stresslet's 3/4pi, negated for the exterior problem
+    const T cK = static_cast<T>(-3.0 / (4.0 * PI));
+    T s;
+    if (a != WA && b != WA) {
+      s = acc.vs[a == A0 ? (b == A0 ? 0 : 1) : (b == A0 ? 1 : 2)];
+      if (a == b) s += acc.vdg - acc.vd3;
+    } else if (a == WA && b == WA) {
+      s = acc.vww + (acc.vdg + acc.vd3);
+    } else if (a == WA) {
+      s = acc.vwb[b == A0 ? 0 : 1];
+    } else {
+      s = acc.vbw[a == A0 ? 0 : 1];
     }
+    v = cG * s;
+    k = cK * acc.k[3 * a + b];
   }
 }
 
@@ -189,6 +268,9 @@ __global__ void __launch_bounds__(TJ* TI)
                        const T* __restrict__ N, const T* __restrict__ W,
                        T* __restrict__ V, T* __restrict__ K, int64_t nr,
                        int64_t n, int64_t m, T wall_position) {
+  // samples a trip: two in f64, one in f32, for both kinds
+  constexpr int UNROLL = unroll<T>(2, 1);
+  static_assert(SC % UNROLL == 0, "the sample loop has no remainder");
   __shared__ SampleTile<T> tile;
 
   const int tx = threadIdx.x;
@@ -197,18 +279,17 @@ __global__ void __launch_bounds__(TJ* TI)
   const int64_t j0 = static_cast<int64_t>(blockIdx.x) * TJ;
   const int64_t i0 = static_cast<int64_t>(blockIdx.y) * ROWS_PER_BLOCK;
 
-  T x[RT][3], xw_img[RT], h0[RT];
-  T v[RT][9], k[RT][9];
+  T x[RT][3], xw_img[RT], twoh[RT];
+  RowSums<T, KIND> acc[RT] = {};
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
     const int64_t i = i0 + r * TI + ty;
 #pragma unroll
     for (int c = 0; c < 3; ++c) x[r][c] = i < nr ? xi[i * 3 + c] : T(0);
-    h0[r] = x[r][WA] - wall_position;
+    const T h0 = x[r][WA] - wall_position;
+    twoh[r] = T(2) * h0;
     // the mirrored row point, rounded as kernels/images.py image_point does
-    xw_img[r] = x[r][WA] - T(2) * h0[r];
-#pragma unroll
-    for (int q = 0; q < 9; ++q) v[r][q] = k[r][q] = T(0);
+    xw_img[r] = x[r][WA] - twoh[r];
   }
 
   for (int64_t s0 = 0; s0 < m; s0 += SC) {
@@ -217,28 +298,58 @@ __global__ void __launch_bounds__(TJ* TI)
     __syncthreads();
 
     const int sn = static_cast<int>(m - s0 < SC ? m - s0 : SC);
-    for (int s = 0; s < sn; ++s) {
-      const T y[3] = {tile.Y[0][s][tx], tile.Y[1][s][tx], tile.Y[2][s][tx]};
-      const T nrm[3] = {tile.N[0][s][tx], tile.N[1][s][tx], tile.N[2][s][tx]};
-      const T w = tile.W[s][tx];
+    const int sn_whole = (sn + UNROLL - 1) / UNROLL * UNROLL;
+#pragma unroll 1
+    for (int s = 0; s < sn_whole; s += UNROLL) {
+      // the group's pairs first: one test, and a branch that is next to
+      // never taken, keeps the dummy offset's selects out of the loop
+      Pair<T> g[UNROLL][RT];
+      T nrm[UNROLL][3], w[UNROLL], sw[UNROLL];
+      bool any = false;
 #pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        T p[3] = {y[0] - x[r][0], y[1] - x[r][1], y[2] - x[r][2]};
-        T r2 = dot3_rn(p[0], p[1], p[2], p[0], p[1], p[2]);
-        T pI[3] = {p[0], p[1], p[2]};
-        pI[WA] = y[WA] - xw_img[r];
-        T rI2 = dot3_rn(pI[0], pI[1], pI[2], pI[0], pI[1], pI[2]);
-        T h = h0[r];
-        if (r2 == T(0)) {
-          p[0] = p[1] = p[2] = T(1);
-          pI[0] = pI[1] = pI[2] = T(1);
-          r2 = rI2 = T(3);
-          h = T(0);
+      for (int u = 0; u < UNROLL; ++u) {
+        T y[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          y[c] = tile.Y[c][s + u][tx];
+          nrm[u][c] = tile.N[c][s + u][tx];
         }
-        if constexpr (KIND == FREE_SURFACE) {
-          add_free_surface<T, WA>(v[r], k[r], p, r2, pI, rI2, nrm, w);
-        } else {
-          add_no_slip<T, WA>(v[r], k[r], p, r2, pI, rI2, nrm, w, h);
+        w[u] = tile.W[s + u][tx];
+        sw[u] = y[WA] - wall_position;
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          Pair<T>& q = g[u][r];
+#pragma unroll
+          for (int c = 0; c < 3; ++c) q.p[c] = y[c] - x[r][c];
+          q.pIw = y[WA] - xw_img[r];
+          q.twoh = twoh[r];
+          const T s2 = fma(q.p[(WA + 2) % 3], q.p[(WA + 2) % 3], q.p[(WA + 1) % 3] * q.p[(WA + 1) % 3]);
+          q.r2 = fma(q.p[WA], q.p[WA], s2);
+          q.rI2 = fma(q.pIw, q.pIw, s2);
+          any = any || is_zero(q.r2);
+        }
+      }
+      if (any) {
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+#pragma unroll
+          for (int r = 0; r < RT; ++r) {
+            Pair<T>& q = g[u][r];
+            // an exact r^2 = 0 pair: the dummy offset p = pI = (1, 1, 1),
+            // h0 = 0
+            if (is_zero(q.r2)) {
+              q.p[0] = q.p[1] = q.p[2] = q.pIw = T(1);
+              q.r2 = q.rI2 = T(3);
+              q.twoh = T(0);
+            }
+            add_sample<T, KIND, WA>(acc[r], q, nrm[u], w[u], sw[u]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+#pragma unroll
+          for (int r = 0; r < RT; ++r) add_sample<T, KIND, WA>(acc[r], g[u][r], nrm[u], w[u], sw[u]);
         }
       }
     }
@@ -256,9 +367,7 @@ __global__ void __launch_bounds__(TJ* TI)
 #pragma unroll
       for (int b = 0; b < 3; ++b) {
         const int64_t off = (a * nr + i) * ld + b * n + j;
-        V[off] = v[r][3 * a + b];
-        // minus sign: exterior problem (reference `:2941-2947`)
-        K[off] = -k[r][3 * a + b];
+        entries<T, KIND, WA>(acc[r], a, b, V[off], K[off]);
       }
     }
   }

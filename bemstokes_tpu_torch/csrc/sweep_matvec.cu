@@ -179,13 +179,6 @@ __device__ __forceinline__ T inv_sqrt(T x) {
 #endif
 }
 
-// r^2 is a sum of squares: it is zero only as +0, which the integer pipe can
-// test.
-__device__ __forceinline__ bool is_zero(float r2) { return r2 == 0.0f; }
-__device__ __forceinline__ bool is_zero(double r2) {
-  return (__double2hiint(r2) | __double2loint(r2)) == 0;
-}
-
 // A sample seen from a row: p = y - xi, the wall-normal component of its
 // mirror pI (the others are p's), their squared lengths, and the row's
 // height above the wall.  Coordinates are the kernel's (wall normal =

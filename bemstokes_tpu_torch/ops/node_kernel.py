@@ -52,30 +52,34 @@ _IMAGE_KIND = {KERNEL_FREE_SURFACE: 1, KERNEL_NO_SLIP: 2}
 #: to 0 before a run and read them after to see that the run went through
 #: the kernel)
 launches = {KERNEL_FREE_SPACE: 0, KERNEL_FREE_SURFACE: 0, KERNEL_NO_SLIP: 0, "planes": 0}
+#: the (row, sample) interactions those launches swept, nr * n * m each, per
+#: (counter of `launches`, "f32" or "f64"): launches of different shapes and
+#: types are not worth the same, and this says what they were worth
+interactions = {(key, suffix): 0 for key in launches for suffix in ("f32", "f64")}
 
 LAYOUT_DENSE = "dense"  # [3 nr, 3 n], entry (a*nr + i, b*n + j)
 LAYOUT_PLANES = "planes"  # [9, n, nr], entry (3a + b, j, i): K4
 
 
-def _library(source):
-    def declare(lib):
-        head = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3
-        if source == SOURCES[KERNEL_FREE_SPACE]:
-            names = (
-                "node_sweep_f32",
-                "node_sweep_f64",
-                "node_sweep_planes_f32",
-                "node_sweep_planes_f64",
-            )
-            tail = []
-        else:
-            names = ("node_sweep_image_f32", "node_sweep_image_f64")
-            tail = [ctypes.c_int, ctypes.c_int, ctypes.c_double]
-        for name in names:
-            fn = getattr(lib, name)
-            fn.argtypes = head + tail + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+def declare(lib):
+    """Declare the C entry points that a library built from
+    `csrc/node_sweep.cu` (K1, K4) or `csrc/node_sweep_image.cu` (K2, K3)
+    holds: (xi, Y, N, W, V, K, nr, n, m[, kind, wall_axis, wall_position],
+    stream) -> CUDA error code."""
+    head = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3
+    if hasattr(lib, "node_sweep_image_f64"):
+        names = ("node_sweep_image_f32", "node_sweep_image_f64")
+        tail = [ctypes.c_int, ctypes.c_int, ctypes.c_double]
+    else:
+        names = ("node_sweep_f32", "node_sweep_f64", "node_sweep_planes_f32", "node_sweep_planes_f64")
+        tail = []
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = head + tail + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
 
+
+def _library(source):
     return cuda_build.library(source, declare)
 
 
@@ -182,7 +186,9 @@ def node_sweep(
         )
     if rc != 0:
         raise RuntimeError(f"node_sweep: {kernel} kernel launch failed with CUDA error {rc}")
-    launches["planes" if planes else kernel] += 1
+    key = "planes" if planes else kernel
+    launches[key] += 1
+    interactions[key, suffix] += nr * n * m
     return V, K
 
 

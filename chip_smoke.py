@@ -9,15 +9,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 2. the build of the kernels from csrc/ (the node sweeps K1, K2, K3 and K4,
    the fused sweep-matvec K5 and the slot kernel K6; one nvcc per source,
    started together), with each kernel's registers and spills as ptxas
-   reports them;
+   reports them; and the pipe instructions per interaction of K1-K4's sample
+   loops, counted from their machine code (scripts/torch_sass_count.py);
 3. K1 (free space), K2 (free-surface image) and K3 (Blake no-slip image)
    against their plain torch version on the card, f64 and f32, at the shapes
    the main paths give them: create_sphere(3) whole, a 512-row slab of
    create_sphere(5) and create_sphere(5) whole, wall at y = -2; K2 and K3
    once more at create_sphere(3) with the wall normal along x and z.  Timed
-   with CUDA events after a warm-up.  In f32 the kernel and the plain version
-   are also held against the f64 kernel, which shows how far each is from
-   the exact sums;
+   with CUDA events after a warm-up; at create_sphere(5) whole with the SM
+   clock read under load and the pipe floor beside the time.  In f32 the
+   kernel and the plain version are also held against the f64 kernel, which
+   shows how far each is from the exact sums;
 4. small inputs, the card against the CPU (where every stage runs its plain
    torch version), 1e-10 relative on forces and rigid velocities and equal
    iteration counts: three free-space frames of StokesBEMProblem and three
@@ -70,7 +72,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 11. K4 (the free-space sweep stored component-major, [9, n, nr]) against its
    plain version and against K1's dense result (the same bits after
    `planes_to_dense`), f64 and f32, at create_sphere(3) whole, a 512-row slab
-   of create_sphere(5) and create_sphere(5) whole, timed beside K1;
+   of create_sphere(5) and create_sphere(5) whole, timed beside K1 (with the
+   SM clock and the pipe floor at create_sphere(5) whole);
 12. K6 (`tile_slots`) against its plain version, f64 and f32: Q1 panels at
    create_sphere(3) whole and at one row block of create_sphere(5), Q2 panels
    at create_sphere(3); a second call must give the same bits; in f32 kernel
@@ -94,19 +97,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and result files of both frames finite, the stroke swims along x.
 
 Before the last line it prints the card's name and power limit and one JSON
-object {"kernels": [...]} with each kernel's launches on its main path, its
+object {"kernels": [...]} with each kernel's launches on its main paths
+(K1-K4: summed over every path of phases 5, 6, 9, 10 and 14 that reaches
+them, the block factors of the matrix-free frames included; beside that raw
+count, what the launches were worth in whole create_sphere(5) sweeps per
+type, and those sweeps times each type's gap between time and bound), its
 error against the plain version, both times and its bound; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
 """
 
 import dataclasses
+import functools
 import gc
+import importlib.util
 import json
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -151,9 +162,25 @@ FLOPS_PER_INTERACTION_MATVEC = {
 }
 MATVEC_SHAPES = ((1, 0), (0, 1), (1, 1), (1, 10))  # the last: the setup sweep
 
-# Floating-point operations per (row, sample) interaction, counted from the
-# kernel sources with a multiply-add as two and an rsqrt as one.
-FLOPS_PER_INTERACTION = {"free_space": 65, "free_surface": 159, "no_slip": 217}
+# Floating-point operations per (row, sample) interaction: those of the
+# fewest-operation form of each Green's function's sums that is known, with a
+# multiply-add as two and an rsqrt as one, so that the bound reads the same
+# whatever implements it.  Per-sample work (weights, heights above the wall)
+# is shared by all rows and not counted; the constants 1/8pi and 3/4pi are
+# applied per output.
+# - free space, 50: R 3, r^2 5, rsqrt 1, 1/r^2, w/r, w/r^3 3, the 1/r sum 1,
+#   R.N 5, K's factor (R.N/r^2)(w/r^3) 2, the dyad 6, 12 multiply-adds 24;
+# - free surface, 86: p and pI_w 4, r^2 and rI^2 from one off-wall sum 7, two
+#   rsqrt 2, their powers and weights 6, two 1/r sums 2, p.N 5 and
+#   pI.N = p.N + 2 h0 N_w 2, K's two factors 4, V's and K's 9 entries each
+#   from the symmetric off-wall block and the wall row and column, 27 + 27;
+# - no slip, 141: p, pI_w, r^2, rI^2 11; V 47 and K 83 as in
+#   csrc/node_sweep_image.cu `add_no_slip`, the fewest known.
+# What the card pays is the pipe instructions a kernel issues per
+# interaction, counted from its machine code in phase 2 (`node_loop_counts`);
+# the pipe floor is that count times the interactions over the SMs' 64 FP64
+# (128 FP32) lanes a clock at the SM clock read under load.
+FLOPS_PER_INTERACTION = {"free_space": 50, "free_surface": 86, "no_slip": 141}
 # Peak rates of one H100 SXM at its full 700 W (NVIDIA data sheet): FP64 and
 # FP32 outside the tensor cores, and the memory rate.
 PEAK_FLOPS = {torch.float64: 33.5e12, torch.float32: 67e12}
@@ -282,9 +309,28 @@ def clock_under_load(fn):
     return out
 
 
+#: launches of K1-K4 summed over every main path that reaches them (phases
+#: 5, 6, 9, 10 and 14), each path's counts read just after it ran with the
+#: counters set to 0 just before it; and the interactions they swept, per
+#: (counter, "f32" or "f64")
+PATH_LAUNCHES = {"free_space": 0, "free_surface": 0, "no_slip": 0, "planes": 0}
+PATH_INTERACTIONS = {(k, suffix): 0 for k in PATH_LAUNCHES for suffix in ("f32", "f64")}
+
+
+def tally(node_kernel):
+    """Add the node-sweep counters' present values to PATH_LAUNCHES and
+    PATH_INTERACTIONS and return the launches."""
+    counts = dict(node_kernel.launches)
+    for k, v in counts.items():
+        PATH_LAUNCHES[k] += v
+    for k, v in node_kernel.interactions.items():
+        PATH_INTERACTIONS[k] += v
+    return counts
+
+
 def zero_counts(*modules):
     for mod in modules:
-        for counts in (mod.launches, getattr(mod, "shape_launches", {})):
+        for counts in (mod.launches, getattr(mod, "shape_launches", {}), getattr(mod, "interactions", {})):
             for k in counts:
                 counts[k] = 0
 
@@ -311,6 +357,60 @@ def phase_versions(cuda_build):
     log(card_line())
 
 
+@functools.lru_cache(maxsize=None)
+def sass_count():
+    """scripts/torch_sass_count.py as a module: the counting of a kernel's
+    machine code and the pipe floor that the count allows."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_sass_count", Path(__file__).resolve().parent / "scripts" / "torch_sass_count.py"
+    )
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def node_loop_counts(cuda_build):
+    """{(kernel, dtype): counted row} of the sample loops of K1-K4 (kernel
+    "planes" for K4), counted from the machine code of their sources by
+    scripts/torch_sass_count.py (`count_loops`)."""
+    sc = sass_count()
+    sources = {"node_sweep.cu": ("K1", "K4"), "node_sweep_image.cu": ("K2", "K3")}
+    kernel_of = {"K1": "free_space", "K2": "free_surface", "K3": "no_slip", "K4": "planes"}
+
+    def count(name):
+        with tempfile.TemporaryDirectory() as tmp:
+            cubin = Path(tmp) / "kernel.cubin"
+            sc.build_cubin(cuda_build.CSRC / name, [], cubin)
+            return sc.count_loops(sc.disassemble(cubin)[1], None)
+
+    with ThreadPoolExecutor(len(sources)) as pool:
+        rows = dict(zip(sources, pool.map(count, sources)))
+    out = {}
+    for name, keys in sources.items():
+        for key in keys:
+            for dtype in (torch.float64, torch.float32):
+                dtype_name = str(dtype)[6:]
+                row = sc.node_row(rows[name], dtype_name, sc.NODE_SWEEPS[key][3])
+                if row is None:
+                    raise AssertionError(f"no sample loop of {key} {dtype_name} found in {name}")
+                out[kernel_of[key], dtype] = row
+    return out
+
+
+def pipe_floor(row, dtype, nr, n, m, clock):
+    """(pipe instructions per interaction, pipe floor ms) of a counted sample
+    loop over nr * n * m interactions at the SM clock (MHz) read under load,
+    by scripts/torch_sass_count.py's own `pipe_floors`."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    floors = sass_count().pipe_floors(row, str(dtype)[6:], nr * n * m, {"sm_clock_mhz": clock}, sms)
+    return floors["pipe_instructions_per_sample"], floors["pipe_floor_ms"]
+
+
+def sm_clock_mhz(clock):
+    """The SM clock (MHz) of a `clock_under_load` line."""
+    return float(clock.split(",")[0].split()[0])
+
+
 def phase_build(cuda_build):
     t0 = time.perf_counter()
     built = cuda_build.build_all()
@@ -323,6 +423,17 @@ def phase_build(cuda_build):
         for line in output.splitlines():
             if any(key in line for key in ("Compiling entry function", "spill", "Used ")):
                 log(f"ptxas {name}: {line.strip()}")
+    t0 = time.perf_counter()
+    counts = node_loop_counts(cuda_build)
+    log(
+        f"sample loops of K1-K4 counted from the machine code in {time.perf_counter() - t0:.1f} s, pipe "
+        f"instructions per interaction (FP64 in f64, FP32 in f32): "
+        + ", ".join(
+            f"{k} {str(d)[6:]} {row['per_sample']['fp64' if d == torch.float64 else 'fp32']:.2f}"
+            for (k, d), row in counts.items()
+        )
+    )
+    return counts
 
 
 def kernel_inputs(refinements, dtype, device):
@@ -372,7 +483,7 @@ def event_ms(fn):
     return out, t0.elapsed_time(t1)
 
 
-def phase_planes_vs_plain(node_kernel, device):
+def phase_planes_vs_plain(node_kernel, device, counts):
     """K4 (the component-major store of the free-space sweep) against its
     plain version and against K1's dense result, timed beside K1; returns the
     record of create_sphere(5) whole, f64."""
@@ -408,11 +519,19 @@ def phase_planes_vs_plain(node_kernel, device):
             ms_dense = cuda_ms(lambda: node_kernel.node_sweep(xi, Yj, Nj, Wj), reps=10)
             nr, n, m = xi.shape[0], Yj.shape[0], Yj.shape[1]
             bound_ms, bound_by = bound("free_space", dtype, nr, n, m)
+            floor = ""
+            if rows is None and refinements == REFINEMENTS:
+                clock = clock_under_load(lambda: node_kernel.node_sweep(xi, Yj, Nj, Wj, layout="planes"))
+                instructions, floor_ms = pipe_floor(counts["planes", dtype], dtype, nr, n, m, sm_clock_mhz(clock))
+                floor = (
+                    f", {instructions:.2f} pipe instructions an interaction, pipe floor "
+                    f"{floor_ms:.3f} ms; SM clock, its maximum and power under this load: {clock}"
+                )
             log(
                 f"planes (K4) {name} {str(dtype)[6:]} rows={nr} cols={n} m={m}: "
                 f"rel err V {rel_v:.3e} K {rel_k:.3e} (tol {tol:.0e}), max abs err {abs_err:.3e}; "
                 f"K1's bits after planes_to_dense: {same_bits}; K4 {ms:.3f} ms, K1 {ms_dense:.3f} ms, "
-                f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms by {bound_by}"
+                f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms by {bound_by}{floor}"
             )
             if not (finite and same_bits and rel_v <= tol and rel_k <= tol):
                 raise AssertionError(f"K4 disagrees with its plain version or with K1 on {name} {dtype}")
@@ -426,6 +545,14 @@ def phase_planes_vs_plain(node_kernel, device):
                     bound_by=bound_by,
                     library_ms=None,
                     dense_ms=ms_dense,
+                    fp64_instructions=instructions,
+                    pipe_floor_ms=floor_ms,
+                    sm_clock=clock,
+                    interactions=nr * n * m,
+                )
+            elif rows is None and refinements == REFINEMENTS:
+                record.update(
+                    ms_f32=ms, bound_ms_f32=bound_ms, fp32_instructions=instructions, pipe_floor_ms_f32=floor_ms
                 )
             del xi, Yj, Nj, Wj
             torch.cuda.empty_cache()
@@ -593,9 +720,11 @@ def with_cfg(tables, **changes):
     return dataclasses.replace(tables, cfg=dataclasses.replace(tables.cfg, **changes))
 
 
-def phase_kernel_vs_plain(node_kernel, device):
+def phase_kernel_vs_plain(node_kernel, device, counts):
     """Every kernel against its plain version; returns, per kernel, the
-    record of the main-path shape (create_sphere(5) whole, f64)."""
+    record of the main-path shape (create_sphere(5) whole, f64).  At that
+    shape the SM clock is read under load and the pipe floor printed beside
+    the time, f64 and f32."""
     cases = [
         ("sphere3", 3, None, 1),
         (f"sphere{REFINEMENTS}_slab{SLAB_ROWS}", REFINEMENTS, SLAB_ROWS, 1),
@@ -644,12 +773,21 @@ def phase_kernel_vs_plain(node_kernel, device):
                 nr, n, m = xi.shape[0], Yj.shape[0], Yj.shape[1]
                 bound_ms, bound_by = bound(kernel, dtype, nr, n, m)
                 tol = tolerance(kernel, dtype)
+                floor = ""
+                if main_shape:
+                    clock = clock_under_load(lambda: node_kernel.node_sweep(xi, Yj, Nj, Wj, **kw))
+                    instructions, floor_ms = pipe_floor(counts[kernel, dtype], dtype, nr, n, m, sm_clock_mhz(clock))
+                    floor = (
+                        f"; {FLOPS_PER_INTERACTION[kernel]} operations an interaction, "
+                        f"{instructions:.2f} {'FP64' if dtype == torch.float64 else 'FP32'} instructions, "
+                        f"pipe floor {floor_ms:.3f} ms; SM clock, its maximum and power under this load: {clock}"
+                    )
                 log(
                     f"{kernel} {name} {str(dtype)[6:]} rows={nr} cols={n} m={m}: "
                     f"rel err V {rel_v:.3e} K {rel_k:.3e} (tol {tol:.0e}), "
                     f"max abs err {abs_err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
                     f"bound {bound_ms:.3f} ms by {bound_by} "
-                    f"({nr * n * m / (ms * 1e-3):.4e} interactions/s){far}"
+                    f"({nr * n * m / (ms * 1e-3):.4e} interactions/s){floor}{far}"
                 )
                 if not (finite and rel_v <= tol and rel_k <= tol):
                     raise AssertionError(
@@ -666,6 +804,14 @@ def phase_kernel_vs_plain(node_kernel, device):
                         # no one PyTorch call computes a pairwise
                         # Green's-function sweep
                         library_ms=None,
+                        fp64_instructions=instructions,
+                        pipe_floor_ms=floor_ms,
+                        sm_clock=clock,
+                        interactions=nr * n * m,
+                    )
+                elif main_shape:
+                    records[kernel].update(
+                        ms_f32=ms, bound_ms_f32=bound_ms, fp32_instructions=instructions, pipe_floor_ms_f32=floor_ms
                     )
                 del xi, Yj, Nj, Wj
                 torch.cuda.empty_cache()
@@ -846,7 +992,7 @@ def phase_free_space_path(node_kernel, device):
     torch.cuda.reset_peak_memory_stats()
     zero_counts(node_kernel)
     unknowns, recs = solve_frames(device, cfg, 3)
-    launches = dict(node_kernel.launches)
+    launches = tally(node_kernel)
     log(
         f"free-space path f64: launches {launches}, "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
@@ -861,7 +1007,7 @@ def phase_free_space_path(node_kernel, device):
             raise AssertionError(f"frame {r['frame']} failed: {r}")
     if launches["free_space"] < 1:
         raise AssertionError("the free-space path did not launch K1")
-    return launches["free_space"], [r["stokes_forces"] for r in recs]
+    return [r["stokes_forces"] for r in recs]
 
 
 def wall_path(node_kernel, device, name, cfg, frames):
@@ -873,7 +1019,7 @@ def wall_path(node_kernel, device, name, cfg, frames):
     t0 = time.perf_counter()
     history, records, _, unknowns = run_simulation(cfg, device, frames)
     wall = time.perf_counter() - t0
-    launches = dict(node_kernel.launches)
+    launches = tally(node_kernel)
     for rec in records:
         log(f"{name} f64 unknowns={unknowns} " + json.dumps(rec))
     log(
@@ -890,7 +1036,6 @@ def phase_wall_paths(node_kernel, device):
     from bemstokes_tpu_torch.config import ProblemConfig, WallConfig
 
     expected = 3 * (6 * 4**REFINEMENTS + 2) + 6
-    out = {}
 
     # (a) sedimenting sphere, no-slip wall
     history, records, launches, unknowns = wall_path(
@@ -910,7 +1055,6 @@ def phase_wall_paths(node_kernel, device):
         raise AssertionError("no-slip sphere: wrong mobility")
     if launches != {"free_space": 0, "free_surface": 0, "no_slip": 3, "planes": 0}:
         raise AssertionError(f"no-slip sphere: expected 3 launches of K3 alone, got {launches}")
-    out["no_slip"] = launches["no_slip"]
 
     # (b) the same sphere pulled along a free surface
     history, records, launches, _ = wall_path(
@@ -922,7 +1066,6 @@ def phase_wall_paths(node_kernel, device):
         raise AssertionError("free-surface sphere: mobility outside its band")
     if launches != {"free_space": 0, "free_surface": 3, "no_slip": 0, "planes": 0}:
         raise AssertionError(f"free-surface sphere: expected 3 launches of K2 alone, got {launches}")
-    out["free_surface"] = launches["free_surface"]
 
     # (c) the bare helix beside the no-slip wall
     n_frames, dt = 64, 0.05
@@ -948,10 +1091,9 @@ def phase_wall_paths(node_kernel, device):
             raise AssertionError("no-slip helix: the body does not counter-rotate")
     if unknowns != 3 * 385 * 16 + 6 or launches["no_slip"] != 2:
         raise AssertionError(f"no-slip helix: unknowns {unknowns}, launches {launches}")
-    return out
 
 
-def phase_float32(device):
+def phase_float32(node_kernel, device):
     from bemstokes_tpu_torch.config import ProblemConfig, SolverConfig
 
     cfg = ProblemConfig(
@@ -960,9 +1102,14 @@ def phase_float32(device):
         dtype="float32",
         solver=SolverConfig(tolerance=1e-5),
     )
+    zero_counts(node_kernel)
     _, (rec,) = solve_frames(device, cfg, 1)
+    launches = tally(node_kernel)
+    log(f"f32 free-space frame: launches {launches}")
     if not (rec["converged"] and rec["finite"]):
         raise AssertionError(f"f32 frame failed: {rec}")
+    if launches["free_space"] != 1:
+        raise AssertionError(f"f32 frame: expected one launch of K1, got {launches}")
 
 
 def sweep_inputs(refinements, dtype, device, kernel):
@@ -1252,7 +1399,9 @@ def phase_matfree_vs_materialized(matfree_node, node_kernel, device):
         gc.collect()
         torch.cuda.empty_cache()
         solver = SolverConfig(tolerance=1e-11)
+        zero_counts(node_kernel)
         dense, t_dense = solve_once(matfree_problem(device, kernel, REFINEMENTS, solver=solver))
+        dense_launches = tally(node_kernel)
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1262,13 +1411,15 @@ def phase_matfree_vs_materialized(matfree_node, node_kernel, device):
         )
         launches = dict(matfree_node.launches)
         shapes = shapes_of(matfree_node, kernel)
+        blocks = tally(node_kernel)
         diff = worst_rel(free, dense)
         log(
             f"matrix-free vs materialized ({kernel}, 18,444 unknowns, f64, tolerance 1e-11): max rel "
             f"diff of forces and rigid velocities {diff:.3e} (tol 1e-7); matrix-free {t_free:.3f} s, "
             f"{free['iterations']} iterations, converged {free['converged']}, residual "
             f"{free['residual']:.3e}; materialized {t_dense:.3f} s, {dense['iterations']} iterations; "
-            f"K5 launches {launches}, by launch shape {shapes}, block assemblies {dict(node_kernel.launches)}, "
+            f"K5 launches {launches}, by launch shape {shapes}, node sweeps of the materialized frame "
+            f"{dense_launches} and of the block factors {blocks}, "
             f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
         )
         if not (free["converged"] and dense["converged"] and diff <= 1e-7):
@@ -1276,11 +1427,13 @@ def phase_matfree_vs_materialized(matfree_node, node_kernel, device):
         if launches[kernel] < free["iterations"] or sum(launches.values()) != launches[kernel]:
             raise AssertionError(f"matrix-free {kernel}: unexpected K5 launches {launches}")
         check_one_sided("matrix-free vs materialized", kernel, shapes, free["iterations"])
+        if dense_launches[kernel] != 1 or blocks[kernel] < 1:
+            raise AssertionError(f"matrix-free {kernel}: unexpected node-sweep launches {dense_launches} {blocks}")
         out[kernel] = launches[kernel], shapes
     return out
 
 
-def phase_capacity(matfree_node, device):
+def phase_capacity(matfree_node, node_kernel, device):
     """The 73,740-unknown frame, f64 and f32, CAPACITY_FRAMES each; returns
     K5's launches in the f64 run, in all and by launch shape."""
     from bemstokes_tpu_torch.config import SolverConfig
@@ -1299,7 +1452,7 @@ def phase_capacity(matfree_node, device):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        zero_counts(matfree_node)
+        zero_counts(matfree_node, node_kernel)
         prob = matfree_problem(
             device, "free_space", CAPACITY_REFINEMENTS, dtype=dtype, solver=solver,
             matrix_free=True, matfree_block_nodes=1024,
@@ -1309,6 +1462,8 @@ def phase_capacity(matfree_node, device):
             raise AssertionError(f"capacity frame: {prob.n} nodes, {unknowns} unknowns")
         frames = [solve_once(prob) for _ in range(CAPACITY_FRAMES)]
         launches = dict(matfree_node.launches)
+        # the block factors: assemble_rows sweeps K1 over row blocks
+        blocks = tally(node_kernel)
         shapes = shapes_of(matfree_node, "free_space")
         peak = torch.cuda.max_memory_allocated() / 2**30
         # the operator action alone, as the GMRES loop calls it
@@ -1330,7 +1485,8 @@ def phase_capacity(matfree_node, device):
         log(
             f"capacity frame {dtype}: matvec {mv_ms / 1e3:.4f} s "
             f"({prob.n * prob.n * m / (mv_ms * 1e-3):.4e} interactions/s), K5 launches in {CAPACITY_FRAMES} frame(s) "
-            f"{launches}, by launch shape {shapes}, max_memory_allocated {peak:.3f} GiB; one materialized operator would be "
+            f"{launches}, by launch shape {shapes}, K1 launches of the block factors {blocks}, "
+            f"max_memory_allocated {peak:.3f} GiB; one materialized operator would be "
             f"{(3 * prob.n) ** 2 * torch.finfo(prob.asm_cfg.dtype).bits / 8 / 1e9:.1f} GB"
         )
         if launches["free_space"] < sum(res["iterations"] for res, _ in frames) or sum(launches.values()) != launches["free_space"]:
@@ -1338,6 +1494,8 @@ def phase_capacity(matfree_node, device):
         check_one_sided(
             f"capacity frame {dtype}", "free_space", shapes, sum(res["iterations"] for res, _ in frames)
         )
+        if blocks["free_space"] < 1:
+            raise AssertionError(f"capacity frame {dtype}: the block factors did not launch K1: {blocks}")
         out[dtype] = launches["free_space"], shapes
         del prob, solver_state, sys_state, mv
     return out["float64"]
@@ -1441,7 +1599,7 @@ def phase_gather_path(node_kernel, slot_kernel, device, node_forces):
     # one frame with the node sweep stored component-major (K4)
     zero_counts(node_kernel, slot_kernel)
     _, (rec,) = solve_frames(device, ProblemConfig(assembly_backend="node_planes", **base), 1)
-    planes = dict(node_kernel.launches)
+    planes = tally(node_kernel)
     diff = float(np.abs(rec["stokes_forces"] - node_forces[0]).max() / np.abs(node_forces[0]).max())
     log(f"K4 frame f64: launches {planes}, forces against the node-mode frame 0 {diff:.3e} (tol 1e-12)")
     if not (rec["converged"] and diff <= 1e-12):
@@ -1461,7 +1619,7 @@ def phase_gather_path(node_kernel, slot_kernel, device, node_forces):
     # large cancelling terms there (node mode's own-node entries are ~1e-2)
     if not errors["gather", "bulk"][0] <= 1e-3:
         raise AssertionError("the f32 gather bulk of K is further from f64 than 1e-3 of max|K|")
-    return launches["tile_slots"], planes["planes"]
+    return launches["tile_slots"]
 
 
 def write_msh(path, vertices, cells):
@@ -1545,6 +1703,25 @@ def phase_command_line():
                 raise AssertionError(f"command line run: unexpected rigid velocities {u}")
 
 
+def node_sweep_entry(key, kernel, record):
+    """The kernels-line entry of a node sweep: its launches over the main
+    paths, what they were worth in sweeps of the timed shape (create_sphere(5)
+    whole) per type, and those sweeps times each type's gap between its time
+    and its bound (ms): the time the launches lost to the bound."""
+    sweeps = {s: PATH_INTERACTIONS[key, s] / record["interactions"] for s in ("f64", "f32")}
+    lost = sweeps["f64"] * (record["ms"] - record["bound_ms"]) + sweeps["f32"] * (
+        record["ms_f32"] - record["bound_ms_f32"]
+    )
+    return dict(
+        route="cuda",
+        launches=PATH_LAUNCHES[key],
+        sweep_equivalent_launches=sweeps,
+        ms_lost_to_bound=lost,
+        **kernel,
+        **record,
+    )
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1561,28 +1738,24 @@ def main():
         return out
 
     phase(phase_versions, cuda_build)
-    phase(phase_build, cuda_build)
-    records = phase(phase_kernel_vs_plain, node_kernel, device)
+    counts = phase(phase_build, cuda_build)
+    records = phase(phase_kernel_vs_plain, node_kernel, device, counts)
     phase(phase_small_reference, device)
-    launches = {}
-    launches["free_space"], node_forces = phase(phase_free_space_path, node_kernel, device)
-    launches.update(phase(phase_wall_paths, node_kernel, device))
-    phase(phase_float32, device)
+    node_forces = phase(phase_free_space_path, node_kernel, device)
+    phase(phase_wall_paths, node_kernel, device)
+    phase(phase_float32, node_kernel, device)
     matvec_records = phase(phase_matvec_vs_plain, matfree_node, node_kernel, device)
     phase(phase_matfree_small, matfree_node, device)
     matvec_launches = phase(phase_matfree_vs_materialized, matfree_node, node_kernel, device)
     # K5's free-space count is the capacity frame's: its main path
-    matvec_launches["free_space"] = phase(phase_capacity, matfree_node, device)
-    planes_record = phase(phase_planes_vs_plain, node_kernel, device)
+    matvec_launches["free_space"] = phase(phase_capacity, matfree_node, node_kernel, device)
+    planes_record = phase(phase_planes_vs_plain, node_kernel, device, counts)
     slots_record = phase(phase_slots_vs_plain, slot_kernel, device)
     phase(phase_gather_small, device)
-    slots_launches, planes_launches = phase(
-        phase_gather_path, node_kernel, slot_kernel, device, node_forces
-    )
+    slots_launches = phase(phase_gather_path, node_kernel, slot_kernel, device, node_forces)
     phase(phase_command_line)
     kernels = [
-        dict(route="cuda", launches=launches[kernel], **KERNELS[kernel], **records[kernel])
-        for kernel in KERNELS
+        node_sweep_entry(kernel, KERNELS[kernel], records[kernel]) for kernel in KERNELS
     ] + [
         dict(
             route="cuda",
@@ -1593,7 +1766,7 @@ def main():
         )
         for kernel in MATVEC_KERNELS
     ] + [
-        dict(route="cuda", launches=planes_launches, **PLANES_KERNEL, **planes_record),
+        node_sweep_entry("planes", PLANES_KERNEL, planes_record),
         dict(route="cuda", launches=slots_launches, **SLOT_KERNEL, **slots_record),
     ]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

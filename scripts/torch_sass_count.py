@@ -23,15 +23,25 @@ Needs a CUDA card's host with the CUDA toolkit (nvcc, cuobjdump or nvdisasm).
    loop has arms, one trip is followed (conditional forward branches not
    taken, unconditional ones taken).  A loop
    unrolled over several samples is divided by the samples it holds (its
-   MUFU.RSQ count over `--rsqrt-per-sample`, which for K5's image kinds is 2
-   and is inferred from the kernel's name when not given).
-3. With `--time` (the fused sweep-matvec K5 only; any source with its C
-   interface, so an older copy of the file can be timed beside the present
-   one): builds the same source with the same defines to a shared library,
-   times `sweep_matvec` with CUDA events at create_sphere(5) and
-   create_sphere(6) (6,146 and 24,578 nodes, m = 64) for each Green's
-   function, type and launch shape (BV, BK) = (1, 1), (1, 0), (0, 1),
-   (1, 10), samples `nvidia-smi`'s SM clock while each runs, and prints
+   MUFU.RSQ count over `--rsqrt-per-sample`, which for K5's image kinds and
+   the image node sweeps K2, K3 is 2, one for the point and one for its
+   mirror, and is inferred from the kernel's name when not given; a node
+   sweep's loop holds several rows a sample, so its count is per (row,
+   sample) interaction as K5's is).
+3. With `--time` (any source with the C interface of K5 or of the node
+   sweeps, so an older copy of a file can be timed beside the present one):
+   builds the same source with the same defines to a shared library and
+   times it with CUDA events while sampling `nvidia-smi`'s SM clock:
+   - `sweep_matvec.cu` (K5): `sweep_matvec` at create_sphere(5) and
+     create_sphere(6) (6,146 and 24,578 nodes, m = 64) for each Green's
+     function, type and launch shape (BV, BK) = (1, 1), (1, 0), (0, 1),
+     (1, 10);
+   - `node_sweep.cu` (K1 and its component-major twin K4) and
+     `node_sweep_image.cu` (K2, K3, wall at y = -2): the whole sweep of
+     create_sphere(5) (6,146 x 6,146 x 64 interactions) per kernel and type,
+     through the unchanged C entry points (`--refinements` above 5 are
+     skipped: their dense operators do not fit on one card);
+   and prints
 
        pipe floor = instructions per interaction x interactions
                     / (SMs x lanes x clock)
@@ -53,8 +63,7 @@ Needs a CUDA card's host with the CUDA toolkit (nvcc, cuobjdump or nvdisasm).
 Every line of the result is also written to <out>/<label>.json (`--out`,
 by default sass_counts/ at the root of the repository; the disassembly goes
 beside it with `--keep-sass`).
-Other kernels' sources (node_sweep.cu, node_sweep_image.cu, tile_slots.cu)
-take steps 1 and 2 as they are.
+Other kernels' sources (tile_slots.cu) take steps 1 and 2 as they are.
 """
 
 import argparse
@@ -239,7 +248,10 @@ def count_loops(sass, rsqrt_per_sample):
         if per is None:
             # K5: template arguments start with the Green's function; the
             # image kinds take one rsqrt for the point and one for its mirror
-            per = 2 if ("sweep_matvec" in name and ints and ints[0] != 0) else 1
+            # and so do the image node sweeps (K2, K3), whatever their
+            # template arguments
+            image = "image_sweep_kernel" in name
+            per = 2 if image or ("sweep_matvec" in name and ints and ints[0] != 0) else 1
         samples = max(1, rsq // per)
         rows.append(
             dict(
@@ -437,6 +449,133 @@ def serving_row(rows, dtype, kind, BV, BK):
     return None
 
 
+def build_library(source, defines, out):
+    done = subprocess.run(
+        [toolkit("nvcc"), *compile_flags(defines), "-shared", "-o", str(out), str(source)],
+        capture_output=True, text=True,
+    )
+    if done.returncode != 0:
+        raise RuntimeError(f"nvcc failed:\n{done.stdout}\n{done.stderr}")
+    return ctypes.CDLL(str(out))
+
+
+def pipe_floors(row, dtype_name, inter, clock, sms):
+    """The counted loop's instructions per interaction and the floors they
+    allow at this clock."""
+    pipe = "fp64" if dtype_name == "float64" else "fp32"
+    lanes = 64 if pipe == "fp64" else 128
+    issued = row["per_sample"].get(pipe, 0.0)
+    # conversions from and to 64-bit types run at a quarter of the FP64 rate
+    issued64 = issued + 4 * row["per_sample"].get("convert64", 0.0)
+    per_clock = sms * clock["sm_clock_mhz"] * 1e6
+    return dict(
+        instantiation=row["template_ints"],
+        pipe=pipe,
+        pipe_instructions_per_sample=issued,
+        all_instructions_per_sample=row["loop_instructions"] / row["samples_in_loop"],
+        pipe_floor_ms=1e3 * (issued64 if pipe == "fp64" else issued) * inter / (lanes * per_clock),
+        # every instruction of the loop through the SM's four schedulers, one
+        # warp instruction a clock each
+        issue_floor_ms=1e3 * row["loop_instructions"] / row["samples_in_loop"] * inter / (128 * per_clock),
+    )
+
+
+def timed_ms(call, min_seconds, sampler):
+    """(mean ms of call() over enough repetitions to last min_seconds, the
+    number of repetitions, the clock sampled meanwhile)."""
+    import torch
+
+    call()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record(); call(); end.record()
+    torch.cuda.synchronize()
+    reps = max(3, math.ceil(1e3 * min_seconds / start.elapsed_time(end)))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        call()
+    end.record()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    return start.elapsed_time(end) / reps, reps, sampler.between(t0, t1)
+
+
+NODE_SWEEPS = {
+    # name: (kind, the C entry point's stem, its extra arguments, the counted
+    # kernel's name and leading template arguments)
+    "K1": ("free_space", "node_sweep", (), ("node_sweep_kernel", [0])),
+    "K4": ("free_space", "node_sweep_planes", (), ("node_sweep_kernel", [1])),
+    "K2": ("free_surface", "node_sweep_image", (1, 1, WALL_Y), ("image_sweep_kernel", [1])),
+    "K3": ("no_slip", "node_sweep_image", (2, 1, WALL_Y), ("image_sweep_kernel", [2])),
+}
+
+
+def node_row(rows, dtype_name, counted):
+    """The counted instantiation of a node sweep: its kernel name and
+    leading template arguments (with a wall-axis argument, older sources:
+    the y axis, which the timed sweeps use)."""
+    name, lead = counted
+    for r in rows:
+        ints = r["template_ints"]
+        if name in r["mangled"] and r["dtype"] == dtype_name and ints[: len(lead)] == lead:
+            if len(ints) == len(lead) or ints[len(lead)] == 1:
+                return r
+    return None
+
+
+def time_node_sweeps(lib, rows, args, emit):
+    """K1, K4 (node_sweep.cu) or K2, K3 (node_sweep_image.cu) over the whole of
+    create_sphere(5), through the source's C entry points."""
+    import torch
+
+    from bemstokes_tpu_torch.fem.geometry import euler_from_mesh, support_points
+    from bemstokes_tpu_torch.mesh import build_scalar_space, create_sphere
+    from bemstokes_tpu_torch.ops import node_kernel
+    from bemstokes_tpu_torch.ops.assemble import AssemblyConfig, build_assembly_tables, node_sweep_inputs
+
+    device = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    node_kernel.declare(lib)
+    mine = {k: v for k, v in NODE_SWEEPS.items() if hasattr(lib, f"{v[1]}_f64") and v[0] in args.kinds}
+    sampler = ClockSampler()
+    try:
+        for refinements in [r for r in args.refinements if r <= 5]:
+            mesh = create_sphere(refinements=refinements)
+            space = build_scalar_space(mesh, 1)
+            for dtype_name in args.dtypes:
+                dtype = getattr(torch, dtype_name)
+                tables = build_assembly_tables(space, space, AssemblyConfig(dtype=dtype))
+                euler = torch.as_tensor(euler_from_mesh(mesh.vertices, space), dtype=dtype, device=device)
+                xi, Yj, Nj, Wj = node_sweep_inputs(euler, support_points(euler, space, space), tables)
+                nr, n, m = xi.shape[0], Yj.shape[0], Yj.shape[1]
+                V = torch.empty((3 * nr, 3 * n), dtype=dtype, device=device)
+                K = torch.empty_like(V)
+                suffix = "f64" if dtype == torch.float64 else "f32"
+                for key, (kind, stem, extra, counted) in mine.items():
+                    fn = getattr(lib, f"{stem}_{suffix}")
+                    stream = torch.cuda.current_stream().cuda_stream
+
+                    def call():
+                        rc = fn(xi.data_ptr(), Yj.data_ptr(), Nj.data_ptr(), Wj.data_ptr(), V.data_ptr(),
+                                K.data_ptr(), nr, n, m, *extra, stream)
+                        if rc != 0:
+                            raise RuntimeError(f"{key} did not launch: CUDA error {rc}")
+
+                    ms, reps, clock = timed_ms(call, args.min_seconds, sampler)
+                    inter = nr * n * m
+                    record = dict(timed=f"{key} {kind} {dtype_name} nodes={n}", ms=ms, reps=reps,
+                                  interactions=inter, clock=clock)
+                    row = node_row(rows, dtype_name, counted)
+                    if row is not None and clock is not None:
+                        record.update(pipe_floors(row, dtype_name, inter, clock, sms))
+                    emit(record)
+                del V, K
+                torch.cuda.empty_cache()
+    finally:
+        sampler.stop()
+
+
 def time_sweeps(source, defines, rows, args, emit):
     import numpy as np
     import torch
@@ -448,14 +587,9 @@ def time_sweeps(source, defines, rows, args, emit):
     device = torch.device("cuda", 0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     with tempfile.TemporaryDirectory() as tmp:
-        lib_path = Path(tmp) / "libsweep.so"
-        done = subprocess.run(
-            [toolkit("nvcc"), *compile_flags(defines), "-shared", "-o", str(lib_path), str(source)],
-            capture_output=True, text=True,
-        )
-        if done.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{done.stdout}\n{done.stderr}")
-        lib = ctypes.CDLL(str(lib_path))
+        lib = build_library(source, defines, Path(tmp) / "libsweep.so")
+        if not hasattr(lib, "sweep_matvec_f64"):
+            return time_node_sweeps(lib, rows, args, emit)
         matfree_node.declare(lib)
         # `sweep_matvec` launches through this library from here on
         cuda_build._libs[matfree_node.SOURCE] = lib
@@ -473,21 +607,7 @@ def time_sweeps(source, defines, rows, args, emit):
                         for BV, BK in ((1, 1), (1, 0), (0, 1), (1, 10)):
                             XV, XK = X[:, :BV].contiguous(), X[:, :BK].contiguous()
                             call = lambda: matfree_node.sweep_matvec(st, arrs, XV, XK)  # noqa: E731
-                            call()
-                            torch.cuda.synchronize()
-                            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                            start.record(); call(); end.record()
-                            torch.cuda.synchronize()
-                            reps = max(3, math.ceil(1e3 * args.min_seconds / start.elapsed_time(end)))
-                            t0 = time.perf_counter()
-                            start.record()
-                            for _ in range(reps):
-                                call()
-                            end.record()
-                            torch.cuda.synchronize()
-                            t1 = time.perf_counter()
-                            ms = start.elapsed_time(end) / reps
-                            clock = sampler.between(t0, t1)
+                            ms, reps, clock = timed_ms(call, args.min_seconds, sampler)
                             inter = st.nr * st.n * st.vmax * st.nq
                             row = serving_row(rows, dtype_name, kind, BV, BK)
                             record = dict(
@@ -495,25 +615,7 @@ def time_sweeps(source, defines, rows, args, emit):
                                 ms=ms, reps=reps, interactions=inter, clock=clock,
                             )
                             if row is not None and clock is not None:
-                                pipe = "fp64" if dtype_name == "float64" else "fp32"
-                                lanes = 64 if pipe == "fp64" else 128
-                                issued = row["per_sample"].get(pipe, 0.0)
-                                # conversions from and to 64-bit types run at a
-                                # quarter of the FP64 rate
-                                issued64 = issued + 4 * row["per_sample"].get("convert64", 0.0)
-                                record.update(
-                                    instantiation=row["template_ints"],
-                                    pipe=pipe,
-                                    pipe_instructions_per_sample=issued,
-                                    all_instructions_per_sample=row["loop_instructions"]
-                                    / row["samples_in_loop"],
-                                    pipe_floor_ms=1e3 * (issued64 if pipe == "fp64" else issued) * inter
-                                    / (sms * lanes * clock["sm_clock_mhz"] * 1e6),
-                                    # every instruction of the loop through the SM's
-                                    # four schedulers, one warp instruction a clock each
-                                    issue_floor_ms=1e3 * row["loop_instructions"] / row["samples_in_loop"]
-                                    * inter / (sms * 128 * clock["sm_clock_mhz"] * 1e6),
-                                )
+                                record.update(pipe_floors(row, dtype_name, inter, clock, sms))
                             emit(record)
                         del arrs
                         torch.cuda.empty_cache()

@@ -303,7 +303,9 @@ def _imports(path):
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]
+    # chip_smoke.py loads scripts/torch_sass_count.py to count the node sweeps
+    scripts = sorted((PORT.parent / "scripts").glob("torch_*.py"))
+    return sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"] + scripts
 
 
 def test_port_imports_no_jax():

@@ -84,10 +84,10 @@ def test_cpu_wrapper_runs_plain_version():
     """On CPU tensors the wrapper is the plain version and counts no
     launch."""
     args = _random_inputs(seed=1)
-    before = dict(node_kernel.launches)
+    before = dict(node_kernel.launches), dict(node_kernel.interactions)
     V, K = node_kernel.node_sweep(*args)
     Vr, Kr = node_kernel.node_sweep_reference(*args)
-    assert node_kernel.launches == before
+    assert (node_kernel.launches, node_kernel.interactions) == before
     assert torch.equal(V, Vr) and torch.equal(K, Kr)
 
 
@@ -182,9 +182,12 @@ def test_kernel_matches_plain_version(cuda_device, dtype, tol, rows):
     if rows is not None:  # a ragged row block
         xi = xi[5 : 5 + rows].contiguous()
     before = node_kernel.launches["free_space"]
+    suffix = "f64" if dtype == torch.float64 else "f32"
+    swept = node_kernel.interactions["free_space", suffix]
     V, K = node_kernel.node_sweep(xi, Yj, Nj, Wj)
     torch.cuda.synchronize()
     assert node_kernel.launches["free_space"] == before + 1
+    assert node_kernel.interactions["free_space", suffix] == swept + xi.shape[0] * Yj.shape[0] * Yj.shape[1]
     Vr, Kr = node_kernel.node_sweep_reference(xi, Yj, Nj, Wj)
     assert ((V - Vr).abs().max() / Vr.abs().max()).item() <= tol
     assert ((K - Kr).abs().max() / Kr.abs().max()).item() <= tol
