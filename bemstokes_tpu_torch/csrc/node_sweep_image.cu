@@ -60,20 +60,22 @@
 //   branch that real meshes never take, the r^2 = 0 test made once per group
 //   on the integer pipe.  The f64 loops take two samples a trip, the f32
 //   loops one (each the faster on the card, PERF.md).
-// - K3's arithmetic is regrouped for few FP64 instructions (103 an
-//   interaction in the machine code, against 170 before):
-//   beta = 2 h0 (y_w - wall) from the sample's height above the wall;
-//   pI.N = p.N + 2 h0 N_w (one FMA where a second dot3_rn was);
-//   V's off-wall 2x2 block is symmetric (3 sums, not 4), its diagonal
-//   terms delta_ab (1/r - 1/rI -+ beta / rI^3) are summed as two scalars;
-//   every other sum takes one FMA on a factor formed once per sample and
-//   shared where two entries share it (the wall row's and the wall column's
-//   coefficients of p_b); the weight and the constants 1/8pi, 3/4pi are
-//   applied once (the weight in w / r^3, w / rI^3, w / rI^5; the constants
-//   at the store).  R.N keeps its round-to-nearest form (`dot3_rn`).
-// - K2 keeps the arithmetic it had (its redesign is a later step): the
-//   full 3x3 G and W.n of a sample with the constants inside, added into
-//   9 + 9 sums.
+// - The arithmetic is regrouped for few FP64 instructions (K3: 103 an
+//   interaction in the machine code, against 170 before; K2 against 109).
+//   The mirrored sample differs from p only in its wall component, so V
+//   (and K2's K) splits into four blocks: the symmetric off-wall 2x2 block
+//   (3 sums, not 4), the wall row (w, b) and the wall column (a, w), each
+//   p_b times a coefficient formed once per sample and shared by the row
+//   and the column, and the (w, w) entry; the diagonal terms are two scalar
+//   sums combined at the store.  pI.N = p.N + 2 h0 N_w (one FMA where a
+//   second dot3_rn was).  The weight and the constants 1/8pi, 3/4pi are
+//   applied once (the weight in w / r^3, w / rI^3; the constants at the
+//   store).  R.N keeps its round-to-nearest form (`dot3_rn`).
+//   K2: 18 sums a row (10 of V, 8 of K), A p_a p_b + s_a B pI_a pI_b with
+//   (A, B) = (w / r^3, w / rI^3) for V and (w (p.N) / r^5, w (pI.N) / rI^5)
+//   for K (`add_mirror_dyads`).  K3: 19 sums; beta = 2 h0 (y_w - wall) from
+//   the sample's height above the wall, its doublet terms folded into the
+//   coefficients of the same blocks and K's 9 entries.
 // Interface: plain C, loaded with ctypes.  All arrays are contiguous and of
 // one type T (float or double):
 //   xi [nr, 3], Y [n, m, 3], N [n, m, 3], W [n, m]; V, K [3 nr, 3 n] (out);
@@ -91,49 +93,57 @@ constexpr int FREE_SURFACE = 1;
 constexpr int NO_SLIP = 2;
 constexpr double PI = 3.14159265358979323846;
 
-// One sample of the free-surface kernel added into a row's 9 + 9 sums.
+// V's four blocks of a row, with the weight folded in and without the
+// constants: the off-wall symmetric block s (a0a0, a0a1, a1a1; a0, a1 the
+// axes off the wall normal w in cyclic order), the wall row wb ((w, a0),
+// (w, a1)), the wall column bw ((a0, w), (a1, w)) and the (w, w) dyad part
+// ww.
+template <typename T>
+struct WallBlocks {
+  T s[3], wb[2], bw[2], ww;
+};
+
+// Add A p_a p_b + s_a B pI_a pI_b (s_a = -1 on the wall row; pI = p off
+// the wall axis) into the four blocks: p_a p_b (A + B) off the wall,
+// p_b (A p_w - B pI_w) on the wall row, p_a (A p_w + B pI_w) on the wall
+// column, A p_w^2 - B pI_w^2 at (w, w).  16 FP64 instructions.
 template <typename T, int WA>
-__device__ __forceinline__ void add_free_surface(T (&v)[9], T (&k)[9],
-                                                 const T (&p)[3], T r2,
-                                                 const T (&pI)[3], T rI2,
-                                                 const T (&nrm)[3], T w) {
-  const T cG = static_cast<T>(1.0 / (8.0 * PI));
-  const T cW = static_cast<T>(-3.0 / (4.0 * PI));
-  const T iR = rsqrt_t(r2), iR2 = iR * iR;
-  const T iI = rsqrt_t(rI2), iI2 = iI * iI;
-  const T wiR = w * iR, wiI = w * iI;
-  const T g0 = cG * (wiR * iR2), gI = cG * (wiI * iI2);
-  const T d0 = cG * wiR, dI_ = cG * wiI;
-  // (p . N) / r^5 rounded as the plain version rounds it (see K1)
-  const T t0 = dot3_rn(p[0], p[1], p[2], nrm[0], nrm[1], nrm[2]) * (iR * (iR2 * iR2));
-  const T tI = dot3_rn(pI[0], pI[1], pI[2], nrm[0], nrm[1], nrm[2]) * (iI * (iI2 * iI2));
-  const T d[6] = {p[0] * p[0], p[0] * p[1], p[0] * p[2],
-                  p[1] * p[1], p[1] * p[2], p[2] * p[2]};
-  const T dI[6] = {pI[0] * pI[0], pI[0] * pI[1], pI[0] * pI[2],
-                   pI[1] * pI[1], pI[1] * pI[2], pI[2] * pI[2]};
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const T sa = a == WA ? T(-1) : T(1);
-#pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      const int q = ut(a, b);
-      T g = g0 * d[q] + sa * (gI * dI[q]);
-      if (a == b) g += d0 + sa * dI_;
-      v[3 * a + b] += g;
-      k[3 * a + b] += (((cW * d[q]) * t0) + sa * ((cW * dI[q]) * tI)) * w;
-    }
-  }
+__device__ __forceinline__ void add_mirror_dyads(WallBlocks<T>& acc, const T (&p)[3], T pIw, T A, T B) {
+  constexpr int A0 = (WA + 1) % 3, A1 = (WA + 2) % 3;
+  const T u = A + B;
+  const T u0 = u * p[A0];
+  acc.s[0] = fma(u0, p[A0], acc.s[0]);
+  acc.s[1] = fma(u0, p[A1], acc.s[1]);
+  acc.s[2] = fma(u * p[A1], p[A1], acc.s[2]);
+  const T X = A * p[WA], Y = B * pIw;
+  const T Qw = X - Y, Qo = X + Y;
+  acc.wb[0] = fma(Qw, p[A0], acc.wb[0]);
+  acc.wb[1] = fma(Qw, p[A1], acc.wb[1]);
+  acc.bw[0] = fma(Qo, p[A0], acc.bw[0]);
+  acc.bw[1] = fma(Qo, p[A1], acc.bw[1]);
+  acc.ww = fma(X, p[WA], fma(-Y, pIw, acc.ww));
 }
 
-// The sums of one row.  Free surface: the 9 + 9 entries of V and K, with
-// their constants.  No slip, without the constants and with the weight
-// folded in: V's off-wall symmetric block (a0a0, a0a1, a1a1; a0, a1 the axes
-// off the wall normal w in cyclic order), its wall row (w, a0), (w, a1), its
-// wall column (a0, w), (a1, w), its (w, w) dyad part, the sums of
-// 1/r - 1/rI and of beta / rI^3 (the diagonal terms), and K's 9 entries.
+// Entry (a, b) of the four blocks.
+template <typename T, int WA>
+__device__ __forceinline__ T block_entry(const WallBlocks<T>& acc, int a, int b) {
+  constexpr int A0 = (WA + 1) % 3;
+  if (a != WA && b != WA) return acc.s[a == A0 ? (b == A0 ? 0 : 1) : (b == A0 ? 1 : 2)];
+  if (a == WA && b == WA) return acc.ww;
+  if (a == WA) return acc.wb[b == A0 ? 0 : 1];
+  return acc.bw[a == A0 ? 0 : 1];
+}
+
+// The sums of one row, without the constants and with the weight folded
+// in.  Free surface: V's and K's four blocks, and V's diagonal terms, the
+// sums of w / r and of w / rI.  No slip: V's off-wall symmetric block
+// (a0a0, a0a1, a1a1), its wall row (w, a0), (w, a1), its wall column
+// (a0, w), (a1, w), its (w, w) dyad part, the sums of 1/r - 1/rI and of
+// beta / rI^3 (the diagonal terms), and K's 9 entries.
 template <typename T, int KIND>
 struct RowSums {
-  T v[9], k[9];
+  WallBlocks<T> v, k;
+  T vdr, vdI;
 };
 template <typename T>
 struct RowSums<T, NO_SLIP> {
@@ -147,6 +157,28 @@ struct Pair {
   T p[3];
   T pIw, r2, rI2, twoh;
 };
+
+// One sample of the free-surface kernel added into a row's sums; w is its
+// weight, n its unit normal.  G = G0(p) + s_a G0(pI), W.n = Wn0(p) +
+// s_a Wn0(pI): V's dyads with (w / r^3, w / rI^3), K's with
+// (w (p.N) / r^5, w (pI.N) / rI^5).  68 FP64 instructions an interaction
+// with the scaffolding around it.
+template <typename T, int WA>
+__device__ __forceinline__ void add_free_surface(RowSums<T, FREE_SURFACE>& acc, const Pair<T>& g,
+                                                 const T (&n)[3], T w) {
+  const T(&p)[3] = g.p;
+  const T iR = rsqrt_pos(g.r2), iR2 = iR * iR;
+  const T iI = rsqrt_pos(g.rI2), iI2 = iI * iI;
+  const T wiR = w * iR, wiI = w * iI;
+  const T gA = wiR * iR2;  // w / r^3
+  const T gB = wiI * iI2;  // w / rI^3
+  acc.vdr += wiR;
+  acc.vdI += wiI;
+  add_mirror_dyads<T, WA>(acc.v, p, g.pIw, gA, gB);
+  const T pn = dot3_rn(p[0], p[1], p[2], n[0], n[1], n[2]);
+  const T pIn = fma(g.twoh, n[WA], pn);  // pI.N
+  add_mirror_dyads<T, WA>(acc.k, p, g.pIw, (pn * iR2) * gA, (pIn * iI2) * gB);
+}
 
 // One sample of the Blake no-slip kernel added into a row's sums; sw is the
 // sample's height above the wall, w its weight, n its unit normal.
@@ -226,9 +258,7 @@ template <typename T, int KIND, int WA>
 __device__ __forceinline__ void add_sample(RowSums<T, KIND>& acc, const Pair<T>& q,
                                            const T (&n)[3], T w, T sw) {
   if constexpr (KIND == FREE_SURFACE) {
-    T pI[3] = {q.p[0], q.p[1], q.p[2]};
-    pI[WA] = q.pIw;
-    add_free_surface<T, WA>(acc.v, acc.k, q.p, q.r2, pI, q.rI2, n, w);
+    add_free_surface<T, WA>(acc, q, n, w);
   } else {
     add_no_slip<T, WA>(acc, q, n, w, sw);
   }
@@ -237,15 +267,17 @@ __device__ __forceinline__ void add_sample(RowSums<T, KIND>& acc, const Pair<T>&
 // Row a, column b of V and K from a row's sums.
 template <typename T, int KIND, int WA>
 __device__ __forceinline__ void entries(const RowSums<T, KIND>& acc, int a, int b, T& v, T& k) {
+  const T cG = static_cast<T>(1.0 / (8.0 * PI));
+  // the stresslet's 3/4pi, negated for the exterior problem (reference
+  // `:2941-2947`); the free surface's K sums carry W.n's own minus sign
+  const T cK = static_cast<T>(3.0 / (4.0 * PI));
   if constexpr (KIND == FREE_SURFACE) {
-    v = acc.v[3 * a + b];
-    // minus sign: exterior problem (reference `:2941-2947`)
-    k = -acc.k[3 * a + b];
+    T s = block_entry<T, WA>(acc.v, a, b);
+    if (a == b) s += a == WA ? acc.vdr - acc.vdI : acc.vdr + acc.vdI;
+    v = cG * s;
+    k = cK * block_entry<T, WA>(acc.k, a, b);
   } else {
     constexpr int A0 = (WA + 1) % 3;
-    const T cG = static_cast<T>(1.0 / (8.0 * PI));
-    // the stresslet's 3/4pi, negated for the exterior problem
-    const T cK = static_cast<T>(-3.0 / (4.0 * PI));
     T s;
     if (a != WA && b != WA) {
       s = acc.vs[a == A0 ? (b == A0 ? 0 : 1) : (b == A0 ? 1 : 2)];
@@ -258,7 +290,7 @@ __device__ __forceinline__ void entries(const RowSums<T, KIND>& acc, int a, int 
       s = acc.vbw[a == A0 ? 0 : 1];
     }
     v = cG * s;
-    k = cK * acc.k[3 * a + b];
+    k = -cK * acc.k[3 * a + b];
   }
 }
 

@@ -19,12 +19,15 @@ the JAX package; the port's default is "node" (the JAX package's is
   batched singular path adds (singular - smooth) per (cell, local node) as
   COO triplets (`_singular_coo(subtract_smooth=True)`);
 - "gather": panel-centric.  Per row block the Green's functions are
-  evaluated once per (row, panel quadrature point) and contracted with the
-  panel's weighted shape values into slot tensors [Nc*nl, 9, T], own-cell
-  pairs masked — `ops.slot_kernel.tile_slots`, the CUDA kernel K6 on a CUDA
-  tensor in free space, plain torch for the image Green's functions (which
-  the JAX package keeps on its XLA path too) — and one incidence
-  gather-reduce maps slot (c, l) to node column cells_fe[c, l].  The
+  evaluated once per (row, panel quadrature point), contracted with the
+  panel's weighted shape values into slots (c, l), own-cell pairs masked,
+  and each slot summed into its node column cells_fe[c, l].  In free space
+  on the card that is `ops.slot_kernel.tile_nodes`, the CUDA kernel K6,
+  which sums the slots into the node columns [n, 9, T] inside the kernel.
+  On the CPU, and for the image Green's functions on every device (the JAX
+  package keeps those on its XLA path too), the plain slot tensors
+  [Nc*nl, 9, T] are made and reduced by the incidence gather-reduce
+  (`slot_kernel.gather_reduce`, what `tile_nodes_reference` does).  The
   singular path then adds the singular-rule integrals themselves
   (`subtract_smooth=False`);
 - "scatter": the same slot tensors from the plain torch version on every
@@ -73,11 +76,13 @@ from .node_kernel import (
     node_sweep,
     planes_to_dense,
 )
-from .slot_kernel import tile_slots, tile_slots_reference
+from . import slot_kernel
+from .slot_kernel import node_groups, tile_nodes, tile_slots_reference
 
 COLUMN_MODES = ("node", "gather", "scatter")
 #: bytes the two slot tensors of one "gather"/"scatter" row block may take
-#: together; it sets the rows per block
+#: together, or on the card in free-space gather mode its two node-column
+#: tensors; it sets the rows per block
 SLOT_BLOCK_BYTES = 2 * 1024**3
 
 
@@ -390,31 +395,22 @@ def slot_inputs(euler: torch.Tensor, tables: AssemblyTables):
     return xq.contiguous(), normals.contiguous(), wphi.contiguous()
 
 
-def own_cell_keep(tables: AssemblyTables, node_ids: torch.Tensor, like: torch.Tensor):
-    """keep [Nc, T]: 0 where row node_ids[t] is a node of panel c (a singular
-    pair, left to the singular rule), 1 elsewhere."""
-    cells_fe = _t(tables.cells_nodes_fe, like, torch.long)
-    sing = torch.any(cells_fe[:, :, None] == node_ids[None, None, :], dim=1)
-    return (~sing).to(like.dtype).contiguous()
-
-
-def gather_reduce(slots: torch.Tensor, tables: AssemblyTables) -> torch.Tensor:
-    """The incidence gather-reduce: slot tensor [Nc*nl, 9, T] -> node columns
-    [n, 9, T], column j the sum of its incident slots `tables.inc_slot[j]`
-    (one index_select per valence position; no scatter)."""
-    inc_slot = _t(tables.inc_slot, slots, torch.long)  # [n, vmax]
-    inc_mask = _t(tables.inc_mask, slots)
-    out = None
-    for v in range(inc_slot.shape[1]):
-        part = slots.index_select(0, inc_slot[:, v]) * inc_mask[:, v, None, None]
-        out = part if out is None else out.add_(part)
-    return out
+def node_block_rows(tables: AssemblyTables) -> int:
+    """Rows per block of the node-column route (`tile_nodes` on the card):
+    the most for which the two node-column tensors [n, 9, T] stay within
+    SLOT_BLOCK_BYTES together, in whole multiples of 128 once there is room
+    for that."""
+    item = torch.finfo(tables.cfg.dtype).bits // 8
+    rows = max(1, SLOT_BLOCK_BYTES // (2 * tables.n_nodes * 9 * item))
+    return rows // 128 * 128 if rows >= 128 else rows
 
 
 def _panel_bulk(euler, xi, node_ids, tables: AssemblyTables):
     """The smooth bulk of the "gather" and "scatter" modes: dense (V, K)
-    [d*nr, d*n] with own-cell pairs left out, in row blocks of
-    `slot_block_rows`."""
+    [d*nr, d*n] with own-cell pairs left out, in row blocks.  Free-space
+    gather mode on the card goes through the kernel `tile_nodes` (row blocks
+    of `node_block_rows`, no slot tensor made); every other route makes the
+    plain slot tensors and reduces them (row blocks of `slot_block_rows`)."""
     cfg = tables.cfg
     d = cfg.dim
     n = tables.n_nodes
@@ -422,26 +418,33 @@ def _panel_bulk(euler, xi, node_ids, tables: AssemblyTables):
     xq, nrm, wphi = slot_inputs(euler, tables)
     plain = dict(kernel=cfg.kernel, wall_axis=cfg.wall_axis, wall_position=cfg.wall_position)
     scatter = cfg.column_mode == "scatter"
+    nodes_route = not scatter and cfg.kernel == KERNEL_FREE_SPACE and xi.device.type == "cuda"
     cols = _t(tables.cells_nodes_fe, xi, torch.long).reshape(-1)  # slot -> column node
     V = torch.empty((d, nr, d, n), dtype=cfg.dtype, device=xi.device)
     K = torch.empty_like(V)
-    T = slot_block_rows(tables)
+    if nodes_route:
+        groups = node_groups(tables)
+        T = node_block_rows(tables)
+    else:
+        T = slot_block_rows(tables)
     for t0 in range(0, nr, T):
         xi_t = xi[t0 : t0 + T].contiguous()
-        keep = own_cell_keep(tables, node_ids[t0 : t0 + T], xi_t)
-        if scatter or cfg.kernel != KERNEL_FREE_SPACE:
-            Vs, Ks = tile_slots_reference(xi_t, xq, nrm, wphi, keep, **plain)
+        if nodes_route:
+            Mts = tile_nodes(xi_t, xq, nrm, wphi, node_ids[t0 : t0 + T], groups)
         else:
-            Vs, Ks = tile_slots(xi_t, xq, nrm, wphi, keep)
-        for slots, M in ((Vs, V), (Ks, K)):
-            if scatter:
-                Mt = torch.zeros((n,) + slots.shape[1:], dtype=cfg.dtype, device=xi.device)
-                Mt.index_add_(0, cols, slots)
-            else:
-                Mt = gather_reduce(slots, tables)
+            keep = slot_kernel.own_cell_keep(tables.cells_nodes_fe, node_ids[t0 : t0 + T], xi_t)
+            Mts = []
+            for slots in tile_slots_reference(xi_t, xq, nrm, wphi, keep, **plain):
+                if scatter:
+                    Mt = torch.zeros((n,) + slots.shape[1:], dtype=cfg.dtype, device=xi.device)
+                    Mt.index_add_(0, cols, slots)
+                else:
+                    Mt = slot_kernel.gather_reduce(slots, tables.inc_slot, tables.inc_mask)
+                Mts.append(Mt)
+        for Mt, M in zip(Mts, (V, K)):
             # [n, (a, b), t] -> rows (a, t), columns (b, n)
             M[:, t0 : t0 + T] = Mt.reshape(n, d, d, -1).permute(1, 3, 2, 0)
-        del Vs, Ks
+        del Mts
     return V.reshape(d * nr, d * n), K.reshape(d * nr, d * n)
 
 

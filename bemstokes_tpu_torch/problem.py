@@ -569,7 +569,7 @@ class StokesBEMProblem:
             # the JAX package (`bemstokes_tpu/problem.py:642`)
             return
         if cfg.print_matrices:
-            raise _not_ported("print_matrices", "postprocess.py, cli.py and config_io.py")
+            raise _not_ported("print_matrices", "queue 1 item 2, with la/preconditioners.py")
         if (
             not cfg.solver.solve_directly
             and cfg.solver.preconditioner_type != "Direct"

@@ -7,10 +7,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. versions (torch, CUDA, nvcc) and the card's name and power limit;
 2. the build of the kernels from csrc/ (the node sweeps K1, K2, K3 and K4,
-   the fused sweep-matvec K5 and the slot kernel K6; one nvcc per source,
-   started together), with each kernel's registers and spills as ptxas
-   reports them; and the pipe instructions per interaction of K1-K4's sample
-   loops, counted from their machine code (scripts/torch_sass_count.py);
+   the fused sweep-matvec K5 and the slot kernel K6 with its two entry
+   points, `tile_slots` and `tile_nodes`; one nvcc per source, started
+   together), with each kernel's registers and spills as ptxas reports
+   them; and the pipe instructions per interaction of K1-K4's sample loops
+   and per (row, panel point) of `tile_nodes`' loop, counted from their
+   machine code (scripts/torch_sass_count.py);
 3. K1 (free space), K2 (free-surface image) and K3 (Blake no-slip image)
    against their plain torch version on the card, f64 and f32, at the shapes
    the main paths give them: create_sphere(3) whole, a 512-row slab of
@@ -74,19 +76,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    `planes_to_dense`), f64 and f32, at create_sphere(3) whole, a 512-row slab
    of create_sphere(5) and create_sphere(5) whole, timed beside K1 (with the
    SM clock and the pipe floor at create_sphere(5) whole);
-12. K6 (`tile_slots`) against its plain version, f64 and f32: Q1 panels at
-   create_sphere(3) whole and at one row block of create_sphere(5), Q2 panels
-   at create_sphere(3); a second call must give the same bits; in f32 kernel
-   and plain version are also held against the f64 kernel; timed over all
-   row blocks of create_sphere(5) (6,146 rows x 6,144 panels x 16 points)
-   with the incidence gather-reduce timed apart; then `assemble_V_K` in
-   gather mode against node mode on the card at create_sphere(5) (1e-10);
+12. K6 (`tile_slots`, the slot tensors) against its plain version, f64 and
+   f32: Q1 panels at create_sphere(3) whole and at one row block of
+   create_sphere(5), Q2 panels at create_sphere(3); a second call must give
+   the same bits; in f32 kernel and plain version are also held against the
+   f64 kernel; timed over all row blocks of create_sphere(5) (6,146 rows x
+   6,144 panels x 16 points) with the incidence gather-reduce timed apart;
+   then `assemble_V_K` in gather mode (through `tile_nodes`) against node
+   mode on the card at create_sphere(5) (1e-10);
+   K6's node-column entry point `tile_nodes`, the gather path's, against its
+   plain version (the gather-reduce of `tile_slots_reference`), f64 and f32,
+   with the tolerances of `tile_slots`: Q1 and Q2 at create_sphere(3) whole,
+   one row block of create_sphere(5); a second call must give the same bits;
+   timed over all rows of create_sphere(5) with the SM clock under load and
+   the pipe floor, beside the old route (`tile_slots` and the gather-reduce),
+   K1's node bulk, the relayout of the node columns into the dense
+   operators and the whole gather bulk, all in the same call; and the
+   redundancy of the node groups (panels evaluated per panel);
 13. small inputs in gather mode, the card against the CPU: three free-space
    frames on create_sphere(3), 1e-10 and equal iterations;
 14. the gather path at full width, launch counters set to 0 before and read
    after: StokesBEMProblem on create_sphere(5), 18,444 unknowns, f64,
    assembly_backend = "gather", three frames (fresh LU, two stale): drag
    error <= 2.5e-4 and forces within 1e-8 of phase 5's node-mode frames;
+   `tile_nodes` launched, and neither `tile_slots` nor the plain-torch
+   gather-reduce;
    one frame through K4 (assembly_backend = "node_planes") equal to phase
    5's frame 0 to 1e-12; one f32 gather frame; and the largest error of the
    f32 K against f64, over all entries and over the own-node 3x3 blocks,
@@ -101,10 +115,12 @@ object {"kernels": [...]} with each kernel's launches on its main paths
 (K1-K4: summed over every path of phases 5, 6, 9, 10 and 14 that reaches
 them, the block factors of the matrix-free frames included; beside that raw
 count, what the launches were worth in whole create_sphere(5) sweeps per
-type, and those sweeps times each type's gap between time and bound), its
-error against the plain version, both times and its bound; the last line is
-{"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
-prints no result.
+type, and those sweeps times each type's gap between time and bound;
+`tile_nodes` likewise over the gather frames of phase 14, in whole
+create_sphere(5) bulks; `tile_slots` is on no path since the gather path
+takes `tile_nodes`: 0), its error against the plain version, both times
+and its bound; the last line is {"ok": true, "device": {...}}.  Without a
+CUDA device it exits non-zero and prints no result.
 """
 
 import dataclasses
@@ -213,7 +229,13 @@ SLOT_KERNEL = dict(
     source="bemstokes_tpu_torch/csrc/tile_slots.cu",
     replaces="bemstokes_tpu/ops/pallas_assemble.py:45",
 )
-#: K6 against its plain version, relative to max|V_slots| and max|K_slots|.
+NODES_KERNEL = dict(
+    name="tile_nodes",
+    source="bemstokes_tpu_torch/csrc/tile_slots.cu",
+    replaces="bemstokes_tpu/ops/pallas_assemble.py:45",
+)
+#: K6 against its plain version, relative to max|V_slots| and max|K_slots|
+#: (`tile_nodes`: max|V| and max|K| of the node columns).
 #: Own-cell pairs are masked, so no slot is a sum of large cancelling terms;
 #: what is left in f32 is the rsqrt, the FMA contraction and the order of the
 #: nq-sum.
@@ -330,7 +352,12 @@ def tally(node_kernel):
 
 def zero_counts(*modules):
     for mod in modules:
-        for counts in (mod.launches, getattr(mod, "shape_launches", {}), getattr(mod, "interactions", {})):
+        for counts in (
+            mod.launches,
+            getattr(mod, "shape_launches", {}),
+            getattr(mod, "interactions", {}),
+            getattr(mod, "pairs", {}),
+        ):
             for k in counts:
                 counts[k] = 0
 
@@ -371,11 +398,13 @@ def sass_count():
 
 def node_loop_counts(cuda_build):
     """{(kernel, dtype): counted row} of the sample loops of K1-K4 (kernel
-    "planes" for K4), counted from the machine code of their sources by
-    scripts/torch_sass_count.py (`count_loops`)."""
+    "planes" for K4) and of `tile_nodes`' loop over a panel's points (Q1,
+    one pass of 4 local nodes), counted from the machine code of their
+    sources by scripts/torch_sass_count.py (`count_loops`)."""
     sc = sass_count()
-    sources = {"node_sweep.cu": ("K1", "K4"), "node_sweep_image.cu": ("K2", "K3")}
-    kernel_of = {"K1": "free_space", "K2": "free_surface", "K3": "no_slip", "K4": "planes"}
+    sources = {"node_sweep.cu": ("K1", "K4"), "node_sweep_image.cu": ("K2", "K3"), "tile_slots.cu": ("K6n",)}
+    kernel_of = {"K1": "free_space", "K2": "free_surface", "K3": "no_slip", "K4": "planes", "K6n": "tile_nodes"}
+    counted = {**{k: v[3] for k, v in sc.NODE_SWEEPS.items()}, "K6n": ("tile_nodes_kernel", [4])}
 
     def count(name):
         with tempfile.TemporaryDirectory() as tmp:
@@ -390,7 +419,7 @@ def node_loop_counts(cuda_build):
         for key in keys:
             for dtype in (torch.float64, torch.float32):
                 dtype_name = str(dtype)[6:]
-                row = sc.node_row(rows[name], dtype_name, sc.NODE_SWEEPS[key][3])
+                row = sc.node_row(rows[name], dtype_name, counted[key])
                 if row is None:
                     raise AssertionError(f"no sample loop of {key} {dtype_name} found in {name}")
                 out[kernel_of[key], dtype] = row
@@ -426,8 +455,8 @@ def phase_build(cuda_build):
     t0 = time.perf_counter()
     counts = node_loop_counts(cuda_build)
     log(
-        f"sample loops of K1-K4 counted from the machine code in {time.perf_counter() - t0:.1f} s, pipe "
-        f"instructions per interaction (FP64 in f64, FP32 in f32): "
+        f"sample loops of K1-K4 and tile_nodes counted from the machine code in {time.perf_counter() - t0:.1f} s, "
+        f"pipe instructions per interaction (tile_nodes: per (row, panel point); FP64 in f64, FP32 in f32): "
         + ", ".join(
             f"{k} {str(d)[6:]} {row['per_sample']['fp64' if d == torch.float64 else 'fp32']:.2f}"
             for (k, d), row in counts.items()
@@ -590,6 +619,37 @@ def slots_bound(dtype, nt, nc, nq, nl):
     return 1e3 * max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def nodes_bound(dtype, nt, nc, nq, nl, n, own):
+    """(bound_ms, bound_by) of `tile_nodes`: every input read once (the
+    panels' nodes and the rows' node ids as int32) and the two node-column
+    tensors [n, 9, nt] written once over the memory rate, against the
+    operations of the fewest-operation form of the function over the peak
+    rate, a multiply-add as two and an rsqrt as one, over the (row, panel)
+    pairs this run's rows need (`own` of the nt * nc pairs are own-cell
+    pairs, left out):
+
+    - 39 per (row, panel point): R 3, r^2 5, the rsqrt 1, 1/r^2 and 1/r^3
+      2, R.N 5, K's factor (R.N / r^2) / r^3 2, the dyad R_a R_b 6, G's six
+      distinct entries 9 (three of them a multiply-add with 1/r), W.n's 6;
+    - 24 per (row, panel point, local node): each of the 12 distinct sums
+      (6 of V, 6 of K, both blocks symmetric) one multiply-add of the
+      weight;
+    - 12 adds per (row, slot) beyond the first slot of each node column:
+      a row's S slots go into n - 1 columns (its own node's column takes
+      none of them), S - (n - 1) adds of 12 sums;
+    - 12 per (row, node): 1/8pi and 3/4pi on the distinct entries.
+
+    (`slots_bound`'s count of `tile_slots`, 52 + 24 + 27, multiplies the
+    constants in per sample and masks and signs each slot in floating
+    point; this function needs neither.)"""
+    item = torch.finfo(dtype).bits // 8
+    nbytes = item * (3 * nt + nc * nq * (6 + nl) + 2 * 9 * n * nt) + 4 * (nt + nc * nl)
+    pairs = nt * nc - own
+    flops = pairs * nq * (39 + 24 * nl) + 12 * (pairs * nl - nt * (n - 1)) + 12 * nt * n
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def phase_slots_vs_plain(slot_kernel, device):
     """K6 against its plain version; returns the record of all row blocks of
     create_sphere(5), f64."""
@@ -610,7 +670,7 @@ def phase_slots_vs_plain(slot_kernel, device):
             T = assemble.slot_block_rows(with_cfg(tables, dtype=torch.float64))
             xi = sp[:T].contiguous()
             ids = torch.arange(xi.shape[0], device=device)
-            keep = assemble.own_cell_keep(tables, ids, xi)
+            keep = slot_kernel.own_cell_keep(tables.cells_nodes_fe, ids, xi)
             V, K = slot_kernel.tile_slots(xi, xq, nrm, wphi, keep)
             V2, K2 = slot_kernel.tile_slots(xi, xq, nrm, wphi, keep)
             torch.cuda.synchronize()
@@ -646,8 +706,9 @@ def phase_slots_vs_plain(slot_kernel, device):
         tables, euler, sp, xq, nrm, wphi = slot_case(REFINEMENTS, 1, dtype, device)
         T = assemble.slot_block_rows(tables)
         ids = torch.arange(sp.shape[0], device=device)
+        cells = tables.cells_nodes_fe
         blocks = [
-            (sp[t0 : t0 + T].contiguous(), assemble.own_cell_keep(tables, ids[t0 : t0 + T], sp))
+            (sp[t0 : t0 + T].contiguous(), slot_kernel.own_cell_keep(cells, ids[t0 : t0 + T], sp))
             for t0 in range(0, sp.shape[0], T)
         ]
 
@@ -668,11 +729,11 @@ def phase_slots_vs_plain(slot_kernel, device):
             del V, K, Vr, Kr
         xi, keep = blocks[0]  # a full block
         V, K = slot_kernel.tile_slots(xi, xq, nrm, wphi, keep)
+        inc = (tables.inc_slot, tables.inc_mask)
         gather_ms = cuda_ms(
-            lambda: (assemble.gather_reduce(V, tables), assemble.gather_reduce(K, tables)), reps=3
+            lambda: (slot_kernel.gather_reduce(V, *inc), slot_kernel.gather_reduce(K, *inc)), reps=3
         )
         del V, K
-        bulk_ms = cuda_ms(lambda: assemble._panel_bulk(euler, sp, ids, tables), reps=2)
         nc, nq, nl = wphi.shape
         nt = sp.shape[0]
         bound_ms, bound_by = slots_bound(dtype, nt, nc, nq, nl)
@@ -681,8 +742,7 @@ def phase_slots_vs_plain(slot_kernel, device):
             f"{len(blocks)} row blocks of {T}: kernel {ms:.3f} ms ({nt * nc * nq / (ms * 1e-3):.4e} "
             f"evaluations/s, {2 * 9 * nc * nl * nt * torch.finfo(dtype).bits / 8 / (ms * 1e-3) / 1e12:.3f} TB/s stored), "
             f"plain {t_plain:.3f} ms, bound {bound_ms:.3f} ms by {bound_by}, max abs err {abs_err:.3e}; "
-            f"gather-reduce of one {T}-row block (V and K) {gather_ms:.3f} ms; "
-            f"the whole gather bulk (kernel, gather-reduce, relayout) {bulk_ms:.3f} ms"
+            f"gather-reduce of one {T}-row block (V and K) {gather_ms:.3f} ms"
         )
         records[dtype] = dict(
             max_abs_err=abs_err,
@@ -693,7 +753,6 @@ def phase_slots_vs_plain(slot_kernel, device):
             # no one PyTorch call computes the slot tensors
             library_ms=None,
             gather_block_ms=gather_ms,
-            bulk_ms=bulk_ms,
         )
         del blocks
         torch.cuda.empty_cache()
@@ -707,12 +766,201 @@ def phase_slots_vs_plain(slot_kernel, device):
     del Vg, Kg, Vn, Kn
     torch.cuda.empty_cache()
     log(
-        f"assemble_V_K create_sphere({REFINEMENTS}) f64 on the card, gather against node mode: "
+        f"assemble_V_K create_sphere({REFINEMENTS}) f64 on the card, gather (tile_nodes) against node mode: "
         f"V {err_v:.3e} K {err_k:.3e} of max (tol 1e-10)"
     )
     if not (err_v <= 1e-10 and err_k <= 1e-10):
         raise AssertionError("the gather assembly disagrees with node mode on the card")
     return records[torch.float64]
+
+
+def phase_nodes_vs_plain(slot_kernel, node_kernel, device, counts):
+    """K6's node-column entry point `tile_nodes` against its plain version;
+    returns the record of all rows of create_sphere(5), f64 (with the f32
+    time and bound), timed beside the old route, K1's node bulk and the
+    relayout in the same call."""
+    from bemstokes_tpu_torch.ops import assemble
+
+    cases = [
+        ("sphere3_Q1", 3, 1, False),
+        ("sphere3_Q2", 3, 2, False),
+        (f"sphere{REFINEMENTS}_Q1_block", REFINEMENTS, 1, True),
+    ]
+    V64 = K64 = None
+    for dtype in (torch.float64, torch.float32):
+        tol = TOL_SLOTS[dtype]
+        for name, refinements, degree, main_shape in cases:
+            tables, euler, sp, xq, nrm, wphi = slot_case(refinements, degree, dtype, device)
+            groups = slot_kernel.node_groups(tables)
+            # one row block as `_panel_bulk` cuts them on the card (f64 rows
+            # at both types, so that f32 can be held against the f64 kernel)
+            T = assemble.node_block_rows(with_cfg(tables, dtype=torch.float64)) if main_shape else sp.shape[0]
+            xi = sp[:T].contiguous()
+            ids = torch.arange(xi.shape[0], device=device)
+            V, K = slot_kernel.tile_nodes(xi, xq, nrm, wphi, ids, groups)
+            V2, K2 = slot_kernel.tile_nodes(xi, xq, nrm, wphi, ids, groups)
+            torch.cuda.synchronize()
+            if not (torch.equal(V, V2) and torch.equal(K, K2)):
+                raise AssertionError(f"tile_nodes {name}: two calls gave different bits")
+            del V2, K2
+            Vr, Kr = slot_kernel.tile_nodes_reference(xi, xq, nrm, wphi, ids, groups)
+            rel_v, rel_k = rel(V, Vr), rel(K, Kr)
+            finite = bool(torch.isfinite(V).all() and torch.isfinite(K).all())
+            far = ""
+            if main_shape and dtype == torch.float64:
+                V64, K64 = V, K
+            elif main_shape:
+                far = (
+                    f"; against the f64 kernel: kernel V {rel(V, V64):.3e} K {rel(K, K64):.3e}, "
+                    f"plain V {rel(Vr, V64):.3e} K {rel(Kr, K64):.3e}"
+                )
+                V64 = K64 = None
+            nc, nq, nl = wphi.shape
+            log(
+                f"tile_nodes (K6) {name} {str(dtype)[6:]} rows={xi.shape[0]} nodes={groups.n_nodes} panels={nc} "
+                f"nq={nq} nl={nl}, {groups.n_groups} groups of <= {groups.group_max} nodes, panels evaluated per "
+                f"panel {groups.redundancy:.3f}: rel err V {rel_v:.3e} K {rel_k:.3e} (tol {tol:.0e}), "
+                f"same bits twice{far}"
+            )
+            if not (finite and rel_v <= tol and rel_k <= tol):
+                raise AssertionError(f"tile_nodes disagrees with its plain version on {name} {dtype}")
+            del V, K, Vr, Kr
+            torch.cuda.empty_cache()
+
+    records = {}
+    for dtype in (torch.float64, torch.float32):
+        tables, euler, sp, xq, nrm, wphi = slot_case(REFINEMENTS, 1, dtype, device)
+        groups = slot_kernel.node_groups(tables)
+        nt, (nc, nq, nl), n = sp.shape[0], wphi.shape, groups.n_nodes
+        ids = torch.arange(nt, device=device)
+        T = assemble.node_block_rows(tables)
+        blocks = [(sp[t0 : t0 + T].contiguous(), ids[t0 : t0 + T]) for t0 in range(0, nt, T)]
+
+        def all_blocks():
+            return [slot_kernel.tile_nodes(xi, xq, nrm, wphi, b, groups) for xi, b in blocks]
+
+        ms = cuda_ms(all_blocks, reps=5)
+        clock = clock_under_load(all_blocks)
+        instructions, floor_ms = pipe_floor(
+            counts["tile_nodes", dtype], dtype, nt, groups.union_panels, nq, sm_clock_mhz(clock)
+        )
+        # the plain version over the same blocks (the main path's), one run:
+        # the largest difference over all blocks, held against TOL_SLOTS
+        # relative to the largest entry
+        t_plain = 0.0
+        err, top = {"V": 0.0, "K": 0.0}, {"V": 0.0, "K": 0.0}
+        for xi, b in blocks:
+            V, K = slot_kernel.tile_nodes(xi, xq, nrm, wphi, b, groups)
+            (Vr, Kr), t = event_ms(lambda: slot_kernel.tile_nodes_reference(xi, xq, nrm, wphi, b, groups))
+            t_plain += t
+            for key, A, B in (("V", V, Vr), ("K", K, Kr)):
+                if not bool(torch.isfinite(A).all()):
+                    raise AssertionError(f"tile_nodes sphere{REFINEMENTS} {dtype}: non-finite node columns")
+                err[key] = max(err[key], (A - B).abs().max().item())
+                top[key] = max(top[key], B.abs().max().item())
+            del V, K, Vr, Kr
+        torch.cuda.empty_cache()
+        abs_err = max(err.values())
+        bulk_rel = {key: err[key] / top[key] for key in err}
+        if max(bulk_rel.values()) > TOL_SLOTS[dtype]:
+            raise AssertionError(
+                f"tile_nodes disagrees with its plain version over the sphere{REFINEMENTS} bulk {dtype}: "
+                f"rel err V {bulk_rel['V']:.3e} K {bulk_rel['K']:.3e} (tol {TOL_SLOTS[dtype]:.0e})"
+            )
+        # the old route: the slot tensors of `tile_slots`, then the gather-reduce
+        Ts = assemble.slot_block_rows(tables)
+        slot_blocks = [
+            (sp[t0 : t0 + Ts].contiguous(), slot_kernel.own_cell_keep(groups.cells_fe, ids[t0 : t0 + Ts], sp))
+            for t0 in range(0, nt, Ts)
+        ]
+
+        def old_route():
+            for xi, keep in slot_blocks:
+                Vs, Ks = slot_kernel.tile_slots(xi, xq, nrm, wphi, keep)
+                slot_kernel.gather_reduce(Vs, groups.inc_slot, groups.inc_mask)
+                slot_kernel.gather_reduce(Ks, groups.inc_slot, groups.inc_mask)
+                del Vs, Ks
+
+        old_ms = cuda_ms(old_route, reps=2)
+        del slot_blocks
+        torch.cuda.empty_cache()
+        # K1's node bulk: the column sample tables and the sweep
+        node_tables = with_cfg(tables, column_mode="node")
+        node_inputs_ms = cuda_ms(lambda: assemble.node_sweep_inputs(euler, sp, node_tables), reps=3)
+        args = assemble.node_sweep_inputs(euler, sp, node_tables)
+        k1_ms = cuda_ms(lambda: node_kernel.node_sweep(*args), reps=3)
+        del args
+        # the relayout of the node columns [n, 9, T] into the dense operators
+        columns = all_blocks()
+        dense = torch.empty((3, nt, 3, n), dtype=dtype, device=device)
+
+        def relayout():
+            for k, pair in enumerate(columns):
+                for Mt in pair:
+                    dense[:, k * T : (k + 1) * T] = Mt.reshape(n, 3, 3, -1).permute(1, 3, 2, 0)
+
+        relayout_ms = cuda_ms(relayout, reps=3)
+        del columns, dense
+        torch.cuda.empty_cache()
+        bulk_ms = cuda_ms(lambda: assemble._panel_bulk(euler, sp, ids, tables), reps=2)
+        # own-cell pairs of these rows: each row's node's valence
+        valence = np.bincount(groups.cells_fe.reshape(-1), minlength=n)
+        own = int(valence[ids.cpu().numpy()].sum())
+        bound_ms, bound_by = nodes_bound(dtype, nt, nc, nq, nl, n, own)
+        # a block's shared memory (csrc/tile_slots.cu `node_smem`): the
+        # accumulators [group][12][32 rows], two stages of a panel a warp,
+        # the group's round tables
+        item = torch.finfo(dtype).bits // 8
+        warps = slot_kernel.NODE_GROUP_WARPS
+        smem = (
+            groups.group_max * 12 * 32 * item
+            + 2 * warps * nq * (6 + nl) * item
+            + groups.round_max * warps * (1 + 2 * nl) * 4
+        )
+        log(
+            f"tile_nodes (K6) sphere{REFINEMENTS} {str(dtype)[6:]} rows={nt} nodes={n} panels={nc} nq={nq} "
+            f"nl={nl}, {len(blocks)} row blocks of {T}, {groups.n_groups} groups, panels evaluated per panel "
+            f"{groups.redundancy:.4f}, rounds {groups.round_fill:.3f} full, {smem} B of shared memory a block: "
+            f"kernel {ms:.3f} ms, plain {t_plain:.3f} ms, bound {bound_ms:.3f} ms by {bound_by}, "
+            f"{instructions:.2f} {'FP64' if dtype == torch.float64 else 'FP32'} instructions a (row, panel "
+            f"point), pipe floor {floor_ms:.3f} ms, max abs err {abs_err:.3e}, rel err V {bulk_rel['V']:.3e} "
+            f"K {bulk_rel['K']:.3e} (tol {TOL_SLOTS[dtype]:.0e}); SM clock, its maximum and power "
+            f"under this load: {clock}; in the same call: old route (tile_slots and the gather-reduce) "
+            f"{old_ms:.3f} ms, K1's node bulk {k1_ms:.3f} ms (its column sample tables {node_inputs_ms:.3f} ms), "
+            f"relayout of the node columns into the dense V and K {relayout_ms:.3f} ms, "
+            f"the whole gather bulk (_panel_bulk) {bulk_ms:.3f} ms"
+        )
+        records[dtype] = dict(
+            max_abs_err=abs_err,
+            ms=ms,
+            plain_ms=t_plain,
+            bound_ms=bound_ms,
+            bound_by=bound_by,
+            # no one PyTorch call computes the node columns
+            library_ms=None,
+            fp64_instructions=instructions,
+            pipe_floor_ms=floor_ms,
+            sm_clock=clock,
+            pairs=nt * nc,
+            panels_evaluated_per_panel=groups.redundancy,
+            old_route_ms=old_ms,
+            node_bulk_k1_ms=k1_ms,
+            relayout_ms=relayout_ms,
+            gather_bulk_ms=bulk_ms,
+        )
+        del blocks
+        torch.cuda.empty_cache()
+    record = records[torch.float64]
+    f32 = records[torch.float32]
+    record.update(
+        ms_f32=f32["ms"],
+        bound_ms_f32=f32["bound_ms"],
+        fp32_instructions=f32["fp64_instructions"],
+        old_route_ms_f32=f32["old_route_ms"],
+        node_bulk_k1_ms_f32=f32["node_bulk_k1_ms"],
+        gather_bulk_ms_f32=f32["gather_bulk_ms"],
+    )
+    return record
 
 
 def with_cfg(tables, **changes):
@@ -1565,9 +1813,24 @@ def own_node_errors(device):
     return out
 
 
+def counting(module, name, calls):
+    """Replace module.name by a wrapper that counts its calls in calls[name];
+    returns the original."""
+    inner = getattr(module, name)
+
+    def counted(*args, **kwargs):
+        calls[name] += 1
+        return inner(*args, **kwargs)
+
+    setattr(module, name, counted)
+    return inner
+
+
 def phase_gather_path(node_kernel, slot_kernel, device, node_forces):
-    """This slice's path at full width: gather-mode frames (K6), one frame
-    through K4 and one f32 gather frame; returns the launches of K6 and K4."""
+    """This slice's path at full width: gather-mode frames (K6's
+    `tile_nodes`), one frame through K4 and one f32 gather frame; returns
+    the launches of `tile_slots` and of `tile_nodes` on the gather frames,
+    and the (row, panel) pairs those `tile_nodes` launches covered per type."""
     from bemstokes_tpu_torch.config import ProblemConfig, SolverConfig
 
     base = dict(grid_type="ImposedVelocity", imposed_component=0)
@@ -1575,15 +1838,22 @@ def phase_gather_path(node_kernel, slot_kernel, device, node_forces):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(node_kernel, slot_kernel)
-    unknowns, recs = solve_frames(device, ProblemConfig(assembly_backend="gather", **base), 3)
+    # the plain-torch gather-reduce must not run on the card's gather path
+    calls = {"gather_reduce": 0}
+    inner = counting(slot_kernel, "gather_reduce", calls)
+    try:
+        unknowns, recs = solve_frames(device, ProblemConfig(assembly_backend="gather", **base), 3)
+    finally:
+        slot_kernel.gather_reduce = inner
     launches = dict(slot_kernel.launches)
+    pairs = dict(slot_kernel.pairs)
     others = dict(node_kernel.launches)
     diffs = [
         float(np.abs(r["stokes_forces"] - f).max() / np.abs(f).max()) for r, f in zip(recs, node_forces)
     ]
     log(
-        f"gather path f64: K6 launches {launches}, node-sweep launches {others}, forces against the "
-        f"node-mode frames {diffs} (tol 1e-8), "
+        f"gather path f64: K6 launches {launches}, plain gather-reduce calls {calls['gather_reduce']}, "
+        f"node-sweep launches {others}, forces against the node-mode frames {diffs} (tol 1e-8), "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
     )
     if unknowns != 3 * (6 * 4**REFINEMENTS + 2) + 6:
@@ -1593,8 +1863,8 @@ def phase_gather_path(node_kernel, slot_kernel, device, node_forces):
     for r, d in zip(recs, diffs):
         if not (r["converged"] and r["finite"] and r["drag_rel_err"] <= DRAG_TOL and d <= 1e-8):
             raise AssertionError(f"gather frame {r['frame']} failed: drag {r['drag_rel_err']}, diff {d}")
-    if launches["tile_slots"] < 3 or any(others.values()):
-        raise AssertionError(f"gather path: unexpected launches {launches} {others}")
+    if launches["tile_nodes"] < 3 or launches["tile_slots"] or calls["gather_reduce"] or any(others.values()):
+        raise AssertionError(f"gather path: unexpected launches {launches} {others} or calls {calls}")
 
     # one frame with the node sweep stored component-major (K4)
     zero_counts(node_kernel, slot_kernel)
@@ -1611,15 +1881,22 @@ def phase_gather_path(node_kernel, slot_kernel, device, node_forces):
     cfg32 = ProblemConfig(
         dtype="float32", solver=SolverConfig(tolerance=1e-5), assembly_backend="gather", **base
     )
+    zero_counts(slot_kernel)
     _, (rec32,) = solve_frames(device, cfg32, 1)
+    launches32 = dict(slot_kernel.launches)
+    log(f"f32 gather frame: K6 launches {launches32}")
     if not (rec32["converged"] and rec32["finite"] and rec32["drag_rel_err"] <= DRAG_TOL):
         raise AssertionError(f"f32 gather frame failed: {rec32['drag_rel_err']}")
+    if launches32["tile_nodes"] < 1 or launches32["tile_slots"]:
+        raise AssertionError(f"f32 gather frame: unexpected launches {launches32}")
+    launches["tile_nodes"] += launches32["tile_nodes"]
+    pairs["f32"] += slot_kernel.pairs["f32"]
     errors = own_node_errors(device)
     # own-cell pairs are masked in the gather bulk: no entry is a sum of
     # large cancelling terms there (node mode's own-node entries are ~1e-2)
     if not errors["gather", "bulk"][0] <= 1e-3:
         raise AssertionError("the f32 gather bulk of K is further from f64 than 1e-3 of max|K|")
-    return launches["tile_slots"]
+    return launches["tile_slots"], launches["tile_nodes"], pairs
 
 
 def write_msh(path, vertices, cells):
@@ -1722,6 +1999,25 @@ def node_sweep_entry(key, kernel, record):
     )
 
 
+def nodes_entry(launches, pairs, record):
+    """The kernels-line entry of `tile_nodes`: its launches on the gather
+    frames, what they were worth in whole create_sphere(5) bulks per type,
+    and those bulks times each type's gap between its time and its bound
+    (ms): the time the launches lost to the bound."""
+    bulks = {s: pairs[s] / record["pairs"] for s in ("f64", "f32")}
+    lost = bulks["f64"] * (record["ms"] - record["bound_ms"]) + bulks["f32"] * (
+        record["ms_f32"] - record["bound_ms_f32"]
+    )
+    return dict(
+        route="cuda",
+        launches=launches,
+        bulk_equivalent_launches=bulks,
+        ms_lost_to_bound=lost,
+        **NODES_KERNEL,
+        **record,
+    )
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1751,8 +2047,11 @@ def main():
     matvec_launches["free_space"] = phase(phase_capacity, matfree_node, node_kernel, device)
     planes_record = phase(phase_planes_vs_plain, node_kernel, device, counts)
     slots_record = phase(phase_slots_vs_plain, slot_kernel, device)
+    nodes_record = phase(phase_nodes_vs_plain, slot_kernel, node_kernel, device, counts)
     phase(phase_gather_small, device)
-    slots_launches = phase(phase_gather_path, node_kernel, slot_kernel, device, node_forces)
+    slots_launches, nodes_launches, nodes_pairs = phase(
+        phase_gather_path, node_kernel, slot_kernel, device, node_forces
+    )
     phase(phase_command_line)
     kernels = [
         node_sweep_entry(kernel, KERNELS[kernel], records[kernel]) for kernel in KERNELS
@@ -1768,6 +2067,7 @@ def main():
     ] + [
         node_sweep_entry("planes", PLANES_KERNEL, planes_record),
         dict(route="cuda", launches=slots_launches, **SLOT_KERNEL, **slots_record),
+        nodes_entry(nodes_launches, nodes_pairs, nodes_record),
     ]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(card_line())

@@ -22,8 +22,10 @@ factors, the Schur tail, GMRES and the finish, with the K5 sweeps inside the
 setup and GMRES also summed on their own; `--refinements 6` is the
 73,740-unknown shape that no materialized path holds on one card.  With
 `--column-mode gather` (or `scatter`) the assembly takes the panel-centric
-bulk and the stages name it whole and, within it, the slot kernel K6 (plain
-torch beside a wall), the incidence gather-reduce and its inputs;
+bulk and the stages name it whole and, within it, the slot kernel K6
+(`tile_nodes`, which sums into the node columns itself, in free-space
+gather mode; plain slot tensors beside a wall and in scatter mode), the
+incidence gather-reduce of the plain slots and the inputs;
 `node_planes` runs the node sweep through K4 (free space only).  Prints the
 card's name and power limit first.
 """
@@ -126,11 +128,11 @@ def main():
     if args.column_mode in ("gather", "scatter"):
         nested |= {"slot kernel (K6, or plain torch)", "incidence gather-reduce", "slot inputs and keep masks"}
         asm._panel_bulk = timed(stages, "panel-centric bulk, whole", asm._panel_bulk)
-        asm.tile_slots = timed(stages, "slot kernel (K6, or plain torch)", asm.tile_slots)
+        asm.tile_nodes = timed(stages, "slot kernel (K6, or plain torch)", asm.tile_nodes)
         asm.tile_slots_reference = timed(stages, "slot kernel (K6, or plain torch)", asm.tile_slots_reference)
-        asm.gather_reduce = timed(stages, "incidence gather-reduce", asm.gather_reduce)
+        asm.slot_kernel.gather_reduce = timed(stages, "incidence gather-reduce", asm.slot_kernel.gather_reduce)
         asm.slot_inputs = timed(stages, "slot inputs and keep masks", asm.slot_inputs)
-        asm.own_cell_keep = timed(stages, "slot inputs and keep masks", asm.own_cell_keep)
+        asm.slot_kernel.own_cell_keep = timed(stages, "slot inputs and keep masks", asm.slot_kernel.own_cell_keep)
     asm.node_sweep = timed(stages, "node sweep kernel", asm.node_sweep)
     asm.node_sweep_inputs = timed(stages, "column sample tables", asm.node_sweep_inputs)
     asm._add_singular_rows = timed(stages, "singular delta", asm._add_singular_rows)

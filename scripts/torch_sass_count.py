@@ -28,8 +28,9 @@ Needs a CUDA card's host with the CUDA toolkit (nvcc, cuobjdump or nvdisasm).
    mirror, and is inferred from the kernel's name when not given; a node
    sweep's loop holds several rows a sample, so its count is per (row,
    sample) interaction as K5's is).
-3. With `--time` (any source with the C interface of K5 or of the node
-   sweeps, so an older copy of a file can be timed beside the present one):
+3. With `--time` (any source with the C interface of K5, of the node
+   sweeps or of `tile_nodes`, so an older or edited copy of a file can be
+   timed beside the present one):
    builds the same source with the same defines to a shared library and
    times it with CUDA events while sampling `nvidia-smi`'s SM clock:
    - `sweep_matvec.cu` (K5): `sweep_matvec` at create_sphere(5) and
@@ -41,6 +42,11 @@ Needs a CUDA card's host with the CUDA toolkit (nvcc, cuobjdump or nvdisasm).
      create_sphere(5) (6,146 x 6,146 x 64 interactions) per kernel and type,
      through the unchanged C entry points (`--refinements` above 5 are
      skipped: their dense operators do not fit on one card);
+   - `tile_slots.cu` (K6): its node-column entry point `tile_nodes` over
+     all rows of create_sphere(5) (Q1), in the gather assembly's row blocks
+     (`ops/assemble.py:node_block_rows`) with the kernel's node groups
+     (`ops/slot_kernel.py:node_groups`), its interactions counted as
+     (row, point) pairs of the panels it evaluates (each group's union);
    and prints
 
        pipe floor = instructions per interaction x interactions
@@ -63,7 +69,6 @@ Needs a CUDA card's host with the CUDA toolkit (nvcc, cuobjdump or nvdisasm).
 Every line of the result is also written to <out>/<label>.json (`--out`,
 by default sass_counts/ at the root of the repository; the disassembly goes
 beside it with `--keep-sass`).
-Other kernels' sources (tile_slots.cu) take steps 1 and 2 as they are.
 """
 
 import argparse
@@ -576,6 +581,65 @@ def time_node_sweeps(lib, rows, args, emit):
         sampler.stop()
 
 
+def time_tile_nodes(lib, rows, args, emit):
+    """K6's `tile_nodes` (tile_slots.cu) over all rows of create_sphere(5),
+    in the gather assembly's row blocks, through the source's C entry
+    point."""
+    import torch
+
+    from bemstokes_tpu_torch.fem.geometry import euler_from_mesh, support_points
+    from bemstokes_tpu_torch.mesh import build_scalar_space, create_sphere
+    from bemstokes_tpu_torch.ops import slot_kernel
+    from bemstokes_tpu_torch.ops.assemble import AssemblyConfig, build_assembly_tables, node_block_rows, slot_inputs
+
+    device = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slot_kernel._declare(lib)
+    sampler = ClockSampler()
+    try:
+        for refinements in [r for r in args.refinements if r <= 5]:
+            mesh = create_sphere(refinements=refinements)
+            space = build_scalar_space(mesh, 1)
+            for dtype_name in args.dtypes:
+                dtype = getattr(torch, dtype_name)
+                tables = build_assembly_tables(space, space, AssemblyConfig(dtype=dtype, column_mode="gather"))
+                groups = slot_kernel.node_groups(tables)
+                euler = torch.as_tensor(euler_from_mesh(mesh.vertices, space), dtype=dtype, device=device)
+                sp = support_points(euler, space, space)
+                xq, nrm, wphi = slot_inputs(euler, tables)
+                nt, (nc, nq, nl) = sp.shape[0], wphi.shape
+                T = node_block_rows(tables)
+                ids = torch.arange(nt, dtype=torch.int32, device=device)
+                blocks = [(sp[t0 : t0 + T].contiguous(), ids[t0 : t0 + T]) for t0 in range(0, nt, T)]
+                V = torch.empty((groups.n_nodes, 9, T), dtype=dtype, device=device)
+                K = torch.empty_like(V)
+                fn = getattr(lib, f"tile_nodes_{'f64' if dtype == torch.float64 else 'f32'}")
+                tabs = [t.data_ptr() for t in groups.on(device)]
+                stream = torch.cuda.current_stream().cuda_stream
+
+                def call():
+                    for xi, b in blocks:
+                        rc = fn(xi.data_ptr(), xq.data_ptr(), nrm.data_ptr(), wphi.data_ptr(), b.data_ptr(),
+                                *tabs, V.data_ptr(), K.data_ptr(), xi.shape[0], nc, nq, nl, groups.n_groups,
+                                groups.group_max, groups.round_max, stream)
+                        if rc != 0:
+                            raise RuntimeError(f"tile_nodes did not launch: CUDA error {rc}")
+
+                ms, reps, clock = timed_ms(call, args.min_seconds, sampler)
+                inter = nt * groups.union_panels * nq
+                record = dict(timed=f"tile_nodes {dtype_name} rows={nt} panels={nc} blocks={len(blocks)}", ms=ms,
+                              reps=reps, interactions=inter, panels_evaluated_per_panel=groups.redundancy,
+                              clock=clock)
+                row = node_row(rows, dtype_name, ("tile_nodes_kernel", [4]))
+                if row is not None and clock is not None:
+                    record.update(pipe_floors(row, dtype_name, inter, clock, sms))
+                emit(record)
+                del V, K, blocks
+                torch.cuda.empty_cache()
+    finally:
+        sampler.stop()
+
+
 def time_sweeps(source, defines, rows, args, emit):
     import numpy as np
     import torch
@@ -588,6 +652,8 @@ def time_sweeps(source, defines, rows, args, emit):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     with tempfile.TemporaryDirectory() as tmp:
         lib = build_library(source, defines, Path(tmp) / "libsweep.so")
+        if hasattr(lib, "tile_nodes_f64"):
+            return time_tile_nodes(lib, rows, args, emit)
         if not hasattr(lib, "sweep_matvec_f64"):
             return time_node_sweeps(lib, rows, args, emit)
         matfree_node.declare(lib)

@@ -1,6 +1,7 @@
 """The arithmetic of the node-sweep kernels K1, K2, K3 and K4
-(`bemstokes_tpu_torch/csrc/node_sweep.cu`, `csrc/node_sweep_image.cu`) on the
-CPU, without a card.
+(`bemstokes_tpu_torch/csrc/node_sweep.cu`, `csrc/node_sweep_image.cu`) and of
+the slot kernel's node-column entry point `tile_nodes` (K6,
+`csrc/tile_slots.cu`) on the CPU, without a card.
 
 The CUDA sources are compiled with g++ against a stub `cuda_runtime.h`
 written by the test: `__global__` and the other qualifiers are empty,
@@ -10,18 +11,30 @@ written by the test: `__global__` and the other qualifiers are empty,
 f64 seed that `rsqrt_pos` starts from (`MUFU.RSQ64H`, upper word of x in,
 upper word of 1/sqrt(x) out) is `node_sweep_host_rsqrt_seed`, built with
 `-DNODE_SWEEP_HOST_EMULATION`.  Each `kernel<<<grid, block, ...>>>(args);` is
-rewritten into a loop over the grid's blocks, and the tiles are cut to one
-thread a block (`-DNODE_SWEEP_TJ=1 -DNODE_SWEEP_TI=1`), so that
-`__syncthreads()` is a no-op.  The libraries are loaded with ctypes through
-their C interface, the one the wrappers in `ops/node_kernel.py` call.
+rewritten into a loop over the grid's blocks.  The node sweeps' tiles are
+cut to one thread a block (`-DNODE_SWEEP_TJ=1 -DNODE_SWEEP_TI=1`), so that
+`__syncthreads()` is a no-op.  `tile_nodes` keeps its warps
+(`NODE_WARPS`, the panels of a round) with one row a warp
+(`-DTILE_NODES_ROWS=1`): its block of 1 x S lanes runs as S host threads,
+`__syncthreads()` a barrier between them, its dynamic shared memory a
+static buffer (`node_sweep_host_shared`), so the rounds of the group
+schedule are held as the card runs them.  The libraries are loaded with
+ctypes through their C interface, the one the wrappers in
+`ops/node_kernel.py` and `ops/slot_kernel.py` call.
 
-Held against `node_sweep_reference` in f64, relative to max|V| and max|K|
-(1e-13): K1 and K4 on create_sphere(1) and (2) with a row on a sample (the
-dummy offset of an exact r^2 = 0 pair), a ragged row count and a ragged
-sample count; K2 and K3 likewise for the wall normal along x, y and z.  K4
-must give K1's bits (`planes_to_dense`).  Each source is built twice: with
-its defaults (the f64 loops' samples a trip) and with the f32 loops' counts,
-so both forms of each loop are held.  Skips where no g++ is found.
+Held in f64, relative to max|V| and max|K| (1e-13): K1 and K4 against
+`node_sweep_reference` on create_sphere(1) and (2) with a row on a sample
+(the dummy offset of an exact r^2 = 0 pair), a ragged row count and a
+ragged sample count; K2 and K3 likewise for the wall normal along x, y and
+z.  K4 must give K1's bits (`planes_to_dense`).  Each node-sweep source is
+built twice: with its defaults (the f64 loops' samples a trip) and with the
+f32 loops' counts, so both forms of each loop are held.  `tile_nodes`
+against `tile_nodes_reference` (the gather-reduce of `tile_slots_reference`)
+on create_sphere(1) and (2), Q1 and Q2 panels (4 and 9 local nodes, passes
+of 4 and 3 that divide them) and Q4 on create_sphere(1) (25 local nodes: a
+last pass that is cut short), a ragged row count, rows on their own panels
+(masked) and rows out of order; two calls give the same bits.  Skips where
+no g++ is found.
 """
 
 import ctypes
@@ -35,8 +48,8 @@ import torch
 
 from bemstokes_tpu_torch.fem.geometry import euler_from_mesh, support_points
 from bemstokes_tpu_torch.mesh import build_scalar_space, create_sphere
-from bemstokes_tpu_torch.ops import node_kernel
-from bemstokes_tpu_torch.ops.assemble import AssemblyConfig, build_assembly_tables, node_sweep_inputs
+from bemstokes_tpu_torch.ops import node_kernel, slot_kernel
+from bemstokes_tpu_torch.ops.assemble import AssemblyConfig, build_assembly_tables, node_sweep_inputs, slot_inputs
 
 CSRC = Path(node_kernel.__file__).resolve().parent.parent / "csrc"
 WALL = -2.0
@@ -45,23 +58,56 @@ TOL = 1e-13
 STUB = r"""
 #pragma once
 #include <cmath>
+#include <condition_variable>
 #include <cstdint>
 #include <cstring>
+#include <mutex>
+#include <thread>
+#include <vector>
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __shared__ static
+#define __restrict__
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8, cudaFuncAttributePreferredSharedMemoryCarveout = 9 };
+enum cudaSharedCarveout { cudaSharedmemCarveoutMaxShared = 100 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+template <typename F> inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
-inline dim3 threadIdx(0, 0, 0), blockIdx(0, 0, 0), blockDim, gridDim;
-inline void __syncthreads() {}
+inline thread_local dim3 threadIdx(0, 0, 0);
+inline dim3 blockIdx(0, 0, 0), blockDim, gridDim;
+// the threads of one emulated block meet at __syncthreads()
+struct HostBarrier {
+  std::mutex m;
+  std::condition_variable cv;
+  unsigned n = 1, count = 0, phase = 0;
+  void wait() {
+    std::unique_lock<std::mutex> lk(m);
+    const unsigned ph = phase;
+    if (++count == n) {
+      count = 0;
+      ++phase;
+      cv.notify_all();
+    } else {
+      cv.wait(lk, [&] { return phase != ph; });
+    }
+  }
+};
+inline HostBarrier block_barrier;
+inline void __syncthreads() { if (block_barrier.n > 1) block_barrier.wait(); }
+inline void __syncwarp() {}
+// a block's dynamic shared memory (blocks run one after another)
+inline void* node_sweep_host_shared() {
+  static std::vector<double> buffer(1 << 20);
+  return buffer.data();
+}
 template <typename T> inline T __ldg(const T* p) { return *p; }
 using std::fma;
 using std::sqrt;
@@ -82,17 +128,33 @@ inline double node_sweep_host_rsqrt_seed(double x) {
   std::memcpy(&y, &b, 8);
   return y;
 }
-// one thread a block: a launch is a loop over the grid's blocks
+// a launch is a loop over the grid's blocks; a block of several threads
+// runs them as host threads
 template <typename F>
 inline void emulate_launch(dim3 grid, dim3 block, F body) {
   gridDim = grid;
   blockDim = block;
+  const unsigned threads = block.x * block.y * block.z;
+  block_barrier.n = threads;
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
       for (unsigned x = 0; x < grid.x; ++x) {
         blockIdx = dim3(x, y, z);
-        body();
+        if (threads == 1) {
+          body();
+          continue;
+        }
+        std::vector<std::thread> pool;
+        for (unsigned tz = 0; tz < block.z; ++tz)
+          for (unsigned ty = 0; ty < block.y; ++ty)
+            for (unsigned tx = 0; tx < block.x; ++tx)
+              pool.emplace_back([&body, tx, ty, tz] {
+                threadIdx = dim3(tx, ty, tz);
+                body();
+              });
+        for (auto& th : pool) th.join();
       }
+  block_barrier.n = 1;
 }
 """
 
@@ -116,33 +178,50 @@ def _host_source(text):
 BUILDS = {"f64_unroll": [], "f32_unroll": ["-DNODE_SWEEP_UNROLL_AS_F32=1"]}
 
 
+def _build(tmp, stem, defines):
+    """Start g++ on csrc/<stem>.cu with the launches rewritten; returns
+    (library path, process)."""
+    src = tmp / f"{stem}.cpp"
+    src.write_text(_host_source((CSRC / f"{stem}.cu").read_text()))
+    cmd = [
+        shutil.which("g++"), "-std=c++17", "-O2", "-fPIC", "-shared", "-pthread", "-ffp-contract=off",
+        "-DNODE_SWEEP_HOST_EMULATION", *defines,
+        f"-I{tmp}", f"-I{CSRC}", "-o", str(tmp / f"lib{stem}.so"), str(src),
+    ]
+    return tmp / f"lib{stem}.so", subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _load(stem, path, proc, declare):
+    _, err = proc.communicate()
+    assert proc.returncode == 0, f"g++ failed on {stem}.cu:\n{err}"
+    lib = ctypes.CDLL(str(path))
+    declare(lib)
+    return lib
+
+
+def _stub_dir(tmp_path_factory, name):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the kernel sources for the host")
+    tmp = tmp_path_factory.mktemp(name)
+    (tmp / "cuda_runtime.h").write_text(STUB)
+    return tmp
+
+
 @pytest.fixture(scope="module", params=list(BUILDS))
 def libs(request, tmp_path_factory):
     """{source stem: ctypes library} of the two node-sweep sources built with
     g++ (both compiles started together)."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the kernel sources for the host")
-    tmp = tmp_path_factory.mktemp("node_sweep_host")
-    (tmp / "cuda_runtime.h").write_text(STUB)
-    procs = {}
-    for stem in ("node_sweep", "node_sweep_image"):
-        src = tmp / f"{stem}.cpp"
-        src.write_text(_host_source((CSRC / f"{stem}.cu").read_text()))
-        cmd = [
-            gxx, "-std=c++17", "-O2", "-fPIC", "-shared", "-ffp-contract=off",
-            "-DNODE_SWEEP_HOST_EMULATION", "-DNODE_SWEEP_TJ=1", "-DNODE_SWEEP_TI=1", *BUILDS[request.param],
-            f"-I{tmp}", f"-I{CSRC}", "-o", str(tmp / f"lib{stem}.so"), str(src),
-        ]
-        procs[stem] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    out = {}
-    for stem, proc in procs.items():
-        _, err = proc.communicate()
-        assert proc.returncode == 0, f"g++ failed on {stem}.cu:\n{err}"
-        lib = ctypes.CDLL(str(tmp / f"lib{stem}.so"))
-        node_kernel.declare(lib)
-        out[stem] = lib
-    return out
+    tmp = _stub_dir(tmp_path_factory, "node_sweep_host")
+    defines = ["-DNODE_SWEEP_TJ=1", "-DNODE_SWEEP_TI=1", *BUILDS[request.param]]
+    started = {stem: _build(tmp, stem, defines) for stem in ("node_sweep", "node_sweep_image")}
+    return {stem: _load(stem, path, proc, node_kernel.declare) for stem, (path, proc) in started.items()}
+
+
+@pytest.fixture(scope="module")
+def slots_lib(tmp_path_factory):
+    """csrc/tile_slots.cu built with g++, one row a warp."""
+    tmp = _stub_dir(tmp_path_factory, "tile_slots_host")
+    return _load("tile_slots", *_build(tmp, "tile_slots", ["-DTILE_NODES_ROWS=1"]), slot_kernel._declare)
 
 
 def _sphere_inputs(refinements, rows, samples, wall_axis):
@@ -213,3 +292,57 @@ def test_image_sweep_rejects_unknown_kind_and_axis(libs):
     assert fn(*ptrs, nr, n, m, 3, 1, WALL, None) != 0
     assert fn(*ptrs, nr, n, m, 2, 3, WALL, None) != 0
 
+
+
+def _node_inputs(refinements, degree, rows, size=slot_kernel.NODE_GROUP_SIZE):
+    """(xi, xq, nrm, wphi, row_ids, groups) of the gather assembly on
+    create_sphere(refinements) with Q`degree` panels, f64, nodes in groups
+    of `size`: `rows` rows, each the support point of its node (so every
+    row lies on its own panels), taken in a shuffled order."""
+    mesh = create_sphere(refinements=refinements)
+    space = build_scalar_space(mesh, degree)
+    tables = build_assembly_tables(space, space, AssemblyConfig(dtype=torch.float64, column_mode="gather"))
+    euler = torch.as_tensor(euler_from_mesh(mesh.vertices, space), dtype=torch.float64)
+    sp = support_points(euler, space, space)
+    ids = torch.randperm(tables.n_nodes, generator=torch.Generator().manual_seed(rows))[:rows]
+    groups = slot_kernel.build_node_groups(
+        tables.cells_nodes_fe, tables.n_nodes, tables.inc_slot, tables.inc_mask, size
+    )
+    return (sp[ids].contiguous(), *slot_inputs(euler, tables), ids, groups)
+
+
+def _call_nodes(fn, xi, xq, nrm, wphi, ids, groups):
+    nt, (nc, nq, nl) = xi.shape[0], wphi.shape
+    V = torch.full((groups.n_nodes, 9, nt), float("nan"), dtype=torch.float64)
+    K = torch.full_like(V, float("nan"))
+    ids32 = ids.to(torch.int32)
+    tables = [torch.as_tensor(a, dtype=torch.int32).contiguous() for a in (
+        groups.cells_fe, groups.node_ptr, groups.nodes, groups.round_ptr, groups.round_panel, groups.round_place)]
+    rc = fn(xi.data_ptr(), xq.data_ptr(), nrm.data_ptr(), wphi.data_ptr(), ids32.data_ptr(),
+            *(t.data_ptr() for t in tables), V.data_ptr(), K.data_ptr(), nt, nc, nq, nl,
+            groups.n_groups, groups.group_max, groups.round_max, None)
+    assert rc == 0
+    return V, K
+
+
+@pytest.mark.parametrize(
+    "refinements,degree,rows,size", [(1, 1, 26, 8), (1, 2, 61, 16), (2, 1, 37, 32), (2, 2, 101, 32), (1, 4, 53, 32)]
+)
+def test_tile_nodes_matches_plain_version(slots_lib, refinements, degree, rows, size):
+    args = _node_inputs(refinements, degree, rows, size)
+    V, K = _call_nodes(slots_lib.tile_nodes_f64, *args)
+    Vr, Kr = slot_kernel.tile_nodes_reference(*args)
+    assert args[-1].round_panel.shape[1] > 1 and args[-1].n_groups > 1
+    assert _rel(V, Vr) <= TOL and _rel(K, Kr) <= TOL
+    V2, K2 = _call_nodes(slots_lib.tile_nodes_f64, *args)
+    assert torch.equal(V, V2) and torch.equal(K, K2)
+
+
+def test_tile_nodes_round_width_is_the_source_warps():
+    """A round of the host's schedule holds as many panels as the kernel's
+    block has warps (csrc/tile_slots.cu NODE_WARPS)."""
+    text = (CSRC / "tile_slots.cu").read_text()
+    warps = int(re.search(r"constexpr int NODE_WARPS = (\d+);", text).group(1))
+    groups = _node_inputs(1, 1, 5)[-1]
+    assert warps == slot_kernel.NODE_GROUP_WARPS == groups.round_panel.shape[1]
+    assert groups.round_place.shape[1:] == (warps, 4)

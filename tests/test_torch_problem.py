@@ -198,6 +198,20 @@ def test_unported_solve_branches_raise(change):
         pt.solve_frame(pt.initial_euler(), torch.zeros(3 * pt.n, dtype=torch.float64))
 
 
+def test_print_matrices_names_what_it_waits_for():
+    """`print_matrices` waits for nothing but its own port, queued beside
+    `la/preconditioners.py`; the message says so."""
+    cfg = from_dict(dataclasses.asdict(ProblemConfig(print_matrices=True)))
+    pt = ProblemT(fac_t.create_sphere(refinements=1), cfg, device="cpu")
+    with pytest.raises(NotImplementedError) as err:
+        pt.solve_frame(pt.initial_euler(), torch.zeros(3 * pt.n, dtype=torch.float64))
+    message = str(err.value)
+    assert message == (
+        "print_matrices is not ported yet (ROADMAP.md: queue 1 item 2, with la/preconditioners.py)"
+    )
+    assert "postprocess.py" not in message and "cli.py" not in message
+
+
 @pytest.mark.parametrize(
     "change", [dict(mixed_precision_bulk=True), dict(dim=2)], ids=["mixed_bulk", "dim2"]
 )

@@ -129,7 +129,7 @@ def test_plain_version_matches_gathered_pair_blocks(kernel):
     sp = support_points(euler, space, space)
     rows = torch.tensor([0, 7, 19])
     xq, nrm, wphi = assemble.slot_inputs(euler, tables)
-    keep = assemble.own_cell_keep(tables, rows, sp)
+    keep = slot_kernel.own_cell_keep(tables.cells_nodes_fe, rows, sp)
     V, K = slot_kernel.tile_slots_reference(
         sp[rows], xq, nrm, wphi, keep, kernel=kernel, wall_axis=1, wall_position=-2.0
     )
@@ -181,7 +181,7 @@ def _sphere_inputs(dtype, device, degree, refinements=3):
     euler = torch.as_tensor(euler_from_mesh(mesh.vertices, space), dtype=dtype, device=device)
     sp = support_points(euler, space, space)
     xi = sp[: assemble.slot_block_rows(tables)].contiguous()
-    keep = assemble.own_cell_keep(tables, torch.arange(xi.shape[0], device=device), xi)
+    keep = slot_kernel.own_cell_keep(tables.cells_nodes_fe, torch.arange(xi.shape[0], device=device), xi)
     return (xi, *assemble.slot_inputs(euler, tables), keep)
 
 
