@@ -6,17 +6,20 @@ Usage:
     python -m bemstokes_tpu_torch run   [-p params.{json,prm}] [start [end]] [-o DIR] [--device cuda|cpu]
     python -m bemstokes_tpu_torch compose [-p params] start end [-o DIR]   # offline re-aggregation
     python -m bemstokes_tpu_torch params [-p out.json] [--dim 2|3]         # write a template
+    python -m bemstokes_tpu_torch convergence [-p params] [--cycles N] [--source x y z]
                                                         # (reference main.cc:34-37
                                                         # auto-generates a prm)
 
 Like the reference, `run` executes the frame loop start..end and writes
 per-frame VTU + checkpoint state to the output directory; `compose` re-reads
 those dumps and aggregates composed motion (reference `composer`,
-`source/bem_stokes.cc:5951-6046`).
+`source/bem_stokes.cc:5951-6046`); `convergence` refines the frame-0 mesh
+`--cycles` times and prints the fundamental-solution recovery error per
+cycle (`convergence.py`).
 
-The frame solves run on the CUDA card; `--device cpu` asks for the plain
-torch versions on the CPU, and without a card and without that option the
-command fails.  The JAX command line's `--platform` is this `--device`.  Its
+The frame solves and the convergence study run on the CUDA card; `--device
+cpu` asks for the plain torch versions on the CPU, and without a card and
+without that option the command fails.  The JAX command line's `--platform` is this `--device`.  Its
 persistent compilation cache, `--profile` (a `jax.profiler` trace) and
 multi-host start-up have no counterpart here: torch runs eagerly, the
 per-phase timers print at the end of a run, and the port has no distributed
@@ -64,7 +67,7 @@ def _build_parser():
     conv = sub.add_parser(
         "convergence",
         help="fundamental-solution convergence study over n_cycles "
-        "refinements (reference V_test_with_Green family); not ported yet",
+        "refinements (reference V_test_with_Green family)",
     )
     common(conv)
     conv.add_argument("--cycles", type=int, default=None, help="override n_cycles")
@@ -84,12 +87,6 @@ def main(argv=None):
         print(f"wrote template parameters to {args.params}")
         return 0
 
-    if args.command == "convergence":
-        raise NotImplementedError(
-            "the convergence study is not ported yet (ROADMAP.md: convergence.py, "
-            "module 6)"
-        )
-
     if args.params:
         cfg = load_config(args.params, dim=args.dim)
         cfg.dim = args.dim
@@ -102,11 +99,40 @@ def main(argv=None):
         save_config(cfg, path)
         print(f"no parameter file given; wrote defaults to {path}", file=sys.stderr)
 
-    from .swimmer import SwimmerSimulation
-
     # "cuda" is the entry points' default device (None): it raises without a
     # card and never carries on on the CPU by itself
     device = "cpu" if args.device == "cpu" else None
+
+    if args.command == "convergence":
+        from .convergence import convergence_study, format_table
+        from .mesh import read_mesh
+        from .problem import _resolve_manifold
+
+        mesh = read_mesh(
+            f"{cfg.input_grid_path}{cfg.input_grid_base_name}0.{cfg.input_grid_format}",
+            dim=cfg.dim,
+            force_material=0,
+        )
+        source = tuple(args.source) if args.source else (
+            (0.3, 0.3, 0.3) if cfg.dim == 3 else (0.1, 0.2)
+        )
+        rows = convergence_study(
+            mesh,
+            cfg.dim,
+            source,
+            n_cycles=args.cycles or cfg.n_cycles,
+            manifold=_resolve_manifold(cfg),
+            fe_degree=cfg.fe_degree,
+            map_degree=cfg.map_degree,
+            quad_order=cfg.quadrature.order,
+            sing_order=cfg.quadrature.singular_order,
+            device=device,
+        )
+        print(format_table(rows))
+        return 0
+
+    from .swimmer import SwimmerSimulation
+
     sim = SwimmerSimulation(cfg, output_dir=args.output_dir, device=device)
     if args.command == "run":
         end = args.end_frame if args.end_frame is not None else cfg.n_frames

@@ -1,4 +1,4 @@
-from .stokeslet import stokeslet_G, stresslet_W, contract_normal, stokeslet_G_Wn
+from .stokeslet import stokeslet_G, stresslet_W, hypersingular_L, contract_normal, stokeslet_G_Wn
 from .helpers import impose_G_as_velocity, impose_G_as_trace
 from .images import (
     image_point,
@@ -14,6 +14,7 @@ from .images import (
 __all__ = [
     "stokeslet_G",
     "stresslet_W",
+    "hypersingular_L",
     "contract_normal",
     "stokeslet_G_Wn",
     "impose_G_as_velocity",

@@ -83,6 +83,35 @@ def contract_normal(W: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...ijk,...k->...ij", W, n)
 
 
+def hypersingular_L(p: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """Hypersingular 4-tensor (reference `value_tens3`,
+    `source/kernel.cc:189-228`; flagged experimental there). p[..., dim] ->
+    L[..., dim, dim, dim, dim]."""
+    dim = p.shape[-1]
+    R = _norm(p, eps)
+    eye = _eye(dim, p)
+    R3 = _ipow(R, 3)[..., None, None, None, None]
+    R5 = _ipow(R, 5)[..., None, None, None, None]
+    R7 = _ipow(R, 7)[..., None, None, None, None]
+    d_im = eye[:, None, None, :]
+    d_jk = eye[None, :, :, None]
+    d_ij = eye[:, :, None, None]
+    d_jm = eye[None, :, None, :]
+    d_mk = eye[None, None, :, :]  # delta_{k m} (symmetric)
+    d_ik = eye[:, None, :, None]
+    pi = p[..., :, None, None, None]
+    pj = p[..., None, :, None, None]
+    pk = p[..., None, None, :, None]
+    pm = p[..., None, None, None, :]
+    L = (
+        -4.0 * d_im * d_jk / R3
+        - 6.0 * pk * (d_jm * pi + d_ij * pm) / R5
+        - 6.0 * pj * (d_mk * pi + d_ik * pm) / R5
+        + 60.0 * pi * pj * pk * pm / R7
+    )
+    return L / (-4.0 * math.pi * (dim - 1))
+
+
 def stokeslet_G_Wn(p: torch.Tensor, n: torch.Tensor, eps: float = 0.0):
     """Fused (G, W . n) without materializing the rank-3 stresslet:
     (W . n)_ij = -dim p_i p_j (p . n) / R^(dim+2) / (2 pi (dim-1)).

@@ -281,7 +281,7 @@ def _t(arr, like: torch.Tensor, dtype=None):
 def _check_slice(cfg: AssemblyConfig):
     if cfg.dim != 3:
         raise NotImplementedError(
-            "2D assembly is not ported yet (ROADMAP.md: ops/resistance.py and 2D)"
+            "2D assembly is not ported yet (ROADMAP.md: queue 1 item 6, 2D)"
         )
     if cfg.kernel not in (KERNEL_FREE_SPACE, KERNEL_FREE_SURFACE, KERNEL_NO_SLIP):
         raise ValueError(cfg.kernel)

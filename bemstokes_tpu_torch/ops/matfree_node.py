@@ -84,7 +84,7 @@ def sweep_static(tables: AssemblyTables, nr: int) -> SweepStatic:
     cfg = tables.cfg
     if cfg.dim != 3:
         raise NotImplementedError(
-            "the 2D sweep is not ported yet (ROADMAP.md: ops/resistance.py and 2D)"
+            "the 2D sweep is not ported yet (ROADMAP.md: queue 1 item 6, 2D)"
         )
     if cfg.kernel not in _KIND:
         raise ValueError(cfg.kernel)

@@ -10,17 +10,19 @@ The per-frame pipeline (reference `run`, `source/bem_stokes.cc:5636-5884`):
     -> monolithic system                   (ops.monolithic)
     -> LU factor (fresh or stale) + GMRES  (la.direct / la.gmres)
 
-Ported: the Direct frame solve (fresh and stale LU) and the
-`solve_directly` branch in 3D, for the free-space kernel and the two image
-kernels of a plane wall (`reflect_kernel`, `no_slip_kernel`), the flagellum
-torque mode (`solve_with_torque`, `imposed_rotation_as_flagellum_shape`),
-the frozen-geometry re-solve (`solve_frame_frozen`) and the matrix-free
-solve (`cfg.matrix_free`, `matfree.py`).  Torch runs eagerly on
-the problem's device (the CUDA card unless the caller passes
-`device="cpu"`), in the dtype of `ProblemConfig.dtype`; the JAX package's
-jitted single-dispatch fusions and its split-precision f64 GEMV
+Ported: the Direct frame solve (fresh and stale LU), the `solve_directly`
+branch and GMRES under the other preconditioners (`la/preconditioners.py`)
+in 3D, for the free-space kernel and the two image kernels of a plane wall
+(`reflect_kernel`, `no_slip_kernel`), the flagellum torque mode
+(`solve_with_torque`, `imposed_rotation_as_flagellum_shape`), the
+frozen-geometry re-solve (`solve_frame_frozen`), the matrix-free solve
+(`cfg.matrix_free`, `matfree.py`), the grand-resistance strategy
+(`monolithic=False`, `ops/resistance.py`) and the `print_matrices` dumps.
+Torch runs eagerly on the problem's device (the CUDA card unless the caller
+passes `device="cpu"`), in the dtype of `ProblemConfig.dtype`; the JAX
+package's jitted single-dispatch fusions and its split-precision f64 GEMV
 (`la/mixed.py`) have no counterpart here (every [dn, dn] product is
-`A @ v`).  Every other branch raises NotImplementedError and names its
+`A @ v`).  The 2D problem raises NotImplementedError and names its
 `ROADMAP.md` item.
 """
 
@@ -33,6 +35,7 @@ from .config import ProblemConfig
 from .fem.geometry import euler_from_mesh, support_points
 from .la.direct import LUPreconditioner, lu_factor_dense, lu_solve_dense
 from .la.gmres import gmres
+from .la.preconditioners import build_preconditioner
 from .mesh import SurfaceMesh, build_scalar_space
 from .mesh.surface_mesh import MATERIAL_BODY
 from .ops.assemble import (
@@ -160,7 +163,7 @@ class StokesBEMProblem:
                 f"got {self.cfg.force_pole!r}"
             )
         if mesh.dim != 3:
-            raise _not_ported("the 2D problem", "ops/resistance.py and 2D")
+            raise _not_ported("the 2D problem", "queue 1 item 6, 2D")
         if self.cfg.mixed_precision_bulk:
             raise NotImplementedError(
                 "mixed_precision_bulk (f32 bulk under f64) is a TPU workaround "
@@ -350,6 +353,25 @@ class StokesBEMProblem:
             tol=self.cfg.solver.tolerance,
             max_restarts=max_restarts,
         )
+
+    def _gmres_generic(self, A, rhs):
+        """GMRES preconditioned by `preconditioner_type` (not Direct), the
+        preconditioner built afresh from this frame's matrix (the JAX
+        `_gmres_generic_impl`)."""
+        cfg = self.cfg
+        restart, max_restarts = self._gmres_solver_params()
+        bw = cfg.solver.bandwith if cfg.solver.bandwith_preconditioner else None
+        with timers.scope("Preconditioner Set Up", sync=A):
+            precond = build_preconditioner(A, cfg.solver.preconditioner_type, bandwith=bw)
+        with timers.scope("GMRES", sync=rhs):
+            return gmres(
+                lambda v: A @ v,
+                rhs,
+                precond=precond.apply,
+                restart=restart,
+                tol=cfg.solver.tolerance,
+                max_restarts=max_restarts,
+            )
 
     def _finish(self, A, rhs, ops, diag, x, solver_iters, solver_res):
         """Post-solve bookkeeping (the JAX `_finish_impl`) with ONE packed
@@ -557,28 +579,6 @@ class StokesBEMProblem:
         return A, rhs, operators, diagnostics
 
     # ------------------------------------------------------------------
-    def _check_solve_path(self):
-        cfg = self.cfg
-        if not cfg.monolithic:
-            raise _not_ported(
-                "the grand-resistance strategy (monolithic=False)",
-                "ops/resistance.py and 2D",
-            )
-        if cfg.matrix_free:
-            # matrix_free overrides solve_directly and print_matrices, as in
-            # the JAX package (`bemstokes_tpu/problem.py:642`)
-            return
-        if cfg.print_matrices:
-            raise _not_ported("print_matrices", "queue 1 item 2, with la/preconditioners.py")
-        if (
-            not cfg.solver.solve_directly
-            and cfg.solver.preconditioner_type != "Direct"
-        ):
-            raise _not_ported(
-                f"the {cfg.solver.preconditioner_type!r} preconditioner",
-                "la/preconditioners.py",
-            )
-
     def solve_frame(self, euler, shape_velocities_flat, rotation=None):
         """Assemble + solve one frame.  `euler` [n_map_nodes, d] and
         `shape_velocities_flat` [d*n] may be numpy arrays or tensors.
@@ -586,8 +586,14 @@ class StokesBEMProblem:
         scalars and numpy arrays for the packed diagnostics
         (`result_to_numpy` converts the rest).  `rotation` is the
         accumulated body rotation (flagellum torque mode only; identity when
-        omitted)."""
-        self._check_solve_path()
+        omitted).
+
+        `monolithic=False` takes the grand-resistance strategy before
+        `matrix_free` is looked at, and `matrix_free` overrides
+        `solve_directly` and `print_matrices`, as in the JAX package
+        (`bemstokes_tpu/problem.py:640-642`)."""
+        if not self.cfg.monolithic:
+            return self._solve_frame_resistance(euler, shape_velocities_flat)
         if self.cfg.matrix_free:
             if self._matfree is None:
                 from .matfree import MatfreeSolver
@@ -596,7 +602,36 @@ class StokesBEMProblem:
             return self._matfree.solve_frame(euler, shape_velocities_flat, rotation)
         with timers.scope("Assemble"):
             A, rhs, ops, diag = self._pipeline(euler, shape_velocities_flat, rotation)
+        if self.cfg.print_matrices:
+            self._dump_matrices(A, ops)
         return self._solve_monolithic_system(A, rhs, ops, diag)
+
+    def _dump_matrices(self, A, ops, out_dir="."):
+        """Txt dumps of the assembled operators (reference `print_matrices`,
+        `source/bem_stokes.cc:3362-3430`: monolithic_matrix.txt,
+        V_matrix.txt, K_matrix.txt, Mass_matrix.txt, normals_matrix.txt
+        written into the working directory)."""
+        import os
+
+        from .physics.rigid import MassOperator
+
+        if ops.get("V") is None:
+            raise ValueError(
+                "print_matrices needs the assembled V/K operators; run "
+                "with cfg.keep_operators=True"
+            )
+
+        def save(name, M):
+            np.savetxt(os.path.join(out_dir, name), M.detach().cpu().numpy())
+
+        save("monolithic_matrix.txt", A)
+        save("V_matrix.txt", ops["V"])
+        save("K_matrix.txt", ops["K"])
+        save("normals_matrix.txt", ops["normal"]["normal"])
+        # dense consistent mass (operator-form internally; materialized only
+        # under this debug flag): the operator applied to identity columns
+        mop = MassOperator(self.n, self.tables.cells_nodes_fe, self.tables.phi_fe, ops["mass_jxw"])
+        save("Mass_matrix.txt", mop.matvec(torch.eye(self.n, dtype=self.asm_cfg.dtype, device=self.device)))
 
     # ------------------------------------------------------------------
     def solve_frame_frozen(self, prev_result, shape_velocities_flat):
@@ -606,7 +641,6 @@ class StokesBEMProblem:
         skips `assemble_stokes_system` when `squirmer_change_geometry` is
         false, `source/bem_stokes.cc:5734-5759`).  Only meaningful for
         grid_type == "Real" (the rhs is sdot-independent otherwise)."""
-        self._check_solve_path()
         A = prev_result["A"]
         ops = prev_result["operators"]
         if ops.get("K") is None:
@@ -643,14 +677,18 @@ class StokesBEMProblem:
 
     # ------------------------------------------------------------------
     def _solve_monolithic_system(self, A, rhs, ops, diag):
-        """Solve the assembled system: one dense LU solve (`solve_directly`)
-        or GMRES preconditioned by a fresh or stale LU, with the true
-        residual reported either way."""
+        """Solve the assembled system: one dense LU solve (`solve_directly`),
+        GMRES preconditioned by a fresh or stale LU (Direct), or GMRES
+        under another preconditioner built from this frame's matrix, with
+        the true residual reported either way."""
         refactored = False
         with timers.scope("LAC Solve"):
             if self.cfg.solver.solve_directly:
                 x = lu_solve_dense(lu_factor_dense(A), rhs)
                 iters, res = 1, torch.linalg.vector_norm(A @ x - rhs)
+            elif self.cfg.solver.preconditioner_type != "Direct":
+                x, info = self._gmres_generic(A, rhs)
+                iters, res = info["iterations"], info["residual"]
             else:
                 # Direct: fresh LU, or the stale LU of an earlier frame while
                 # the previous solve stayed within the trigger (reference
@@ -739,6 +777,49 @@ class StokesBEMProblem:
             A=A,
             rhs=rhs,
             **extra,
+        )
+
+    # ------------------------------------------------------------------
+    def _solve_frame_resistance(self, euler, shape_velocities_flat):
+        """Non-monolithic grand-resistance-matrix strategy (reference
+        `solve_system(monolithic=false)`, `source/bem_stokes.cc:4163-4261`):
+        an LU of V and the Dirichlet-to-Neumann map of the shape velocity
+        and the rigid modes (`ops/resistance.py`)."""
+        from .ops.resistance import solve_resistance_system
+
+        cfg = self.cfg
+        if not cfg.keep_operators:
+            raise ValueError(
+                "the resistance strategy applies V/K directly; run with "
+                "cfg.keep_operators=True"
+            )
+        with timers.scope("Assemble"):
+            A, rhs, ops, diag = self._pipeline(euler, shape_velocities_flat)
+        nv = ops["normal"]
+        with timers.scope("LAC Solve"):
+            U, forces, res_matrix = solve_resistance_system(
+                ops["V"],
+                ops["K"],
+                self._as_device(shape_velocities_flat),
+                flatten(ops["N"]),
+                flatten(ops["N_dual"]),
+                flatten(nv["normal_pure"]),
+                flatten(nv["M_normal_pure"]),
+                nv["l2_gamma_pure"],
+                grid_type=cfg.grid_type,
+                imposed_component=cfg.imposed_component,
+            )
+        return dict(
+            stokes_forces=forces,
+            wall_velocities=torch.zeros_like(forces),
+            rigid_velocities=U.cpu().numpy(),
+            resistance_matrix=res_matrix.cpu().numpy(),
+            iterations=1,
+            residual=0.0,
+            diagnostics={k: v.cpu().numpy() for k, v in diag.items()},
+            operators=ops,
+            A=A,
+            rhs=rhs,
         )
 
     # ------------------------------------------------------------------

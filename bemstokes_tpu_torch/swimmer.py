@@ -101,7 +101,7 @@ class SwimmerSimulation:
         self.out = output_dir
         self.device = resolve_device(device)
         if cfg.dim != 3:
-            raise _not_ported("the 2D frame loop", "ops/resistance.py and 2D")
+            raise _not_ported("the 2D frame loop", "queue 1 item 6, 2D")
         if cfg.distributed:
             raise _not_ported("the distributed frame loop (cfg.distributed)", "parallel/*")
         os.makedirs(output_dir, exist_ok=True)
@@ -450,8 +450,15 @@ class SwimmerSimulation:
         # origin_velocities.txt rows "F_r U_origin_r" (`:4496-4506`),
         # center_of_mass_position.txt "frame com" (`:2777-2784`),
         # motor_torque.txt (`:4375-4384`)
-        F = np.asarray(res["rigid_forces_pole"])
-        F_c = np.asarray(res["rigid_forces_complete"])
+        if "rigid_forces_pole" in res:
+            F = np.asarray(res["rigid_forces_pole"])
+            F_c = np.asarray(res["rigid_forces_complete"])
+        else:  # resistance-strategy results: the force sums on the host
+            ops_ = res["operators"]
+            N_dual = result_to_numpy(ops_["N_dual"])  # [R, n, d]
+            N_dual_c = result_to_numpy(ops_["N_dual_complete"])
+            F = np.einsum("rnd,nd->r", N_dual, forces)
+            F_c = np.einsum("rnd,nd->r", N_dual_c, forces)
         U_origin = self._origin_velocities(U, res)
         with open(os.path.join(self.out, "point_velocities.txt"), "a") as f:
             for r in range(self.problem.num_rigid):

@@ -108,12 +108,43 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 15. the command line: `python3 -m bemstokes_tpu_torch run -p <json> 0 2 -o
    <dir>` as a subprocess on the card, on a gait of three gmsh files that the
    script writes from create_sphere(5), gather mode: exit code 0, the state
-   and result files of both frames finite, the stroke swims along x.
+   and result files of both frames finite, the stroke swims along x;
+16. the preconditioners of the monolithic GMRES solve at 18,444 unknowns,
+   one frame each of Jacobi, SOR, SSOR, ILU, AMG (both block-Jacobi) and
+   SSOR limited to a band of 100, with the solver's defaults otherwise: each
+   converges (true residual <= tol |b|), its rigid velocities and forces
+   within 1e-7 of phase 5's Direct frame 0, one K1 launch a frame; its
+   iterations, preconditioner set-up, GMRES and frame ms printed; and
+   `print_matrices` on create_sphere(3) in a temporary working directory:
+   the five files, `monolithic_matrix.txt` equal to the frame's A;
+17. the grand-resistance strategy (monolithic=False) at 18,444 unknowns: a
+   unit force along x in free space (6 pi U_x within 2.5e-4 of 1, the
+   resistance diagonals within 2.5e-4 and 1e-3 of 6 pi and 8 pi, the
+   off-diagonal entries below 1e-8 of 6 pi), a rigid-motion gait (grid
+   Real) against the monolithic Direct frame to 1e-7, and
+   SwimmerSimulation.run(0, 2) of phase 5's no-slip sphere (6 pi U_y within
+   1e-3 of Brenner's, finite state and output files, two K3 launches); the
+   LU of V and the Dirichlet-to-Neumann map timed;
+18. post-processing of phase 5's frame 0: `evaluate_stokes_bie` at 4,096
+   seeded points in the shell 1.2 <= r <= 5 against the exact flow past the
+   translating sphere (5e-4, from the CPU trend), the single layer of the
+   normal inside and outside (1e-6), the velocity gradient's trace at 64
+   points (1e-6); `evaluate_stokes_bie_on_boundary` at 256 support points
+   (finite, timed), and at every support point of create_sphere(3) the card
+   against the CPU (1e-10);
+19. the convergence command: `python3 -m bemstokes_tpu_torch convergence -p
+   <json> --cycles 4` as a subprocess on the card, on a gmsh file of
+   create_sphere(2) with the sphere manifold (98 to 6,146 nodes): exit code
+   0, its table equal to the same study run in this process on the card,
+   every rate positive, the first three errors within 1e-8 of the study on
+   the CPU (run by this script with `--cpu-convergence DIR` in a process of
+   its own, started before phase 2, so that its plain-torch assembly
+   overlaps the card's phases).
 
 Before the last line it prints the card's name and power limit and one JSON
 object {"kernels": [...]} with each kernel's launches on its main paths
-(K1-K4: summed over every path of phases 5, 6, 9, 10 and 14 that reaches
-them, the block factors of the matrix-free frames included; beside that raw
+(K1-K4: summed over every path of phases 5, 6, 9, 10, 14 and 16-19 that
+reaches them, the block factors of the matrix-free frames included; beside that raw
 count, what the launches were worth in whole create_sphere(5) sweeps per
 type, and those sweeps times each type's gap between time and bound;
 `tile_nodes` likewise over the gather frames of phase 14, in whole
@@ -332,7 +363,7 @@ def clock_under_load(fn):
 
 
 #: launches of K1-K4 summed over every main path that reaches them (phases
-#: 5, 6, 9, 10 and 14), each path's counts read just after it ran with the
+#: 5, 6, 9, 10, 14 and 16-19), each path's counts read just after it ran with the
 #: counters set to 0 just before it; and the interactions they swept, per
 #: (counter, "f32" or "f64")
 PATH_LAUNCHES = {"free_space": 0, "free_surface": 0, "no_slip": 0, "planes": 0}
@@ -1082,10 +1113,11 @@ def timed_solves(problem):
                 frame=len(records),
                 seconds=time.perf_counter() - t0,
                 iterations=res["iterations"],
-                refactored=res["refactored"],
-                converged=res["converged"],
+                # the grand-resistance strategy solves directly: no GMRES
+                refactored=res.get("refactored", False),
+                converged=res.get("converged", True),
                 residual=res["residual"],
-                gmres_residual=res["gmres_residual"],
+                gmres_residual=res.get("gmres_residual", res["residual"]),
                 finite=bool(torch.isfinite(res["stokes_forces"]).all())
                 and bool(np.all(np.isfinite(res["rigid_velocities"]))),
             )
@@ -1094,6 +1126,10 @@ def timed_solves(problem):
 
     problem.solve_frame = solve_frame
     return records
+
+
+#: the arrays a frame record keeps beside its scalars
+ARRAYS = ("stokes_forces", "rigid_velocities", "rigid_forces_pole")
 
 
 def solve_frames(device, cfg, frames):
@@ -1109,7 +1145,9 @@ def solve_frames(device, cfg, frames):
         res = prob.solve_frame(e, sdot)
         records[-1]["drag_rel_err"] = float(drag_error(res))
         records[-1]["stokes_forces"] = res["stokes_forces"].cpu().numpy()
-        shown = {k: v for k, v in records[-1].items() if k != "stokes_forces"}
+        records[-1]["rigid_velocities"] = np.asarray(res["rigid_velocities"])
+        records[-1]["rigid_forces_pole"] = np.asarray(res["rigid_forces_pole"])
+        shown = {k: v for k, v in records[-1].items() if k not in ARRAYS}
         log(f"frame {cfg.dtype} {cfg.assembly_backend} unknowns={unknowns} " + json.dumps(shown))
         del res
     return unknowns, records
@@ -1255,7 +1293,7 @@ def phase_free_space_path(node_kernel, device):
             raise AssertionError(f"frame {r['frame']} failed: {r}")
     if launches["free_space"] < 1:
         raise AssertionError("the free-space path did not launch K1")
-    return [r["stokes_forces"] for r in recs]
+    return recs
 
 
 def wall_path(node_kernel, device, name, cfg, frames):
@@ -1980,6 +2018,461 @@ def phase_command_line():
                 raise AssertionError(f"command line run: unexpected rigid velocities {u}")
 
 
+#: phase 16: the non-Direct preconditioners of the monolithic GMRES solve,
+#: with the solver's defaults otherwise (restart 100, tolerance 1e-10,
+#: max_steps 1000); each frame against phase 5's Direct frame 0
+PRECONDITIONER_CASES = (
+    ("Jacobi", dict(preconditioner_type="Jacobi")),
+    ("SOR", dict(preconditioner_type="SOR")),
+    ("SSOR", dict(preconditioner_type="SSOR")),
+    ("ILU", dict(preconditioner_type="ILU")),
+    ("AMG", dict(preconditioner_type="AMG")),
+    ("SSOR, band 100", dict(preconditioner_type="SSOR", bandwith_preconditioner=True, bandwith=100)),
+)
+TOL_AGAINST_DIRECT = 1e-7
+#: phase 18: the BIE field of the translating sphere against the exact
+#: Stokes flow.  The port's largest relative error over 512 seeded points in
+#: the shell 1.2 <= r <= 5 falls 3.8x a refinement on the CPU (1.40e-2,
+#: 3.69e-3, 9.60e-4 at create_sphere(2), (3), (4)), which predicts ~2.5e-4
+#: at (5)
+FIELD_TOL = 5e-4
+#: the single layer of the normal field vanishes off the surface: on the
+#: CPU 6.0e-7, 2.3e-7, 6.1e-8 inside at (0.1, 0.1, 0.1) and 3.0e-8, 1.6e-8,
+#: 4.8e-9 outside at (4, 4, 4) at create_sphere(2), (3), (4)
+SINGLE_LAYER_TOL = 1e-6
+FIELD_POINTS = 4096
+#: phase 17: the sphere's mobility 6 pi U_x and resistance diagonals (against
+#: 6 pi and 8 pi, relative), the off-diagonal entries (over 6 pi), and the
+#: mobility beside the no-slip wall against Brenner's (absolute)
+RESISTANCE_TOL = dict(mobility=2.5e-4, translation=2.5e-4, rotation=1e-3, off_diagonal=1e-8, brenner=1e-3)
+
+
+def frame_timed(prob, euler, sdot):
+    """One `solve_frame` with the timers reset before it: the result, its
+    host-clock ms (device synchronised) and the timers' totals in ms."""
+    from bemstokes_tpu_torch.utils import timers
+
+    timers.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = prob.solve_frame(euler, sdot)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return res, ms, {k: v["total_s"] * 1e3 for k, v in timers.as_dict().items()}
+
+
+def max_rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def phase_preconditioners(node_kernel, device, direct):
+    """One frame per preconditioner type at 18,444 unknowns against phase
+    5's Direct frame 0, and the `print_matrices` dumps on create_sphere(3)."""
+    import os
+
+    from bemstokes_tpu_torch.config import ProblemConfig, SolverConfig
+    from bemstokes_tpu_torch.mesh import create_sphere
+    from bemstokes_tpu_torch.problem import StokesBEMProblem
+
+    mesh = create_sphere(refinements=REFINEMENTS)
+    ref = direct[0]
+    for name, solver in PRECONDITIONER_CASES:
+        cfg = ProblemConfig(grid_type="ImposedVelocity", imposed_component=0, solver=SolverConfig(**solver))
+        prob = StokesBEMProblem(mesh, cfg, device=device)
+        e0 = prob.initial_euler()
+        gc.collect()
+        torch.cuda.empty_cache()
+        zero_counts(node_kernel)
+        res, frame_ms, spent = frame_timed(prob, e0, np.zeros(3 * prob.n))
+        launches = tally(node_kernel)
+        b_norm = float(torch.linalg.vector_norm(res["rhs"]))
+        dU = max_rel(res["rigid_velocities"], ref["rigid_velocities"])
+        dF = max_rel(res["rigid_forces_pole"], ref["rigid_forces_pole"])
+        dT = max_rel(res["stokes_forces"].cpu().numpy(), ref["stokes_forces"])
+        log(
+            f"preconditioner {name}: iterations {res['iterations']}, set-up "
+            f"{spent['Preconditioner Set Up']:.1f} ms, GMRES {spent['GMRES']:.1f} ms, frame "
+            f"{frame_ms:.1f} ms; true residual / |b| {res['residual'] / b_norm:.3e} (tol "
+            f"{cfg.solver.tolerance:g}); against the Direct frame 0: rigid velocities {dU:.3e}, "
+            f"rigid forces {dF:.3e} (tol {TOL_AGAINST_DIRECT:g}), tractions {dT:.3e}; K1 launches "
+            f"{launches['free_space']}"
+        )
+        if not (res["converged"] and res["residual"] <= cfg.solver.tolerance * b_norm):
+            raise AssertionError(f"preconditioner {name}: GMRES did not converge")
+        if not (dU <= TOL_AGAINST_DIRECT and dF <= TOL_AGAINST_DIRECT):
+            raise AssertionError(f"preconditioner {name}: disagrees with the Direct frame")
+        if launches != {"free_space": 1, "free_surface": 0, "no_slip": 0, "planes": 0}:
+            raise AssertionError(f"preconditioner {name}: expected one launch of K1, got {launches}")
+        del prob, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # print_matrices: the five dumps in the working directory (at full width
+    # each text file would hold ~8 GB, so create_sphere(3))
+    cfg = ProblemConfig(grid_type="ImposedVelocity", imposed_component=0, print_matrices=True)
+    prob = StokesBEMProblem(create_sphere(refinements=3), cfg, device=device)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            zero_counts(node_kernel)
+            res = prob.solve_frame(prob.initial_euler(), np.zeros(3 * prob.n))
+            launches = tally(node_kernel)
+        finally:
+            os.chdir(cwd)
+        names = sorted(os.listdir(tmp))
+        A = np.loadtxt(os.path.join(tmp, "monolithic_matrix.txt"))
+        M = np.loadtxt(os.path.join(tmp, "Mass_matrix.txt"))
+    expected = sorted(
+        ["monolithic_matrix.txt", "V_matrix.txt", "K_matrix.txt", "Mass_matrix.txt", "normals_matrix.txt"]
+    )
+    same = np.array_equal(A, res["A"].cpu().numpy())
+    area = abs(M.sum() - float(res["diagnostics"]["mass_body"])) / M.sum()
+    log(
+        f"print_matrices (create_sphere(3), {A.shape[0]} unknowns): files {names}; monolithic_matrix.txt "
+        f"equals the frame's A: {same}; mass matrix sums to the surface area to {area:.1e}; K1 launches "
+        f"{launches['free_space']}"
+    )
+    if not (names == expected and same and area <= 1e-12 and launches["free_space"] == 1):
+        raise AssertionError("print_matrices: wrong dumps")
+
+
+def phase_resistance(node_kernel, device, direct):
+    """The grand-resistance strategy (monolithic=False) at 18,444 unknowns:
+    the sphere's mobility and resistance matrix in free space, a rigid-motion
+    gait against the monolithic Direct frame, and the sphere beside the
+    no-slip wall through SwimmerSimulation."""
+    import os
+
+    from bemstokes_tpu_torch.config import ProblemConfig
+    from bemstokes_tpu_torch.mesh import create_sphere
+    from bemstokes_tpu_torch.problem import StokesBEMProblem
+    from bemstokes_tpu_torch.swimmer import SwimmerSimulation, SwimmerState
+    from bemstokes_tpu_torch.utils import timers
+
+    mesh = create_sphere(refinements=REFINEMENTS)
+    # (a) unit force along x in free space
+    cfg = ProblemConfig(grid_type="ImposedForce", imposed_component=0, monolithic=False)
+    prob = StokesBEMProblem(mesh, cfg, device=device)
+    e0 = prob.initial_euler()
+    zero_counts(node_kernel)
+    res, frame_ms, spent = frame_timed(prob, e0, np.zeros(3 * prob.n))
+    launches = tally(node_kernel)
+    tol = RESISTANCE_TOL
+    mob = 6 * np.pi * res["rigid_velocities"][0]
+    Rm = res["resistance_matrix"]
+    d = np.diag(Rm)
+    trans = np.abs(d[:3] / (6 * np.pi) - 1).max()
+    rot = np.abs(d[3:] / (8 * np.pi) - 1).max()
+    off = np.abs(Rm - np.diag(d)).max() / (6 * np.pi)
+    log(
+        f"resistance, free space, unit force along x: 6 pi U_x = {mob:.8f} (|.-1| {abs(mob - 1):.3e}, tol "
+        f"{tol['mobility']:g}); resistance diagonal / (6 pi, 8 pi) "
+        f"{(d / np.repeat([6 * np.pi, 8 * np.pi], 3)).tolist()}: translation {trans:.3e} (tol "
+        f"{tol['translation']:g}), rotation {rot:.3e} (tol {tol['rotation']:g}), off-diagonal / 6 pi "
+        f"{off:.3e} (tol {tol['off_diagonal']:g}); V LU {spent['Resistance V factor']:.1f} ms, D2N {spent['Resistance D2N']:.1f} "
+        f"ms, frame {frame_ms:.1f} ms; K1 launches {launches['free_space']}"
+    )
+    if not (
+        abs(mob - 1) <= tol["mobility"]
+        and trans <= tol["translation"]
+        and rot <= tol["rotation"]
+        and off <= tol["off_diagonal"]
+    ):
+        raise AssertionError("resistance: wrong mobility or resistance matrix")
+    if launches["free_space"] != 1:
+        raise AssertionError(f"resistance: expected one launch of K1, got {launches}")
+    del prob, res
+
+    # a rigid-motion gait (grid Real): the strategy against the monolithic
+    # Direct frame of the same gait
+    e1 = e0.cpu().numpy() @ rotation(1, 0.01).T + np.array([0.01, -0.005, 0.002])
+    U = {}
+    for monolithic in (False, True):
+        cfg = ProblemConfig(grid_type="Real", force_pole="Origin", monolithic=monolithic)
+        prob = StokesBEMProblem(mesh, cfg, device=device)
+        sdot = prob.shape_velocities_fd(e0, e1, time_step=0.1)
+        zero_counts(node_kernel)
+        res = prob.solve_frame(e0, sdot)
+        launches = tally(node_kernel)
+        U[monolithic] = np.asarray(res["rigid_velocities"])
+        if launches["free_space"] != 1:
+            raise AssertionError(f"resistance: expected one launch of K1, got {launches}")
+        del prob, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    diff = max_rel(U[False], U[True])
+    log(f"resistance, rigid-motion gait: U = {U[False].tolist()}, against the monolithic Direct frame {diff:.3e} (tol 1e-7)")
+    if not diff <= 1e-7:
+        raise AssertionError("resistance: disagrees with the monolithic frame")
+
+    # (b), (c) the sphere sedimenting beside the no-slip wall, two frames
+    exact = 1.0 / brenner_lambda(-WALL_Y)
+    with tempfile.TemporaryDirectory() as out:
+        sim = SwimmerSimulation(wall_config("no_slip", REFINEMENTS, monolithic=False), out, device=device)
+        records = timed_solves(sim.problem)
+        zero_counts(node_kernel)
+        timers.reset()
+        history = sim.run(0, 2)
+        spent = {k: v["total_s"] * 1e3 for k, v in timers.as_dict().items()}
+        launches = tally(node_kernel)
+        ok = True
+        for k in range(2):
+            state = SwimmerState.load(os.path.join(out, f"state_{k}.npz"))
+            saved = np.load(os.path.join(out, f"result_{k}.npz"))
+            ok = ok and state.frame == k and np.isfinite(state.displacements).all()
+            ok = ok and all(np.isfinite(saved[key]).all() for key in saved.files)
+            ok = ok and os.path.exists(os.path.join(out, f"stokes_{k}.vtu"))
+        series = np.loadtxt(os.path.join(out, "point_velocities.txt"))
+        ok = ok and series.shape == (12, 3) and np.isfinite(series).all()
+    mobility = [6 * np.pi * h["rigid_velocities"][1] for h in history]
+    log(
+        f"resistance, no-slip wall, SwimmerSimulation.run(0, 2): 6 pi U_y = {mobility}, Brenner "
+        f"{exact:.6f}, frame 0 off by {abs(mobility[0] - exact):.3e} (tol {tol['brenner']:g}); frames "
+        f"{[round(r['seconds'], 3) for r in records]} s; V LU {spent['Resistance V factor']:.1f} ms and D2N "
+        f"{spent['Resistance D2N']:.1f} ms over both frames; state and output files finite: {ok}; "
+        f"K3 launches {launches['no_slip']}"
+    )
+    if not (ok and abs(mobility[0] - exact) <= tol["brenner"] and mobility[0] < mobility[1]):
+        raise AssertionError("resistance beside the wall: wrong mobility or files")
+    if launches != {"free_space": 0, "free_surface": 0, "no_slip": 2, "planes": 0}:
+        raise AssertionError(f"resistance beside the wall: expected 2 launches of K3 alone, got {launches}")
+
+
+def exact_translating_sphere(x, U):
+    """Stokes flow past a unit sphere translating with velocity U."""
+    r = np.linalg.norm(x, axis=1, keepdims=True)
+    Ux = (x @ U)[:, None]
+    return 0.75 * (U / r + Ux * x / r**3) + 0.25 * (U / r**3 - 3 * Ux * x / r**5)
+
+
+def shell_points(n, seed, r=(1.2, 5.0)):
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return d * rng.uniform(*r, size=(n, 1))
+
+
+def phase_postprocess(node_kernel, device, direct):
+    """The BIE field of phase 5's frame 0, off and on the boundary."""
+    from bemstokes_tpu_torch import postprocess
+    from bemstokes_tpu_torch.config import ProblemConfig
+    from bemstokes_tpu_torch.fem.geometry import support_points
+    from bemstokes_tpu_torch.mesh import create_sphere
+    from bemstokes_tpu_torch.physics.rigid import flatten
+    from bemstokes_tpu_torch.problem import StokesBEMProblem
+
+    def solved(refinements, dev):
+        cfg = ProblemConfig(grid_type="ImposedVelocity", imposed_component=0)
+        prob = StokesBEMProblem(create_sphere(refinements=refinements), cfg, device=dev)
+        e0 = prob.initial_euler()
+        res = prob.solve_frame(e0, np.zeros(3 * prob.n))
+        U = np.asarray(res["rigid_velocities"][:3])
+        u_b = torch.as_tensor(np.tile(U, (prob.n, 1)), dtype=torch.float64, device=dev)
+        return prob, e0, res, U, flatten(u_b)
+
+    zero_counts(node_kernel)
+    prob, e0, res, U, u_flat = solved(REFINEMENTS, device)
+    launches = tally(node_kernel)
+    f_flat = res["stokes_forces"]
+    same = max_rel(f_flat.cpu().numpy(), direct[0]["stokes_forces"])
+    if not (same <= 1e-10 and launches["free_space"] == 1):
+        raise AssertionError(f"post-processing: frame 0 differs from phase 5's ({same:.3e}) or launches {launches}")
+    tables = prob.tables
+    pts = shell_points(FIELD_POINTS, seed=2026)
+    chunk = postprocess.points_per_chunk(tables.cells_nodes_fe.shape[0] * len(tables.q_weights), 3, torch.float64)
+
+    def field():
+        return postprocess.evaluate_stokes_bie(pts, u_flat, f_flat, e0, tables)
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u = field().cpu().numpy()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    exact = exact_translating_sphere(pts, U)
+    rel_err = np.linalg.norm(u - exact, axis=1) / np.linalg.norm(exact, axis=1)
+    n_flat = flatten(res["operators"]["normal"]["normal"])
+    single = postprocess.evaluate_stokes_bie(
+        [[0.1, 0.1, 0.1], [4.0, 4.0, 4.0]], torch.zeros_like(n_flat), n_flat, e0, tables
+    ).abs().max(dim=1).values.cpu().numpy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grad = postprocess.approximate_velocity_gradient(pts[:64], u_flat, f_flat, e0, tables)
+    trace = float(torch.diagonal(grad, dim1=-2, dim2=-1).sum(-1).abs().max())
+    grad_ms = (time.perf_counter() - t0) * 1e3
+    log(
+        f"post-processing (create_sphere({REFINEMENTS}), {tables.cells_nodes_fe.shape[0]} panels x "
+        f"{len(tables.q_weights)} points): evaluate_stokes_bie at {FIELD_POINTS} points in 1.2 <= r <= 5, "
+        f"{ms:.1f} ms ({ms * 1000 / FIELD_POINTS:.1f} ms per 1,000 points), chunks of {chunk} points, "
+        f"peak {peak:.2f} GiB; relative error against the exact translating-sphere flow max "
+        f"{rel_err.max():.3e} (tol {FIELD_TOL:g}), median {np.median(rel_err):.3e}; single layer of the "
+        f"normal inside {single[0]:.3e}, outside {single[1]:.3e} (tol {SINGLE_LAYER_TOL:g}); velocity "
+        f"gradient at 64 points in {grad_ms:.1f} ms, max |trace| {trace:.3e} (tol 1e-6)"
+    )
+    if not (np.isfinite(u).all() and rel_err.max() <= FIELD_TOL):
+        raise AssertionError("post-processing: the field disagrees with the exact flow")
+    if not (single.max() <= SINGLE_LAYER_TOL and trace <= 1e-6):
+        raise AssertionError("post-processing: the single layer of the normal or the trace is off")
+
+    # on the boundary: 256 seeded support points at full width on the card
+    sp = support_points(e0, prob.map_space, prob.fe_space)
+    pick = np.random.default_rng(7).choice(prob.n, min(256, prob.n), replace=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on = postprocess.evaluate_stokes_bie_on_boundary(sp[pick], u_flat, f_flat, e0, sp, tables)
+    torch.cuda.synchronize()
+    on_ms = (time.perf_counter() - t0) * 1e3
+    finite = bool(torch.isfinite(on).all())
+    del prob, res, f_flat, u_flat, e0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # on the boundary at create_sphere(3): the card against the CPU at
+    # every support point, the same fields on both
+    prob, e0, res, U, u_flat = solved(3, device)
+    sp = support_points(e0, prob.map_space, prob.fe_space)
+    args = (sp, u_flat, res["stokes_forces"], e0, sp)
+    card = postprocess.evaluate_stokes_bie_on_boundary(*args, prob.tables).cpu().numpy()
+    host = postprocess.evaluate_stokes_bie_on_boundary(*(a.cpu() for a in args), prob.tables).numpy()
+    diff = max_rel(card, host)
+    log(
+        f"post-processing on the boundary: {len(pick)} support points of create_sphere({REFINEMENTS}) in "
+        f"{on_ms:.1f} ms ({on_ms * 1000 / len(pick):.1f} ms per 1,000 points), finite: {finite}; "
+        f"create_sphere(3), all "
+        f"{prob.n} support points, the card against the CPU {diff:.3e} (tol 1e-10)"
+    )
+    if not (finite and diff <= 1e-10):
+        raise AssertionError("post-processing on the boundary: wrong values")
+
+
+#: phase 19: the study's cycles from create_sphere(2) on the card, and how
+#: many of them the CPU repeats
+CONVERGENCE_CYCLES = 4
+CPU_CONVERGENCE_CYCLES = 3
+#: torch threads of the CPU study, which runs in a process of its own beside
+#: phases 2-18 (its 1,538-node cycle assembles through the plain torch node
+#: sweep, a minute or two of the host's CPU)
+CPU_CONVERGENCE_THREADS = 2
+
+
+def convergence_inputs(folder):
+    """The gmsh file of create_sphere(2) and the parameter file of phase 19
+    in `folder`; returns the params path and the study's arguments."""
+    import os
+
+    from bemstokes_tpu_torch.config import ProblemConfig
+    from bemstokes_tpu_torch.config_io import save_config
+    from bemstokes_tpu_torch.mesh import create_sphere
+    from bemstokes_tpu_torch.problem import _resolve_manifold
+
+    cfg = ProblemConfig(
+        input_grid_path=folder + os.sep,
+        input_grid_base_name="ball_",
+        input_grid_format="msh",
+        body_manifold="sphere",
+    )
+    params = os.path.join(folder, "params.json")
+    if not os.path.exists(params):
+        mesh = create_sphere(refinements=2)
+        write_msh(os.path.join(folder, "ball_0.msh"), mesh.vertices, mesh.cells)
+        save_config(cfg, params)
+    study = dict(
+        dim=3,
+        source=(0.3, 0.3, 0.3),
+        manifold=_resolve_manifold(cfg),
+        quad_order=cfg.quadrature.order,
+        sing_order=cfg.quadrature.singular_order,
+    )
+    return params, study
+
+
+def base_mesh(folder):
+    import os
+
+    from bemstokes_tpu_torch.mesh import read_mesh
+
+    return read_mesh(os.path.join(folder, "ball_0.msh"), dim=3, force_material=0)
+
+
+def cpu_convergence(folder):
+    """`chip_smoke.py --cpu-convergence DIR`: phase 19's study on the CPU,
+    its first cycles, printed as one JSON list of errors."""
+    from bemstokes_tpu_torch.convergence import convergence_study
+
+    torch.set_num_threads(CPU_CONVERGENCE_THREADS)
+    _, study = convergence_inputs(folder)
+    t0 = time.perf_counter()
+    rows = convergence_study(base_mesh(folder), n_cycles=CPU_CONVERGENCE_CYCLES, device="cpu", **study)
+    print(json.dumps(dict(errors=[r.error for r in rows], seconds=time.perf_counter() - t0)))
+    return 0
+
+
+def start_cpu_convergence(folder):
+    """Phase 19's inputs in `folder`, and its CPU study started beside the
+    card's phases."""
+    convergence_inputs(folder)
+    return subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--cpu-convergence", folder],
+        cwd=str(Path(__file__).resolve().parent),
+        stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE,
+        text=True,
+    )
+
+
+def phase_convergence(node_kernel, device, folder, cpu_study):
+    """`python3 -m bemstokes_tpu_torch convergence` as a subprocess on the
+    card, four cycles from create_sphere(2) to 6,146 nodes; the same study
+    in this process on the card (its K1 launches counted), and its first
+    three cycles on the CPU (the process `start_cpu_convergence` began)."""
+    from bemstokes_tpu_torch.convergence import convergence_study, format_table
+
+    params, study = convergence_inputs(folder)
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "bemstokes_tpu_torch", "convergence", "-p", params, "--cycles",
+         str(CONVERGENCE_CYCLES), "-o", folder],
+        cwd=str(Path(__file__).resolve().parent),
+        capture_output=True,
+        text=True,
+        timeout=600,
+    )
+    seconds = time.perf_counter() - t0
+    if done.returncode != 0:
+        raise AssertionError(f"the convergence command exited {done.returncode}:\n{done.stderr[-2000:]}")
+    printed = done.stdout.strip()
+    zero_counts(node_kernel)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = convergence_study(base_mesh(folder), n_cycles=CONVERGENCE_CYCLES, device=device, **study)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = tally(node_kernel)
+    out, err = cpu_study.communicate(timeout=900)
+    if cpu_study.returncode != 0:
+        raise AssertionError(f"the CPU convergence study exited {cpu_study.returncode}:\n{err[-2000:]}")
+    host = json.loads(out.strip().splitlines()[-1])
+    for line in printed.splitlines():
+        log(f"convergence: {line}")
+    diff = max(abs(c.error - h) / h for c, h in zip(card, host["errors"]))
+    log(
+        f"convergence: `python3 -m bemstokes_tpu_torch convergence -p params.json --cycles "
+        f"{CONVERGENCE_CYCLES}` exit 0 in {seconds:.1f} s, its table equal to the in-process study's on "
+        f"the card ({card_s:.1f} s, K1 launches {launches['free_space']}): {printed == format_table(card)}; "
+        f"the first {len(host['errors'])} errors against the CPU study ({host['seconds']:.1f} s on "
+        f"{CPU_CONVERGENCE_THREADS} threads beside the card's phases) {diff:.3e} (tol 1e-8)"
+    )
+    if not (printed == format_table(card) and [r.n_nodes for r in card] == [98, 386, 1538, 6146]):
+        raise AssertionError("convergence: the command's table differs from the study")
+    if len(host["errors"]) != CPU_CONVERGENCE_CYCLES or not diff <= 1e-8:
+        raise AssertionError(f"convergence: the card and the CPU differ by {diff:.3e}")
+    if not (all(r.rate > 0 for r in card[1:]) and launches["free_space"] == CONVERGENCE_CYCLES):
+        raise AssertionError(f"convergence: rates {[r.rate for r in card]}, launches {launches}")
+
+
 def node_sweep_entry(key, kernel, record):
     """The kernels-line entry of a node sweep: its launches over the main
     paths, what they were worth in sweeps of the timed shape (create_sphere(5)
@@ -2019,9 +2512,22 @@ def nodes_entry(launches, pairs, record):
 
 
 def main():
+    if sys.argv[1:2] == ["--cpu-convergence"]:
+        return cpu_convergence(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    with tempfile.TemporaryDirectory() as folder:
+        cpu_study = start_cpu_convergence(folder)
+        try:
+            return smoke(folder, cpu_study)
+        finally:
+            if cpu_study.poll() is None:
+                cpu_study.kill()
+                cpu_study.communicate()
+
+
+def smoke(folder, cpu_study):
     from bemstokes_tpu_torch.ops import cuda_build, matfree_node, node_kernel, slot_kernel
 
     t_start = time.perf_counter()
@@ -2037,7 +2543,8 @@ def main():
     counts = phase(phase_build, cuda_build)
     records = phase(phase_kernel_vs_plain, node_kernel, device, counts)
     phase(phase_small_reference, device)
-    node_forces = phase(phase_free_space_path, node_kernel, device)
+    direct = phase(phase_free_space_path, node_kernel, device)
+    node_forces = [r["stokes_forces"] for r in direct]
     phase(phase_wall_paths, node_kernel, device)
     phase(phase_float32, node_kernel, device)
     matvec_records = phase(phase_matvec_vs_plain, matfree_node, node_kernel, device)
@@ -2053,6 +2560,10 @@ def main():
         phase_gather_path, node_kernel, slot_kernel, device, node_forces
     )
     phase(phase_command_line)
+    phase(phase_preconditioners, node_kernel, device, direct)
+    phase(phase_resistance, node_kernel, device, direct)
+    phase(phase_postprocess, node_kernel, device, direct)
+    phase(phase_convergence, node_kernel, device, folder, cpu_study)
     kernels = [
         node_sweep_entry(kernel, KERNELS[kernel], records[kernel]) for kernel in KERNELS
     ] + [

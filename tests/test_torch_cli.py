@@ -228,9 +228,42 @@ def test_module_entry_point(tmp_path):
     assert json.load(open(path))["n_frames"] == 120
 
 
-def test_cli_convergence_names_its_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md: convergence.py"):
-        cli.main(["convergence", "-o", str(tmp_path), "--device", "cpu"])
+def test_cli_convergence_names_its_roadmap_item(tmp_path, capsys):
+    """The `convergence` command, which raised while `convergence.py` was
+    not ported (the test keeps its name): on a gmsh file of
+    create_sphere(0) refined onto the unit sphere, its printed table is
+    the JAX package's `format_table` of the same study, character for
+    character."""
+    from bemstokes_tpu.convergence import convergence_study, format_table
+    from bemstokes_tpu.problem import _resolve_manifold
+
+    mesh = create_sphere(refinements=0)
+    write_msh(tmp_path / "ball_0.msh", mesh.vertices, mesh.cells)
+    cfg = ProblemConfig(
+        input_grid_path=str(tmp_path) + os.sep,
+        input_grid_base_name="ball_",
+        input_grid_format="msh",
+        n_cycles=2,
+        body_manifold="sphere",
+    )
+    params = tmp_path / "p.json"
+    cio_j.save_config(cfg, str(params))
+    assert cli.main(["convergence", "-p", str(params), "-o", str(tmp_path), "--device", "cpu"]) == 0
+    printed = capsys.readouterr().out.strip()
+    # what the JAX package's `convergence` command computes from cfg
+    rows = convergence_study(
+        io_j.read_mesh(str(tmp_path / "ball_0.msh"), dim=3, force_material=0),
+        3,
+        (0.3, 0.3, 0.3),
+        n_cycles=cfg.n_cycles,
+        manifold=_resolve_manifold(cfg),
+        fe_degree=cfg.fe_degree,
+        map_degree=cfg.map_degree,
+        quad_order=cfg.quadrature.order,
+        sing_order=cfg.quadrature.singular_order,
+    )
+    assert printed == format_table(rows)
+    assert len(printed.splitlines()) == 3
 
 
 # ---- a gait read from frame mesh files ----------------------------------------

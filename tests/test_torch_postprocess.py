@@ -1,0 +1,191 @@
+"""`bemstokes_tpu_torch/postprocess.py` against the JAX package's
+`bemstokes_tpu/postprocess.py`, f64, on create_sphere(2) (98 nodes, 96
+panels) built in code, for each Green's function (free space, the free
+surface and the no-slip wall at y = -2).
+
+The same seeded numpy boundary fields and evaluation points go through both
+packages' evaluators with each package's own assembly tables.  Tolerance
+1e-12 relative to the largest value (the two packages contract the same
+terms in different orders; on the boundary the port sums only the
+coinciding panels' singular rules, where the JAX package weights every
+panel by 0 or 1).  The physics check: a translating sphere solved by the
+port reproduces the exact Stokes flow at exterior points within the error
+the JAX package's own field has at this size (1.3e-2)."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import bemstokes_tpu.mesh.factories as fac_j
+import bemstokes_tpu.postprocess as pp_j
+from bemstokes_tpu.config import ProblemConfig, SolverConfig, WallConfig
+from bemstokes_tpu.fem.geometry import support_points as support_points_j
+from bemstokes_tpu.problem import StokesBEMProblem as ProblemJ
+import bemstokes_tpu_torch.mesh.factories as fac_t
+import bemstokes_tpu_torch.postprocess as pp_t
+from bemstokes_tpu_torch.config import from_dict
+from bemstokes_tpu_torch.fem.geometry import support_points as support_points_t
+from bemstokes_tpu_torch.physics.rigid import flatten
+from bemstokes_tpu_torch.problem import StokesBEMProblem as ProblemT, result_to_numpy
+
+TOL = 1e-12
+KERNELS = ("free_space", "free_surface", "no_slip")
+
+
+def _cfg(kernel, **kw):
+    return ProblemConfig(
+        grid_type="ImposedVelocity",
+        imposed_component=0,
+        no_slip_kernel=kernel == "no_slip",
+        reflect_kernel=kernel == "free_surface",
+        walls=(WallConfig(enabled=False, position=(0.0, -2.0, 0.0), span=(10.0, 0.0, 10.0)),),
+        **kw,
+    )
+
+
+@pytest.fixture(scope="module", params=KERNELS)
+def pair(request):
+    """(kernel, JAX problem, port problem, euler, seeded u and f) on
+    create_sphere(2)."""
+    cfg = _cfg(request.param)
+    pj = ProblemJ(fac_j.create_sphere(refinements=2), cfg)
+    pt = ProblemT(fac_t.create_sphere(refinements=2), from_dict(dataclasses.asdict(cfg)), device="cpu")
+    euler = np.asarray(pj.initial_euler())
+    rng = np.random.default_rng(7)
+    u = rng.normal(size=3 * pj.n)
+    f = rng.normal(size=3 * pj.n)
+    return request.param, pj, pt, euler, u, f
+
+
+def _close(a_j, a_t, tol=TOL):
+    a_j = np.asarray(a_j)
+    a_t = a_t.numpy() if isinstance(a_t, torch.Tensor) else np.asarray(a_t)
+    assert a_j.shape == a_t.shape
+    err = np.max(np.abs(a_j - a_t)) / np.max(np.abs(a_j))
+    assert err <= tol, err
+
+
+def _exterior_points(n, seed=3, r=(1.3, 3.0)):
+    """Seeded points in a spherical shell around the unit sphere, above the
+    wall plane y = -2."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    pts = d * rng.uniform(*r, size=(n, 1))
+    pts[:, 1] = np.maximum(pts[:, 1], -1.5)
+    return pts
+
+
+def test_off_boundary_matches_jax(pair):
+    kernel, pj, pt, euler, u, f = pair
+    pts = _exterior_points(12)
+    out_j = pp_j.evaluate_stokes_bie(jnp.asarray(pts), jnp.asarray(u), jnp.asarray(f), jnp.asarray(euler), pj.tables)
+    out_t = pp_t.evaluate_stokes_bie(
+        pts, torch.as_tensor(u), torch.as_tensor(f), torch.as_tensor(euler), pt.tables
+    )
+    _close(out_j, out_t)
+
+
+def test_kernels_at_match_jax(pair):
+    kernel, pj, pt, euler, u, f = pair
+    pts = _exterior_points(3, seed=5)
+    xq = np.random.default_rng(1).normal(size=(4, 5, 3)) * 2.0
+    G_j, W_j = pp_j._kernels_at(pj.tables.cfg, jnp.asarray(pts), jnp.asarray(xq))
+    G_t, W_t = pp_t._kernels_at(pt.tables.cfg, torch.as_tensor(pts), torch.as_tensor(xq))
+    _close(G_j, G_t, 1e-13)
+    _close(W_j, W_t, 1e-13)
+
+
+def test_on_boundary_matches_jax(pair):
+    """Every fourth support point (on the boundary) and two points off it."""
+    kernel, pj, pt, euler, u, f = pair
+    sp_j = support_points_j(jnp.asarray(euler), pj.map_space, pj.fe_space)
+    sp_t = support_points_t(torch.as_tensor(euler), pt.map_space, pt.fe_space)
+    pts = np.concatenate([np.asarray(sp_j)[::4], _exterior_points(2, seed=11)])
+    out_j = pp_j.evaluate_stokes_bie_on_boundary(
+        jnp.asarray(pts), jnp.asarray(u), jnp.asarray(f), jnp.asarray(euler), sp_j, pj.tables
+    )
+    out_t = pp_t.evaluate_stokes_bie_on_boundary(
+        pts, torch.as_tensor(u), torch.as_tensor(f), torch.as_tensor(euler), sp_t, pt.tables
+    )
+    _close(out_j, out_t)
+
+
+def test_velocity_gradient_and_stress_match_jax(pair):
+    kernel, pj, pt, euler, u, f = pair
+    pts = _exterior_points(3, seed=13)
+    g_j = pp_j.approximate_velocity_gradient(
+        jnp.asarray(pts), jnp.asarray(u), jnp.asarray(f), jnp.asarray(euler), pj.tables, h=1e-4
+    )
+    g_t = pp_t.approximate_velocity_gradient(
+        pts, torch.as_tensor(u), torch.as_tensor(f), torch.as_tensor(euler), pt.tables, h=1e-4
+    )
+    # a central difference divides the evaluation's rounding by 2h
+    _close(g_j, g_t, 1e-9)
+    _close(pp_j.cauchy_viscous_stress(g_j, mu=2.0), pp_t.cauchy_viscous_stress(g_t, mu=2.0), 1e-9)
+
+
+def test_chunks_change_no_result(pair, monkeypatch):
+    """One point a chunk gives the result of one chunk for all points."""
+    kernel, pj, pt, euler, u, f = pair
+    pts = _exterior_points(5, seed=17)
+    args = (torch.as_tensor(u), torch.as_tensor(f), torch.as_tensor(euler), pt.tables)
+    whole = pp_t.make_bie_evaluator(pt.tables)(pts, *args[:3])
+    monkeypatch.setattr(pp_t, "CHUNK_BYTES", 1)
+    assert pp_t.points_per_chunk(16, 3, torch.float64) == 1
+    torch.testing.assert_close(pp_t.evaluate_stokes_bie(pts, *args), whole, rtol=1e-14, atol=0)
+
+
+@pytest.fixture(scope="module")
+def solved_sphere():
+    """The unit sphere translating along x, solved by both packages on
+    create_sphere(2) with a direct solve."""
+    cfg = _cfg("free_space", force_pole="Origin", solver=SolverConfig(solve_directly=True))
+    pj = ProblemJ(fac_j.create_sphere(refinements=2), cfg)
+    pt = ProblemT(fac_t.create_sphere(refinements=2), from_dict(dataclasses.asdict(cfg)), device="cpu")
+    euler = np.asarray(pj.initial_euler())
+    rj = pj.solve_frame(jnp.asarray(euler), jnp.zeros(3 * pj.n))
+    rt = result_to_numpy(pt.solve_frame(euler, np.zeros(3 * pt.n)))
+    return pj, pt, euler, rj, rt
+
+
+def _exact_translating_sphere(x, U):
+    """Stokes flow past a unit sphere translating with velocity U."""
+    r = np.linalg.norm(x, axis=1, keepdims=True)
+    Ux = (x @ U)[:, None]
+    return 0.75 * (U / r + Ux * x / r**3) + 0.25 * (U / r**3 - 3 * Ux * x / r**5)
+
+
+def test_translating_sphere_field(solved_sphere):
+    pj, pt, euler, rj, rt = solved_sphere
+    U = rt["rigid_velocities"][:3]
+    u_b = np.zeros((pt.n, 3))
+    u_b[:] = U
+    pts = _exterior_points(5, seed=19, r=(1.2, 4.0))
+    u_t = pp_t.evaluate_stokes_bie(
+        pts, flatten(torch.as_tensor(u_b)), torch.as_tensor(rt["stokes_forces"]), torch.as_tensor(euler), pt.tables
+    ).numpy()
+    u_j = pp_j.evaluate_stokes_bie(
+        jnp.asarray(pts), jnp.asarray(flatten(torch.as_tensor(u_b)).numpy()), rj["stokes_forces"], jnp.asarray(euler), pj.tables
+    )
+    _close(u_j, u_t, 1e-10)
+    exact = _exact_translating_sphere(pts, U)
+    rel = np.linalg.norm(u_t - exact, axis=1) / np.linalg.norm(exact, axis=1)
+    assert rel.max() <= 1.3e-2, rel
+    # the single layer of the normal vanishes off the surface
+    n_flat = flatten(torch.as_tensor(rt["operators"]["normal"]["normal"]))
+    zero = torch.zeros_like(n_flat)
+    far = pp_t.evaluate_stokes_bie([[0.1, 0.1, 0.1], [4.0, 4.0, 4.0]], zero, n_flat, torch.as_tensor(euler), pt.tables)
+    assert far.abs().max() < 1e-2, far
+    grad = pp_t.approximate_velocity_gradient(
+        pts[:2], flatten(torch.as_tensor(u_b)), torch.as_tensor(rt["stokes_forces"]), torch.as_tensor(euler), pt.tables
+    )
+    assert torch.diagonal(grad, dim1=-2, dim2=-1).sum(-1).abs().max() < 1e-6
+
+
+def test_sharded_evaluation_names_its_roadmap_item():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md: queue 1 item 7"):
+        pp_t.sharded_evaluate_stokes_bie(None, None, None, None, None, None)

@@ -12,6 +12,7 @@ and the drag error is the JAX package's 2.6725e-3 (± 1e-6) for the flat Q1
 map at this size."""
 
 import dataclasses
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -189,27 +190,82 @@ def test_solve_directly_matches_jax():
     ],
     ids=["resistance", "print_matrices", "ilu", "jacobi"],
 )
-def test_unported_solve_branches_raise(change):
-    """The matrix-free solve left this list when `matfree.py` and K5 were
-    ported (tests/test_torch_matfree.py)."""
-    cfg = from_dict(dataclasses.asdict(ProblemConfig(**change)))
-    pt = ProblemT(fac_t.create_sphere(refinements=1), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.solve_frame(pt.initial_euler(), torch.zeros(3 * pt.n, dtype=torch.float64))
+def test_unported_solve_branches_raise(change, tmp_path, monkeypatch):
+    """These branches raised while they waited for their modules (the test
+    keeps its name); each is now a frame of the port against the JAX
+    package's on create_sphere(1) (78 + 6 unknowns): the grand-resistance
+    strategy, the dumps of `print_matrices` (written into the working
+    directory), GMRES under block-Jacobi (ILU) and Jacobi.  1e-10 relative,
+    equal iteration counts."""
+    monkeypatch.chdir(tmp_path)
+    cfg = ProblemConfig(grid_type="ImposedVelocity", imposed_component=0, **change)
+    pj, pt = _problems(cfg, refinements=1)
+    e0 = np.asarray(pj.initial_euler())
+    rj = pj.solve_frame(jnp.asarray(e0), jnp.zeros(3 * pj.n))
+    rt = result_to_numpy(pt.solve_frame(e0, np.zeros(3 * pt.n)))
+    assert rt["iterations"] == rj["iterations"]
+    for key in ("rigid_velocities", "stokes_forces"):
+        assert _rel(rj[key], rt[key]) <= 1e-10, key
+    if not cfg.monolithic:
+        assert _rel(rj["resistance_matrix"], rt["resistance_matrix"]) <= 1e-10
+    else:
+        assert rt["converged"] and _rel(rj["rigid_forces_pole"], rt["rigid_forces_pole"]) <= 1e-10
+    assert sorted(os.listdir(tmp_path)) == (DUMPS if cfg.print_matrices else [])
 
 
-def test_print_matrices_names_what_it_waits_for():
-    """`print_matrices` waits for nothing but its own port, queued beside
-    `la/preconditioners.py`; the message says so."""
-    cfg = from_dict(dataclasses.asdict(ProblemConfig(print_matrices=True)))
-    pt = ProblemT(fac_t.create_sphere(refinements=1), cfg, device="cpu")
-    with pytest.raises(NotImplementedError) as err:
-        pt.solve_frame(pt.initial_euler(), torch.zeros(3 * pt.n, dtype=torch.float64))
-    message = str(err.value)
-    assert message == (
-        "print_matrices is not ported yet (ROADMAP.md: queue 1 item 2, with la/preconditioners.py)"
-    )
-    assert "postprocess.py" not in message and "cli.py" not in message
+DUMPS = sorted(
+    ["monolithic_matrix.txt", "V_matrix.txt", "K_matrix.txt", "Mass_matrix.txt", "normals_matrix.txt"]
+)
+
+
+def test_print_matrices_names_what_it_waits_for(tmp_path):
+    """`print_matrices` raised while it waited for its port (the test keeps
+    its name).  Now the five files of each package, written into the
+    working directory of its own, hold the same matrices to 1e-12 relative;
+    `Mass_matrix.txt` is the consistent mass matrix (symmetric, its entries
+    sum to the surface area), `monolithic_matrix.txt` the frame's `A`.
+    Without `keep_operators` it raises ValueError, as in JAX, and
+    `matrix_free` overrides it (no file is written)."""
+    cfg = ProblemConfig(grid_type="ImposedVelocity", imposed_component=0, print_matrices=True)
+    pj, pt = _problems(cfg, refinements=1)
+    e0 = np.asarray(pj.initial_euler())
+    out = {}
+    for name, run in (
+        ("jax", lambda: pj.solve_frame(jnp.asarray(e0), jnp.zeros(3 * pj.n))),
+        ("torch", lambda: pt.solve_frame(e0, np.zeros(3 * pt.n))),
+    ):
+        folder = tmp_path / name
+        folder.mkdir()
+        cwd = os.getcwd()
+        os.chdir(folder)
+        try:
+            out[name] = run()
+        finally:
+            os.chdir(cwd)
+        assert sorted(os.listdir(folder)) == DUMPS
+    for f in DUMPS:
+        a = np.loadtxt(tmp_path / "jax" / f)
+        b = np.loadtxt(tmp_path / "torch" / f)
+        assert a.shape == b.shape and _rel(a, b) <= 1e-12, f
+    A = np.loadtxt(tmp_path / "torch" / "monolithic_matrix.txt")
+    assert np.array_equal(A, out["torch"]["A"].numpy())
+    M = np.loadtxt(tmp_path / "torch" / "Mass_matrix.txt")
+    assert M.shape == (pt.n, pt.n) and _rel(M, M.T) <= 1e-15
+    assert abs(M.sum() - float(out["torch"]["diagnostics"]["mass_body"])) <= 1e-12 * M.sum()
+
+    no_ops = from_dict(dataclasses.asdict(dataclasses.replace(cfg, keep_operators=False)))
+    p = ProblemT(fac_t.create_sphere(refinements=1), no_ops, device="cpu")
+    with pytest.raises(ValueError, match="keep_operators"):
+        p.solve_frame(p.initial_euler(), np.zeros(3 * p.n))
+    mf = from_dict(dataclasses.asdict(dataclasses.replace(cfg, matrix_free=True)))
+    p = ProblemT(fac_t.create_sphere(refinements=1), mf, device="cpu")
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        p.solve_frame(p.initial_euler(), np.zeros(3 * p.n))
+    finally:
+        os.chdir(cwd)
+    assert sorted(os.listdir(tmp_path)) == ["jax", "torch"]
 
 
 @pytest.mark.parametrize(

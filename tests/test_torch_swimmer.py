@@ -408,11 +408,21 @@ def test_unported_simulations_raise(change, tmp_path):
     ids=["resistance", "jacobi"],
 )
 def test_unported_solves_raise_in_the_loop(change, tmp_path):
-    """The matrix-free loop left this list when it was ported
-    (tests/test_torch_matfree.py)."""
-    cfg = from_dict(dataclasses.asdict(sphere_cfg("no_slip", 1, **change)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SimT(cfg, str(tmp_path), device="cpu").run(0, 1)
+    """These solves raised in the frame loop while they waited for their
+    modules (the test keeps its name): the grand-resistance strategy
+    (`monolithic=False`, whose rigid force sums the loop forms on the host)
+    and GMRES under Jacobi.  Two frames of the sphere sedimenting beside the
+    no-slip wall (create_sphere(1)) against the JAX package's loop: results,
+    states and time series to 1e-9, equal iterations."""
+    sj, st = _sims(sphere_cfg("no_slip", 1, **change), tmp_path)
+    hj, ht = sj.run(0, 2), st.run(0, 2)
+    _assert_same_run(sj, st, hj, ht)
+    F = np.loadtxt(os.path.join(st.out, "point_velocities.txt"))[:, 0]
+    assert np.all(np.isfinite(F)) and abs(F[1] - 1.0) <= 1e-8  # the imposed unit force along y
+    if change.get("monolithic", True):
+        assert [h["iterations"] for h in ht] == [h["iterations"] for h in hj] and ht[0]["iterations"] > 1
+    else:
+        assert [h["iterations"] for h in ht] == [1, 1]
 
 
 def test_default_device_is_the_card(tmp_path):
