@@ -18,6 +18,17 @@ from .reference_element import reference_element
 from ..mesh.dofs import ScalarSpace
 
 
+def parametric_normal(J: torch.Tensor, ambient_dim: int) -> torch.Tensor:
+    """The unnormalized normal of Jacobians J [..., dim, cell_dim]: t_u x t_v
+    in 3D; in 2D the left rotation of the tangent, (-t_y, t_x), which points
+    outward on a clockwise-parametrized circle (the reference's 2D meshes,
+    matching deal.II; a counter-clockwise circle gets inward normals)."""
+    if ambient_dim == 3:
+        return torch.linalg.cross(J[..., 0], J[..., 1], dim=-1)
+    t = J[..., 0]
+    return torch.stack([-t[..., 1], t[..., 0]], dim=-1)
+
+
 def panel_geometry(
     euler_cells: torch.Tensor,  # [Nc, nl_map, dim] gathered node positions
     phi_map: torch.Tensor,  # [nq, nl_map]
@@ -32,13 +43,7 @@ def panel_geometry(
     rotation of the tangent in 2D), times flip_sign."""
     xq = torch.einsum("ql,cld->cqd", phi_map, euler_cells)
     J = torch.einsum("qlk,cld->cqdk", dphi_map, euler_cells)
-    if ambient_dim == 3:
-        nrm = torch.linalg.cross(J[..., 0], J[..., 1], dim=-1)
-    else:
-        t = J[..., 0]
-        # 2D: left rotation of the tangent (outward for the reference's
-        # clockwise-parametrized circle meshes, matching deal.II)
-        nrm = torch.stack([-t[..., 1], t[..., 0]], dim=-1)
+    nrm = parametric_normal(J, ambient_dim)
     jac = torch.sqrt(torch.sum(nrm * nrm, dim=-1))
     normals = nrm / jac[..., None] * flip_sign[:, None, None]
     jxw = jac * weights[None, :]

@@ -6,7 +6,9 @@ four dense squares, 43.5 GB each in f64 at 73,740 unknowns.  This path forms
 none of them: the GMRES matvec recomputes the operator inside the fused node
 sweep (`ops.matfree_node.sweep_matvec`, the kernel K5 on a CUDA tensor; where
 every column of the system is single-layer, as on every all-body mesh, it
-sweeps V alone) and adds the exact sparse corrections:
+sweeps V alone; a 2D problem's sweep is the plain torch
+`ops.matfree_node.sweep_matvec_2d` on every device) and adds the exact sparse
+corrections:
 
 - singular / near-pair quadrature deltas as COO triplets
   (`ops.assemble._singular_coo` / `_near_coo`: the same arrays the
@@ -43,7 +45,7 @@ from .fem.geometry import support_points
 from .la.gmres import gmres
 from .ops.assemble import _near_coo, _singular_coo, assemble_rows
 from .ops.corrections import tangential_projector
-from .ops.matfree_node import build_sweep_arrays, sweep_matvec, sweep_static
+from .ops.matfree_node import build_sweep_arrays, sweep_matvec, sweep_matvec_2d, sweep_static
 from .ops.monolithic import (
     GRID_IMPOSED_VELOCITY,
     GRID_REAL,
@@ -134,6 +136,11 @@ class MatfreeSolver:
             )
         else:
             self.h_rows = None
+
+    def _sweep(self, arrs, XV, XK):
+        """The bulk's action: K5 in 3D, the plain torch sweep in 2D (the JAX
+        package's matvec takes its XLA path in 2D), chosen by dim alone."""
+        return (sweep_matvec if self.d == 3 else sweep_matvec_2d)(self.st, arrs, XV, XK)
 
     # ------------------------------------------------------------------
     def _versor_columns(self):
@@ -242,7 +249,7 @@ class MatfreeSolver:
             k_cols.append(Pt_tq[:, None])
         XK = torch.cat(k_cols, dim=1)
         XV = n_pure_f[:, None]
-        VX, KX = sweep_matvec(self.st, arrs, XV, XK)
+        VX, KX = self._sweep(arrs, XV, XK)
         VX = VX + _delta_apply(coo, dV, XV, dn)
         KX = KX + _delta_apply(coo, dK, XK, dn)
 
@@ -386,7 +393,7 @@ class MatfreeSolver:
             tail = x[dn : dn + R]
             u = none if side == "K" else xs if side == "V" else torch.where(sel, xs, zero)
             w = none if side == "V" else xs if side == "K" else torch.where(sel, zero, xs)
-            Vu, Kw = sweep_matvec(self.st, sys["arrs"], u, w)
+            Vu, Kw = self._sweep(sys["arrs"], u, w)
             if side != "K":
                 Vu = Vu + _delta_apply(coo, dV, u, dn)
                 Vu = Vu + vec_u * torch.dot(w_dual, u)

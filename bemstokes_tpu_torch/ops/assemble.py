@@ -44,7 +44,12 @@ both deltas evaluate the same image Green's functions (`kernels/images.py`) at
 the mirrored collocation point.
 
 The host-side tables (`build_assembly_tables`, `_singular_rules`) are a copy
-of the JAX package's numpy code.  2D raises NotImplementedError.
+of the JAX package's numpy code.
+
+A 2D problem (line cells in the plane; `cfg.dim == 2`) takes the plain
+torch bulk of `ops/bulk_2d.py` in each column mode, on every device, as the
+JAX package keeps 2D on its XLA path; its deltas are the same functions
+here with the 2D normal.  The image kernels are 3D only (ValueError).
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..fem.geometry import panel_geometry
+from ..fem.geometry import panel_geometry, parametric_normal
 from ..fem.quadrature import (
     gauss_quad,
     iterated_gauss_quad,
@@ -76,7 +81,7 @@ from .node_kernel import (
     node_sweep,
     planes_to_dense,
 )
-from . import slot_kernel
+from . import bulk_2d, slot_kernel
 from .slot_kernel import node_groups, tile_nodes, tile_slots_reference
 
 COLUMN_MODES = ("node", "gather", "scatter")
@@ -279,14 +284,22 @@ def _t(arr, like: torch.Tensor, dtype=None):
 
 
 def _check_slice(cfg: AssemblyConfig):
-    if cfg.dim != 3:
-        raise NotImplementedError(
-            "2D assembly is not ported yet (ROADMAP.md: queue 1 item 6, 2D)"
-        )
     if cfg.kernel not in (KERNEL_FREE_SPACE, KERNEL_FREE_SURFACE, KERNEL_NO_SLIP):
         raise ValueError(cfg.kernel)
     if cfg.column_mode not in COLUMN_MODES:
         raise ValueError(f"column_mode must be one of {COLUMN_MODES}, got {cfg.column_mode!r}")
+    if cfg.dim == 2:
+        if cfg.kernel != KERNEL_FREE_SPACE:
+            # the JAX package asserts dim == 3 in every image kernel
+            # (`bemstokes_tpu/kernels/images.py:72`)
+            raise ValueError(
+                f"the image kernels are 3D only, as in the reference; a 2D "
+                f"problem takes the free-space kernel, got {cfg.kernel!r}"
+            )
+        if cfg.node_layout != LAYOUT_DENSE:
+            raise ValueError("the planes layout is K4's, a 3D kernel; 2D writes the dense layout")
+    elif cfg.dim != 3:
+        raise ValueError(f"dim must be 2 or 3, got {cfg.dim!r}")
 
 
 def scatter_coo(M: torch.Tensor, ri, ci, vals) -> torch.Tensor:
@@ -339,7 +352,9 @@ def assemble_rows(
     xi = xi.to(dt)
     nr = xi.shape[0]
     node_mode = cfg.column_mode == "node"
-    if node_mode:
+    if cfg.dim == 2:
+        V, K = _bulk_2d(euler, xi, node_ids, tables)
+    elif node_mode:
         V, K = node_sweep(
             *node_sweep_inputs(euler, xi, tables),
             kernel=cfg.kernel,
@@ -448,6 +463,28 @@ def _panel_bulk(euler, xi, node_ids, tables: AssemblyTables):
     return V.reshape(d * nr, d * n), K.reshape(d * nr, d * n)
 
 
+def _bulk_2d(euler, xi, node_ids, tables: AssemblyTables):
+    """The smooth bulk of a 2D problem in its column mode, plain torch on
+    every device (`ops/bulk_2d.py`: the CUDA sweeps are 3D, as the JAX
+    package's Pallas kernels are)."""
+    xq, normals, jxw = smooth_panel_geometry(euler, tables)
+    if tables.cfg.column_mode == "node":
+        Yj, Nj, Wj, _, _ = node_column_samples(tables, xq, normals, jxw)
+        return bulk_2d.node_bulk(xi, Yj, Nj, Wj)
+    wphi = jxw[:, :, None] * _t(tables.phi_fe, jxw)[None]  # [Nc, nq, nl]
+    return bulk_2d.panel_bulk(
+        xi,
+        node_ids,
+        xq,
+        normals,
+        wphi,
+        _t(tables.cells_nodes_fe, xi, torch.long),
+        _t(tables.inc_slot, xi, torch.long),
+        _t(tables.inc_mask, xi),
+        scatter=tables.cfg.column_mode == "scatter",
+    )
+
+
 def node_sweep_inputs(euler: torch.Tensor, xi: torch.Tensor, tables: AssemblyTables):
     """The arguments (xi, Yj, Nj, Wj) of `node_sweep` for collocation rows
     xi under the geometry `euler`: the smooth-rule panel geometry gathered
@@ -499,7 +536,7 @@ def _pair_local_blocks(cfg, euler_cells, flip, xi_rows, keep, rule):
     w, phi_map, dphi_map, phi_fe = (_t(t, euler_cells) for t in rule)
     xq = torch.einsum("qm,rkmd->rkqd", phi_map, euler_cells)
     J = torch.einsum("qmc,rkmd->rkqdc", dphi_map, euler_cells)
-    nrm = torch.linalg.cross(J[..., 0], J[..., 1], dim=-1)
+    nrm = parametric_normal(J, cfg.dim)
     jac = torch.sqrt(torch.sum(nrm * nrm, dim=-1))
     normals = nrm / jac[..., None] * flip[..., None, None]
     jxw = jac * w[None, None, :]  # [RC, Kn, q]
@@ -629,7 +666,7 @@ def _singular_coo(
 
     xq = torch.einsum("lqm,cmd->clqd", sphi_map, euler_cells)  # [Nc, nl, qs, d]
     J = torch.einsum("lqmk,cmd->clqdk", sdphi_map, euler_cells)
-    nrm = torch.linalg.cross(J[..., 0], J[..., 1], dim=-1)
+    nrm = parametric_normal(J, d)
     jac = torch.sqrt(torch.sum(nrm * nrm, dim=-1))
     flip = _t(tables.flip_sign, euler)[:, None, None]
     normals = nrm / jac[..., None] * flip[..., None]

@@ -42,7 +42,9 @@ from .node_kernel import (
     KERNEL_FREE_SURFACE,
     KERNEL_NO_SLIP,
     eval_G_Wn,
+    refuse_plane,
 )
+from . import bulk_2d
 
 SOURCE = cuda_build.CSRC / "sweep_matvec.cu"
 # the `kind` argument of the library's entry points
@@ -82,12 +84,8 @@ class SweepStatic:
 def sweep_static(tables: AssemblyTables, nr: int) -> SweepStatic:
     """Static sweep description from the (host) tables alone."""
     cfg = tables.cfg
-    if cfg.dim != 3:
-        raise NotImplementedError(
-            "the 2D sweep is not ported yet (ROADMAP.md: queue 1 item 6, 2D)"
-        )
-    if cfg.kernel not in _KIND:
-        raise ValueError(cfg.kernel)
+    if cfg.kernel not in _KIND or (cfg.dim == 2 and cfg.kernel != KERNEL_FREE_SPACE):
+        raise ValueError(f"no {cfg.dim}D sweep for kernel {cfg.kernel!r}")
     return SweepStatic(
         d=cfg.dim,
         n=tables.n_nodes,
@@ -112,6 +110,25 @@ def build_sweep_arrays(st: SweepStatic, tables, xi, xq, normals, jxw):
         N=Nj.to(st.dtype).contiguous(),
         W=Wj.to(st.dtype).contiguous(),
     )
+
+
+def sweep_matvec_2d(st: SweepStatic, arrs, XV, XK):
+    """(V @ XV, K @ XK) of a 2D problem's smooth bulk: the plain torch of
+    `ops/bulk_2d.py` on every device (K5 is 3D, as the JAX package's fused
+    matvec is; its 2D action is the XLA `_sweep_matvec_xla`).  Arguments and
+    results as `sweep_matvec`'s."""
+    if st.d != 2:
+        raise ValueError(f"sweep_matvec_2d: a {st.d}D sweep")
+    squeeze_v, squeeze_k = XV.ndim == 1, XK.ndim == 1
+    VX, KX = bulk_2d.sweep_matvec(
+        arrs["xi"],
+        arrs["Y"],
+        arrs["N"],
+        arrs["W"],
+        XV[:, None] if squeeze_v else XV,
+        XK[:, None] if squeeze_k else XK,
+    )
+    return VX[:, 0] if squeeze_v else VX, KX[:, 0] if squeeze_k else KX
 
 
 def build_sweep(tables: AssemblyTables, xi, xq, normals, jxw):
@@ -140,6 +157,7 @@ def _library():
 
 def _check(st: SweepStatic, arrs, XV, XK):
     xi = arrs["xi"]
+    refuse_plane("sweep_matvec", xi)
     m = st.vmax * st.nq
     shapes = {
         "xi": (xi, (st.nr, 3)),

@@ -83,7 +83,24 @@ def _library(source):
     return cuda_build.library(source, declare)
 
 
+#: why the 3D sweeps refuse points of the plane (every CUDA wrapper of the
+#: port raises with it on a 2D input, on every device)
+PLANE_INPUT = (
+    "takes points in 3D; a 2D problem's bulk and matvec are the plain torch "
+    "of ops/bulk_2d.py, which ops.assemble.assemble_rows and "
+    "matfree.MatfreeSolver choose by cfg.dim"
+)
+
+
+def refuse_plane(fn: str, x):
+    """Raise when `x` holds points of the plane (a last axis of 2): the
+    kernels are 3D, and a 2D input never runs their plain version either."""
+    if x.shape[-1] == 2:
+        raise ValueError(f"{fn} {PLANE_INPUT}")
+
+
 def _check_inputs(xi, Yj, Nj, Wj):
+    refuse_plane("node_sweep", xi)
     nr, n, m = xi.shape[0], Yj.shape[0], Yj.shape[1]
     shapes = {
         "xi": (xi, (nr, 3)),

@@ -42,7 +42,7 @@ import torch
 
 from ..kernels.images import image_point
 from . import cuda_build
-from .node_kernel import KERNEL_FREE_SPACE, eval_G_Wn
+from .node_kernel import KERNEL_FREE_SPACE, eval_G_Wn, refuse_plane
 
 SOURCE = cuda_build.CSRC / "tile_slots.cu"
 
@@ -83,6 +83,7 @@ def _declare(lib):
 
 
 def _check_inputs(xi, xq, nrm, wphi, keep, fn="tile_slots"):
+    refuse_plane(fn, xi)
     nt, nc, nq = xi.shape[0], xq.shape[0], xq.shape[1]
     nl = wphi.shape[-1]
     shapes = {

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from .fem.geometry import panel_geometry
+from .fem.geometry import panel_geometry, parametric_normal
 from .kernels import (
     free_surface_G,
     free_surface_W,
@@ -191,7 +191,7 @@ def evaluate_stokes_bie_on_boundary(
     ec = euler_cells[hit_c]  # [H, nl_map, d]
     xq_s = torch.einsum("hqm,hmd->hqd", t(tables.sphi_map)[hit_l], ec)  # [H, qs, d]
     J = torch.einsum("hqmk,hmd->hqdk", t(tables.sdphi_map)[hit_l], ec)
-    nrm = torch.linalg.cross(J[..., 0], J[..., 1], dim=-1)
+    nrm = parametric_normal(J, d)
     jac = torch.linalg.vector_norm(nrm, dim=-1)
     flip = t(tables.flip_sign)[hit_c][:, None, None]
     normals_s = nrm / jac[..., None] * flip

@@ -12,18 +12,19 @@ The per-frame pipeline (reference `run`, `source/bem_stokes.cc:5636-5884`):
 
 Ported: the Direct frame solve (fresh and stale LU), the `solve_directly`
 branch and GMRES under the other preconditioners (`la/preconditioners.py`)
-in 3D, for the free-space kernel and the two image kernels of a plane wall
+for the free-space kernel and, in 3D, the two image kernels of a plane wall
 (`reflect_kernel`, `no_slip_kernel`), the flagellum torque mode
 (`solve_with_torque`, `imposed_rotation_as_flagellum_shape`), the
 frozen-geometry re-solve (`solve_frame_frozen`), the matrix-free solve
 (`cfg.matrix_free`, `matfree.py`), the grand-resistance strategy
-(`monolithic=False`, `ops/resistance.py`) and the `print_matrices` dumps.
+(`monolithic=False`, `ops/resistance.py`) and the `print_matrices` dumps;
+and every one of these in 2D (a line-cell boundary in the plane, 3 rigid
+modes), free space only, whose bulk is plain torch (`ops/bulk_2d.py`).
 Torch runs eagerly on the problem's device (the CUDA card unless the caller
 passes `device="cpu"`), in the dtype of `ProblemConfig.dtype`; the JAX
 package's jitted single-dispatch fusions and its split-precision f64 GEMV
 (`la/mixed.py`) have no counterpart here (every [dn, dn] product is
-`A @ v`).  The 2D problem raises NotImplementedError and names its
-`ROADMAP.md` item.
+`A @ v`).
 """
 
 from __future__ import annotations
@@ -162,8 +163,13 @@ class StokesBEMProblem:
                 f"force_pole must be 'Origin', 'Baricenter' or 'Point', "
                 f"got {self.cfg.force_pole!r}"
             )
-        if mesh.dim != 3:
-            raise _not_ported("the 2D problem", "queue 1 item 6, 2D")
+        if mesh.dim == 2 and (self.cfg.reflect_kernel or self.cfg.no_slip_kernel):
+            # the JAX package asserts dim == 3 in every image kernel
+            # (`bemstokes_tpu/kernels/images.py:72`)
+            raise ValueError(
+                "the image kernels (reflect_kernel, no_slip_kernel) are 3D "
+                "only, as in the reference; a 2D problem takes the free-space kernel"
+            )
         if self.cfg.mixed_precision_bulk:
             raise NotImplementedError(
                 "mixed_precision_bulk (f32 bulk under f64) is a TPU workaround "
@@ -446,6 +452,9 @@ class StokesBEMProblem:
         (reference `source/bem_stokes.cc:2657-2670` builds the body-frame
         mode, then `rotate_vector` applies R at `:2770`)."""
         dt, dev = self.asm_cfg.dtype, self.device
+        if self.dim != 3:
+            # no flagellum axis in the plane (the JAX package returns zeros)
+            return torch.zeros((self.n, self.dim), dtype=dt, device=dev)
         R = (
             torch.eye(3, dtype=dt, device=dev)
             if rotation is None

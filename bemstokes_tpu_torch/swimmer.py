@@ -16,8 +16,9 @@ package; the frame solves run on the problem's device (the CUDA card unless
 the caller passes `device="cpu"`).
 
 Geometry sources: the analytic flagellum handler, the sphere(s) built in
-code and gaits read from frame mesh files (`mesh/io.py`).  Distributed runs
-and 2D raise NotImplementedError naming their `ROADMAP.md` item.  `SwimmerState`
+code and gaits read from frame mesh files (`mesh/io.py`), in 3D or in 2D
+(line-cell frames; a 2x2 body rotation advanced by the rate U[2]).
+Distributed runs raise NotImplementedError naming their `ROADMAP.md` item.  `SwimmerState`
 files have the JAX package's fields, so a state saved by either package
 loads in the other.
 """
@@ -55,7 +56,7 @@ class SwimmerState:
     """Restartable rigid state (reference rotation_matrix +
     rigid_displacements_for_sim + frame counter)."""
 
-    rotation: np.ndarray  # [3, 3]
+    rotation: np.ndarray  # [d, d]
     displacements: np.ndarray  # [n_map, d] accumulated rigid displacement
     frame: int
 
@@ -100,8 +101,6 @@ class SwimmerSimulation:
         self.cfg = cfg
         self.out = output_dir
         self.device = resolve_device(device)
-        if cfg.dim != 3:
-            raise _not_ported("the 2D frame loop", "queue 1 item 6, 2D")
         if cfg.distributed:
             raise _not_ported("the distributed frame loop (cfg.distributed)", "parallel/*")
         os.makedirs(output_dir, exist_ok=True)
@@ -149,11 +148,15 @@ class SwimmerSimulation:
             self.reference_euler = reference_constant_spiral_euler(
                 torch.as_tensor(euler0), self.flagellum_cfg, self.map_flagellum_mask
             )
-        q = np.asarray(cfg.initial_quaternion, dtype=np.float64)
+        if self.problem.dim == 3:
+            q = np.asarray(cfg.initial_quaternion, dtype=np.float64)
+            rot0 = rotation_matrix_from_quaternion(torch.as_tensor(q / np.linalg.norm(q))).numpy()
+        else:
+            # 2D: a 2x2 rotation advanced by the scalar rate U[2] (the
+            # reference's quaternion machinery is 3D only)
+            rot0 = np.eye(2)
         self.state = SwimmerState(
-            rotation=rotation_matrix_from_quaternion(
-                torch.as_tensor(q / np.linalg.norm(q))
-            ).numpy(),
+            rotation=rot0,
             displacements=np.zeros((map_sp.n_nodes, self.problem.dim)),
             frame=0,
         )
@@ -289,7 +292,7 @@ class SwimmerSimulation:
 
     def _advance_state(self, rigid_velocities: np.ndarray, N):
         """Advance the rigid state.  All host numpy: the per-frame state
-        math is a 3x3 rotation + two [n, d] einsums."""
+        math is a 3x3 (2x2) rotation + two [n, d] einsums."""
         cfg = self.cfg
         d = self.problem.dim
         U = np.asarray(rigid_velocities)
@@ -297,10 +300,10 @@ class SwimmerSimulation:
         v_full = np.einsum("r,rnd->nd", U, N)
         v_tr = np.einsum("r,rnd->nd", U[:d], N[:d])
         if cfg.consider_rigid_rotations:
-            # quaternion forward-Euler on omega = U[3:6]
-            self.state.rotation = update_rotation_matrix_np(
-                self.state.rotation, U[d : 2 * d], cfg.time_step
-            )
+            # 3D: quaternion forward-Euler on omega = U[3:6]; 2D: the scalar
+            # rate U[2] advances the 2x2 rotation exactly
+            omega = U[d : 2 * d] if d == 3 else U[d]
+            self.state.rotation = update_rotation_matrix_np(self.state.rotation, omega, cfg.time_step)
         if cfg.consider_rigid_displacements:
             mask = np.array([1.0 if e else 0.0 for e in cfg.rigid_displacement_axes])
             self.state.displacements = (
@@ -424,10 +427,14 @@ class SwimmerSimulation:
             pole = np.asarray(self.cfg.force_arbitrary_point, dtype=np.float64)[
                 : self.problem.dim
             ]
-        om = U_origin[3:6]
-        U_origin[0] += om[1] * (0.0 - pole[2]) - om[2] * (0.0 - pole[1])
-        U_origin[1] += om[2] * (0.0 - pole[0]) - om[0] * (0.0 - pole[2])
-        U_origin[2] += om[0] * (0.0 - pole[1]) - om[1] * (0.0 - pole[0])
+        if self.problem.dim == 3:
+            om = U_origin[3:6]
+            U_origin[0] += om[1] * (0.0 - pole[2]) - om[2] * (0.0 - pole[1])
+            U_origin[1] += om[2] * (0.0 - pole[0]) - om[0] * (0.0 - pole[2])
+            U_origin[2] += om[0] * (0.0 - pole[1]) - om[1] * (0.0 - pole[0])
+        else:
+            U_origin[0] += -U_origin[2] * (0.0 - pole[1])
+            U_origin[1] += U_origin[2] * (0.0 - pole[0])
         return U_origin
 
     def _save_frame(self, frame, euler, res, total_vel, U, sdot, N_modes):
@@ -531,7 +538,7 @@ class SwimmerSimulation:
             write_vtu(
                 os.path.join(self.out, f"composed_{frame}.vtu"),
                 euler,
-                self.problem.map_space.cells_nodes[:, :4],
+                self.problem.map_space.cells_nodes[:, : 4 if d == 3 else 2],
                 point_data=dict(forces=z["stokes_forces"]),
             )
         mean_U /= max(count, 1)

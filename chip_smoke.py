@@ -139,7 +139,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    every rate positive, the first three errors within 1e-8 of the study on
    the CPU (run by this script with `--cpu-convergence DIR` in a process of
    its own, started before phase 2, so that its plain-torch assembly
-   overlaps the card's phases).
+   overlaps the card's phases);
+20. the 2D problem, which runs no kernel (its bulk and matvec are plain
+   torch, `ops/bulk_2d.py`, as the JAX package keeps 2D on its XLA path):
+   the 10-cell clockwise circle built in code, refined 10 times (10,240
+   nodes, 20,483 unknowns), rotating, f64: (a) a fresh and two stale
+   node-mode frames with their stages (bulk, singular delta, L2 normal, LU,
+   GMRES), peak memory and T / 4 pi - 1, one gather-mode frame (forces
+   within 1e-10 of node mode) and one f32 frame at 5,120 nodes against f64
+   there; (b) U_x R_xx = 1 to 1e-8 (imposed force against imposed
+   velocity); (c) monolithic=False, its 3 x 3 resistance matrix against
+   (a); (d) the matrix-free frame at 2,560 nodes, blocks of 1,024, GMRES
+   tolerance 1e-11, against the materialized one (1e-7), with its
+   iterations and ms per operator action; (e) `python3 -m
+   bemstokes_tpu_torch run --dim 2` as a subprocess on the spinning gait of
+   two `.inp` frames (U[2] within 2e-2 of -alpha/dt, the saved angle dt U[2]
+   to 1e-12, files written); (f) `python3 -m bemstokes_tpu_torch
+   convergence --dim 2 --cycles 8` (10 to 1,280 nodes), its table equal to
+   the study on the card, the first six cycles equal to the CPU's to 1e-10;
+   (g) the field at 1,024 points in 1.2 <= r <= 5 against u_theta = 1/r
+   (1e-7); and no launch of any of the port's CUDA kernels.
 
 Before the last line it prints the card's name and power limit and one JSON
 object {"kernels": [...]} with each kernel's launches on its main paths
@@ -154,6 +173,7 @@ and its bound; the last line is {"ok": true, "device": {...}}.  Without a
 CUDA device it exits non-zero and prints no result.
 """
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -2473,6 +2493,378 @@ def phase_convergence(node_kernel, device, folder, cpu_study):
         raise AssertionError(f"convergence: rates {[r.rate for r in card]}, launches {launches}")
 
 
+#: phase 20: the 10-cell unit circle built in code, ordered clockwise (the
+#: reference's tests/grid_test/circle_0.inp), refined onto the circle:
+#: 10 times for the materialized frames (10,240 line cells, Q1: 10,240 nodes,
+#: 20,483 unknowns), 8 times for the matrix-free frame (2,560 nodes, 5,123
+#: unknowns)
+CIRCLE_REFINEMENTS = 10
+CIRCLE_MATFREE_REFINEMENTS = 8
+#: the f32 frame's size, 5,120 nodes: at 10,240 the first point of the
+#: singular rule lies 6.3e-8 from its node, within an f32 coordinate's
+#: rounding, so R = 0 there and the singular delta is not finite, in the JAX
+#: package's f32 as in the port's
+CIRCLE_F32_REFINEMENTS = 9
+#: the spinning gait's angle between its two frames (tests/test_2d_problem.py)
+CIRCLE_ALPHA = 0.04
+CIRCLE_CONVERGENCE_CYCLES = 8  # 10 -> 1,280 nodes
+CIRCLE_CPU_CYCLES = 6  # 10 -> 320 nodes, computed here on CPU tensors
+CIRCLE_FIELD_POINTS = 1024
+#: what phase 20 holds its numbers to, relative unless stated: the gather
+#: frame against the node frame's forces, the f32 frame against an f64 frame
+#: of its size (the port's f32 frame on the CPU is 1.1e-5, 3.1e-5, 8.0e-5
+#: from f64 at 80, 160, 320 nodes, ~2.7x a refinement: ~4e-3 at 5,120; on
+#: the card 6.7e-3); the duality U_x R_xx = 1
+#: (tests/test_2d_problem.py); the resistance matrix against the monolithic
+#: frame's forces; the matrix-free frame against the materialized one; the
+#: spinning gait's U[2] against -alpha / dt (the JAX test's bound) and the
+#: saved angle against dt U[2] (absolute); the convergence study's first
+#: cycles against the CPU's; the field against the exact flow (the JAX
+#: package's largest error over the same 1,024 points, 1.252e-4 and 3.115e-5
+#: at 160 and 320 nodes, falls 4.02x a refinement: ~3e-8 at 10,240 nodes)
+CIRCLE_TOL = dict(
+    gather=1e-10,
+    f32=5e-2,
+    duality=1e-8,
+    resistance=1e-8,
+    matfree=1e-7,
+    gait=2e-2,
+    angle=1e-12,
+    convergence=1e-10,
+    field=1e-7,
+)
+
+
+def circle_mesh(refinements):
+    """The 10-cell unit circle ordered clockwise, so that each cell's normal
+    (the left rotation of its tangent) points outward, refined `refinements`
+    times onto the circle."""
+    from bemstokes_tpu_torch.mesh import SurfaceMesh
+    from bemstokes_tpu_torch.mesh.refine import SphericalManifold, refine_uniform
+
+    th = -2.0 * np.pi * np.arange(10) / 10
+    mesh = SurfaceMesh(
+        np.stack([np.cos(th), np.sin(th)], axis=1),
+        np.stack([np.arange(10), (np.arange(10) + 1) % 10], axis=1),
+        np.zeros(10, np.int32),
+    )
+    return refine_uniform(mesh, SphericalManifold((0.0, 0.0)), times=refinements) if refinements else mesh
+
+
+def write_inp(path, vertices, cells):
+    """An AVS UCD file of a line-cell mesh in the plane."""
+    with open(path, "w") as f:
+        f.write(f"{len(vertices)} {len(cells)} 0 0 0\n")
+        np.savetxt(f, np.column_stack([np.arange(1, len(vertices) + 1), vertices, np.zeros(len(vertices))]),
+                   fmt="%d %.17g %.17g %g")
+        for i, c in enumerate(cells):
+            f.write(f"{i + 1} 0 line {c[0] + 1} {c[1] + 1}\n")
+
+
+def rotation_2d(theta):
+    c, s = np.cos(theta), np.sin(theta)
+    return np.array([[c, -s], [s, c]])
+
+
+def timed_stage(stages, name, fn):
+    """fn with its synchronised host-clock ms added to stages[name]."""
+
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        stages[name] = stages.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+    return wrapper
+
+
+@contextlib.contextmanager
+def circle_stages(stages):
+    """Time the stages of a 2D frame while the block runs: the plain-torch
+    bulk, the singular delta, the L2-normal CG, the LU factor and GMRES."""
+    import bemstokes_tpu_torch.ops.assemble as asm
+    import bemstokes_tpu_torch.problem as problem
+    from bemstokes_tpu_torch.la.direct import LUPreconditioner
+
+    targets = [
+        (asm, "_bulk_2d", "bulk"),
+        (asm, "_add_singular_rows", "singular delta"),
+        (problem, "normal_vector_l2", "L2 normal"),
+        (LUPreconditioner, "set_up", "LU"),
+        (problem.StokesBEMProblem, "_gmres_direct", "GMRES"),
+    ]
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in targets]
+    for owner, name, label in targets:
+        setattr(owner, name, timed_stage(stages, label, getattr(owner, name)))
+    try:
+        yield
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def circle_problem(device, refinements, **kw):
+    from bemstokes_tpu_torch.config import ProblemConfig
+    from bemstokes_tpu_torch.problem import StokesBEMProblem
+
+    kw = {"grid_type": "ImposedVelocity", "imposed_component": 2, **kw}
+    return StokesBEMProblem(circle_mesh(refinements), ProblemConfig(dim=2, force_pole="Origin", **kw), device=device)
+
+
+def circle_frame(prob, euler, stages=None):
+    """One timed frame of a circle problem (stages timed into `stages`): the
+    result with its operators dropped, and the frame's ms."""
+    sdot = torch.zeros(2 * prob.n, dtype=torch.float64, device=prob.device)
+    with circle_stages(stages if stages is not None else {}):
+        res, ms, spent = frame_timed(prob, euler, sdot)
+    for key in ("operators", "A", "rhs"):
+        res.pop(key, None)
+    return res, ms, spent
+
+
+def port_launches(*modules):
+    """Every CUDA-kernel counter of the port's wrapper modules, summed."""
+    return sum(sum(getattr(mod, "launches").values()) for mod in modules)
+
+
+def phase_2d(node_kernel, matfree_node, slot_kernel, device):
+    """The 2D problem on the card (no kernel: the 2D bulk and matvec are
+    plain torch, as the JAX package keeps 2D on its XLA path): materialized
+    frames of the rotating circle at 10,240 nodes in node, gather and f32
+    form; force/velocity duality; the resistance strategy; the matrix-free
+    frame at 2,560 nodes against the materialized one; the spinning gait
+    through the command line; the convergence command; the field."""
+    import os
+
+    from bemstokes_tpu_torch.config import ProblemConfig, SolverConfig
+    from bemstokes_tpu_torch.config_io import save_config
+    from bemstokes_tpu_torch.convergence import convergence_study, format_table
+    from bemstokes_tpu_torch.fem.geometry import support_points
+    from bemstokes_tpu_torch.mesh import read_mesh
+    from bemstokes_tpu_torch.postprocess import evaluate_stokes_bie
+    from bemstokes_tpu_torch.problem import _resolve_manifold
+    from bemstokes_tpu_torch.swimmer import SwimmerState
+
+    tol = CIRCLE_TOL
+    out = {}
+    zero_counts(node_kernel, matfree_node, slot_kernel)
+
+    # an 80-node frame first, untimed: frame 0 below does not pay the first
+    # use of the 2D route's operations in this process
+    warm = circle_problem(device, 3)
+    circle_frame(warm, warm.initial_euler())
+    del warm
+
+    # (a) materialized frames at 10,240 nodes: fresh, then two stale (the
+    # circle turned and moved), node mode
+    torch.cuda.reset_peak_memory_stats()
+    prob = circle_problem(device, CIRCLE_REFINEMENTS)
+    e0 = prob.initial_euler()
+    e0_np = e0.cpu().numpy()
+    frames = [e0_np, e0_np @ rotation_2d(0.1).T + [0.05, -0.02], e0_np @ rotation_2d(-0.2).T + [-0.1, 0.03]]
+    records = []
+    for k, e in enumerate(frames):
+        stages = {}
+        res, ms, _ = circle_frame(prob, torch.as_tensor(e, device=device), stages)
+        records.append(dict(frame=k, ms=ms, stages=stages, iterations=res["iterations"],
+                            refactored=res["refactored"], converged=res["converged"]))
+        if k == 0:
+            node0 = res
+            # about the origin, which is the centre of frame 0 alone
+            records[0]["torque_rel_err"] = float(np.asarray(res["rigid_forces_pole"])[2] / (4 * np.pi) - 1)
+        log(f"2D frame {k}, {2 * prob.n + 3} unknowns, f64 node mode: " + json.dumps(records[-1]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    forces0 = node0["stokes_forces"].cpu().numpy()
+    F0 = np.asarray(node0["rigid_forces_pole"])
+    if not (records[0]["refactored"] and not any(r["refactored"] for r in records[1:])
+            and all(r["converged"] for r in records)):
+        raise AssertionError(f"2D frames: expected one fresh LU and two stale converged frames: {records}")
+    if not abs(records[0]["torque_rel_err"]) < 1e-6:
+        raise AssertionError(f"2D frames: torque off 4 pi by {records[0]['torque_rel_err']:.3e}")
+    out["frames"] = records
+    out["peak_gib"] = peak
+
+    # the field of the rotating circle (g), from frame 0 while its problem lives
+    rng = np.random.default_rng(20)
+    ang = rng.uniform(0.0, 2.0 * np.pi, CIRCLE_FIELD_POINTS)
+    rad = rng.uniform(1.2, 5.0, CIRCLE_FIELD_POINTS)
+    pts = np.stack([rad * np.cos(ang), rad * np.sin(ang)], axis=1)
+    exact = np.stack([-pts[:, 1], pts[:, 0]], axis=1) / rad[:, None] ** 2  # u_theta = omega a^2 / r
+    sp = support_points(e0, prob.map_space, prob.fe_space)
+    u_b = torch.cat([-sp[:, 1], sp[:, 0]])  # the rigid rotation on the boundary
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u = evaluate_stokes_bie(pts, u_b, node0["stokes_forces"], e0, prob.tables).cpu().numpy()
+    torch.cuda.synchronize()
+    field_ms = (time.perf_counter() - t0) * 1e3
+    field_err = float((np.linalg.norm(u - exact, axis=1) / np.linalg.norm(exact, axis=1)).max())
+    out["field"] = dict(points=CIRCLE_FIELD_POINTS, ms=field_ms, max_rel_err=field_err)
+    log(f"2D field at {CIRCLE_FIELD_POINTS} points in 1.2 <= r <= 5: {field_ms:.1f} ms, largest error "
+        f"against u_theta = 1/r {field_err:.3e} (tol {tol['field']:g})")
+    if not field_err <= tol["field"]:
+        raise AssertionError("2D field: off the exact flow")
+    del prob, node0, sp, u_b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one gather-mode frame against the node-mode forces; an f32 frame
+    # against an f64 frame of its size
+    reference = {CIRCLE_REFINEMENTS: forces0}
+    for name, refinements, kw in (
+        ("gather", CIRCLE_REFINEMENTS, dict(assembly_backend="gather")),
+        ("f64", CIRCLE_F32_REFINEMENTS, {}),
+        ("f32", CIRCLE_F32_REFINEMENTS, dict(dtype="float32", solver=SolverConfig(tolerance=1e-5))),
+    ):
+        prob = circle_problem(device, refinements, **kw)
+        stages = {}
+        res, ms, _ = circle_frame(prob, prob.initial_euler(), stages)
+        forces = res["stokes_forces"].double().cpu().numpy()
+        if name == "f64":
+            reference[refinements] = forces
+            out["f64_at_f32_size"] = dict(nodes=prob.n, ms=ms, stages=stages)
+            del prob, res
+            continue
+        diff = max_rel(forces, reference[refinements])
+        out[name] = dict(nodes=prob.n, ms=ms, stages=stages, iterations=res["iterations"], forces_rel_diff=diff)
+        log(f"2D frame, {name}: " + json.dumps(out[name]) + f" (tol {tol[name]:g})")
+        if not (res["converged"] and diff <= tol[name]):
+            raise AssertionError(f"2D {name} frame: forces {diff:.3e} from the node-mode frame")
+        del prob, res
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (b) force/velocity duality: U_x of a unit x-force against the x-drag
+    R_xx = None
+    for grid in ("ImposedVelocity", "ImposedForce"):
+        prob = circle_problem(device, CIRCLE_REFINEMENTS, grid_type=grid, imposed_component=0)
+        res, ms, _ = circle_frame(prob, prob.initial_euler())
+        if grid == "ImposedVelocity":
+            R_xx = float(np.asarray(res["rigid_forces_pole"])[0])
+        else:
+            U = np.asarray(res["rigid_velocities"])
+        del prob, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    duality = abs(U[0] * R_xx - 1.0)
+    out["duality"] = dict(R_xx=R_xx, U_x=float(U[0]), rel_err=duality)
+    log(f"2D duality: R_xx = {R_xx:.12g}, U_x = {U[0]:.12g}, |U_x R_xx - 1| = {duality:.3e} (tol "
+        f"{tol['duality']:g}); U_y, omega = {U[1]:.3e}, {U[2]:.3e}")
+    if not (duality <= tol["duality"] and abs(U[1]) < 1e-10 and abs(U[2]) < 1e-10):
+        raise AssertionError("2D duality: mobility is not the inverse of the drag")
+
+    # (c) the resistance strategy on the rotating circle
+    prob = circle_problem(device, CIRCLE_REFINEMENTS, monolithic=False)
+    res, ms, spent = circle_frame(prob, prob.initial_euler())
+    Rm = res["resistance_matrix"]
+    diff = max_rel(Rm[:, 2], F0)
+    out["resistance"] = dict(ms=ms, v_lu_ms=spent["Resistance V factor"], d2n_ms=spent["Resistance D2N"],
+                             torque_rel_err=float(Rm[2, 2] / (4 * np.pi) - 1), against_monolithic=diff)
+    log("2D resistance: " + json.dumps(out["resistance"]) + f" (tol {tol['resistance']:g}); R = {Rm.tolist()}")
+    if not diff <= tol["resistance"]:
+        raise AssertionError("2D resistance: its matrix disagrees with the monolithic frame")
+    del prob, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) matrix-free at 2,560 nodes against the materialized frame
+    solver = SolverConfig(tolerance=1e-11)
+    rec = {}
+    for mf in (False, True):
+        prob = circle_problem(device, CIRCLE_MATFREE_REFINEMENTS, matrix_free=mf, matfree_block_nodes=1024,
+                              solver=solver)
+        res, ms, _ = circle_frame(prob, prob.initial_euler())
+        rec[mf] = (res["stokes_forces"].cpu().numpy(), res["iterations"], ms, res["converged"])
+        if mf:
+            sys_, _, _ = prob._matfree._setup(prob.initial_euler(), torch.zeros(2 * prob.n, dtype=torch.float64,
+                                                                                  device=device), None)
+            mv = prob._matfree._matvec(sys_)
+            x = torch.randn(2 * prob.n + 3, dtype=torch.float64, device=device)
+            action_ms = cuda_ms(lambda: mv(x), 5)
+            del sys_, mv
+        del prob, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    diff = max_rel(rec[True][0], rec[False][0])
+    out["matrix_free"] = dict(nodes=2560, iterations=rec[True][1], ms=rec[True][2], action_ms=action_ms,
+                              materialized_ms=rec[False][2], forces_rel_diff=diff)
+    log("2D matrix-free: " + json.dumps(out["matrix_free"]) + f" (tol {tol['matfree']:g})")
+    if not (rec[True][3] and diff <= tol["matfree"]):
+        raise AssertionError("2D matrix-free frame: disagrees with the materialized frame")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (e) the spinning gait through the command line
+        mesh = circle_mesh(CIRCLE_REFINEMENTS)
+        write_inp(os.path.join(tmp, "spin_0.inp"), mesh.vertices, mesh.cells)
+        write_inp(os.path.join(tmp, "spin_1.inp"), mesh.vertices @ rotation_2d(CIRCLE_ALPHA).T, mesh.cells)
+        cfg = ProblemConfig(dim=2, input_grid_path=tmp + os.sep, input_grid_base_name="spin_",
+                            input_grid_format="inp", n_frames=2, time_step=0.1, grid_type="Real",
+                            force_pole="Origin", consider_rigid_rotations=True,
+                            solver=SolverConfig(solve_directly=True))
+        params, run_out = os.path.join(tmp, "params.json"), os.path.join(tmp, "out")
+        save_config(cfg, params)
+        t0 = time.perf_counter()
+        done = subprocess.run(
+            [sys.executable, "-m", "bemstokes_tpu_torch", "run", "--dim", "2", "-p", params, "0", "1", "-o", run_out],
+            cwd=str(Path(__file__).resolve().parent), capture_output=True, text=True, timeout=600,
+        )
+        seconds = time.perf_counter() - t0
+        if done.returncode != 0:
+            raise AssertionError(f"the 2D command line run exited {done.returncode}:\n{done.stderr[-2000:]}")
+        U = np.load(os.path.join(run_out, "result_0.npz"))["rigid_velocities"]
+        rot = SwimmerState.load(os.path.join(run_out, "state_0.npz")).rotation
+        omega = -CIRCLE_ALPHA / cfg.time_step
+        gait = abs(U[2] - omega) / abs(omega)
+        angle = abs(np.arctan2(rot[1, 0], rot[0, 0]) - cfg.time_step * U[2])
+        files = all(os.path.exists(os.path.join(run_out, f)) for f in ("stokes_0.vtu", "point_velocities.txt"))
+        out["gait"] = dict(seconds=seconds, U=U.tolist(), rel_err=gait, angle_err=angle, files=files)
+        log("2D spinning gait, `python3 -m bemstokes_tpu_torch run --dim 2 -p params.json 0 1 -o out`: "
+            + json.dumps(out["gait"]) + f" (tol {tol['gait']:g}, angle {tol['angle']:g})")
+        if not (files and gait <= tol["gait"] and angle <= tol["angle"]
+                and np.abs(U[:2]).max() < 1e-6 * abs(omega)):
+            raise AssertionError("2D spinning gait: wrong counter-rotation, angle or files")
+
+        # (f) the convergence command from the 10-cell circle
+        coarse = circle_mesh(0)
+        write_inp(os.path.join(tmp, "circle_0.inp"), coarse.vertices, coarse.cells)
+        quad = dataclasses.replace(ProblemConfig().quadrature, order=8, singular_order=10)
+        cfg = ProblemConfig(dim=2, input_grid_path=tmp + os.sep, input_grid_base_name="circle_",
+                            input_grid_format="inp", body_manifold="sphere", quadrature=quad)
+        save_config(cfg, params)
+        t0 = time.perf_counter()
+        done = subprocess.run(
+            [sys.executable, "-m", "bemstokes_tpu_torch", "convergence", "--dim", "2", "-p", params, "--cycles",
+             str(CIRCLE_CONVERGENCE_CYCLES), "-o", tmp],
+            cwd=str(Path(__file__).resolve().parent), capture_output=True, text=True, timeout=600,
+        )
+        seconds = time.perf_counter() - t0
+        if done.returncode != 0:
+            raise AssertionError(f"the 2D convergence command exited {done.returncode}:\n{done.stderr[-2000:]}")
+        base = read_mesh(os.path.join(tmp, "circle_0.inp"), dim=2, force_material=0)
+        study = dict(dim=2, source=(0.1, 0.2), manifold=_resolve_manifold(cfg), quad_order=8, sing_order=10)
+        card = convergence_study(base, n_cycles=CIRCLE_CONVERGENCE_CYCLES, device=device, **study)
+        host = convergence_study(base, n_cycles=CIRCLE_CPU_CYCLES, device="cpu", **study)
+    printed = done.stdout.strip()
+    for line in printed.splitlines():
+        log(f"2D convergence: {line}")
+    diff = max(abs(c.error - h.error) / h.error for c, h in zip(card, host))
+    out["convergence"] = dict(seconds=seconds, errors=[r.error for r in card], rates=[r.rate for r in card[1:]],
+                              against_cpu=diff)
+    log("2D convergence, `python3 -m bemstokes_tpu_torch convergence --dim 2 -p params.json --cycles 8`: "
+        + json.dumps(out["convergence"]) + f" (tol {tol['convergence']:g})")
+    if not (printed == format_table(card) and [r.n_nodes for r in card] == [10 * 2**k for k in range(8)]):
+        raise AssertionError("2D convergence: the command's table differs from the study")
+    if not (diff <= tol["convergence"] and all(r.rate > 1.5 for r in card[1:])):
+        raise AssertionError(f"2D convergence: rates {[r.rate for r in card]}, CPU {diff:.3e}")
+
+    launched = port_launches(node_kernel, matfree_node, slot_kernel)
+    log(f"2D: the port's CUDA kernels launched {launched} times (the 2D route is plain torch)")
+    if launched:
+        raise AssertionError("2D: a CUDA sweep ran on a 2D problem")
+    log("phase 20 " + json.dumps(out))
+
+
 def node_sweep_entry(key, kernel, record):
     """The kernels-line entry of a node sweep: its launches over the main
     paths, what they were worth in sweeps of the timed shape (create_sphere(5)
@@ -2564,6 +2956,7 @@ def smoke(folder, cpu_study):
     phase(phase_resistance, node_kernel, device, direct)
     phase(phase_postprocess, node_kernel, device, direct)
     phase(phase_convergence, node_kernel, device, folder, cpu_study)
+    phase(phase_2d, node_kernel, matfree_node, slot_kernel, device)
     kernels = [
         node_sweep_entry(kernel, KERNELS[kernel], records[kernel]) for kernel in KERNELS
     ] + [

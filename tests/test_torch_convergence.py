@@ -70,3 +70,50 @@ def test_default_device_is_the_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='device="cpu"'):
             conv_t.green_recovery_error(mesh, 3, SOURCE)
+
+
+# ---- 2D: the fundamental-solution recovery on the circle --------------------
+# (tests/test_green_recovery.py:76-87 on its 10-cell circle read from the
+# reference's mesh files; here the same circle is built in code, ordered clockwise,
+# and refined once onto the circle; source (0.1, 0.2), quadrature orders 8
+# and 10)
+
+CIRCLE_SOURCE = (0.1, 0.2)
+
+
+def _circle(Mesh, cells=10):
+    th = -2.0 * np.pi * np.arange(cells) / cells
+    lines = np.stack([np.arange(cells), (np.arange(cells) + 1) % cells], axis=1)
+    return Mesh(np.stack([np.cos(th), np.sin(th)], axis=1), lines, np.zeros(cells, np.int32))
+
+
+@pytest.fixture(scope="module")
+def circle_studies():
+    from bemstokes_tpu.mesh.surface_mesh import SurfaceMesh as MeshJ
+    from bemstokes_tpu_torch.mesh.surface_mesh import SurfaceMesh as MeshT
+
+    kw = dict(n_cycles=2, quad_order=8, sing_order=10)
+    rows_j = conv_j.convergence_study(_circle(MeshJ), 2, CIRCLE_SOURCE, manifold=SphereJ((0.0, 0.0)), **kw)
+    rows_t = conv_t.convergence_study(
+        _circle(MeshT), 2, CIRCLE_SOURCE, manifold=SphereT((0.0, 0.0)), device="cpu", **kw
+    )
+    return rows_j, rows_t
+
+
+@pytest.mark.parametrize("cycle", [0, 1], ids=["10_cells", "20_cells"])
+def test_circle_green_recovery_matches_jax(circle_studies, cycle):
+    rows_j, rows_t = circle_studies
+    rj, rt = rows_j[cycle], rows_t[cycle]
+    assert rt.n_nodes == rj.n_nodes == 10 * 2**cycle
+    assert abs(rt.error - rj.error) <= 1e-10 * rj.error
+    if cycle == 0:
+        assert rt.error < 0.15, rt.error  # the 10-cell circle
+    else:
+        assert rt.error < 0.5 * rows_t[0].error  # the refined circle converges
+        assert abs(rt.rate - rj.rate) <= 1e-10 * abs(rj.rate)
+
+
+def test_circle_table_matches_jax(circle_studies):
+    rows_j, rows_t = circle_studies
+    assert conv_t.format_table(rows_t) == conv_j.format_table(rows_j)
+

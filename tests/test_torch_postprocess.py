@@ -1,7 +1,8 @@
 """`bemstokes_tpu_torch/postprocess.py` against the JAX package's
 `bemstokes_tpu/postprocess.py`, f64, on create_sphere(2) (98 nodes, 96
 panels) built in code, for each Green's function (free space, the free
-surface and the no-slip wall at y = -2).
+surface and the no-slip wall at y = -2), and in 2D (free space) on the
+10-cell clockwise circle refined twice (40 nodes).
 
 The same seeded numpy boundary fields and evaluation points go through both
 packages' evaluators with each package's own assembly tables.  Tolerance
@@ -33,6 +34,9 @@ from bemstokes_tpu_torch.problem import StokesBEMProblem as ProblemT, result_to_
 
 TOL = 1e-12
 KERNELS = ("free_space", "free_surface", "no_slip")
+#: the free-space kernel in 2D, on the 10-cell clockwise circle refined
+#: twice (40 nodes)
+CIRCLE = "circle"
 
 
 def _cfg(kernel, **kw):
@@ -46,17 +50,35 @@ def _cfg(kernel, **kw):
     )
 
 
-@pytest.fixture(scope="module", params=KERNELS)
+def _circle_problems():
+    from bemstokes_tpu.mesh.refine import SphericalManifold as CircleJ, refine_uniform as refine_j
+    from bemstokes_tpu.mesh.surface_mesh import SurfaceMesh as MeshJ
+    from bemstokes_tpu_torch.mesh.refine import SphericalManifold as CircleT, refine_uniform as refine_t
+    from bemstokes_tpu_torch.mesh.surface_mesh import SurfaceMesh as MeshT
+
+    th = -2.0 * np.pi * np.arange(10) / 10
+    verts = np.stack([np.cos(th), np.sin(th)], axis=1)
+    cells = np.stack([np.arange(10), (np.arange(10) + 1) % 10], axis=1)
+    cfg = ProblemConfig(dim=2, grid_type="ImposedVelocity", imposed_component=2)
+    mesh_j = refine_j(MeshJ(verts, cells, np.zeros(10, np.int32)), CircleJ((0.0, 0.0)), times=2)
+    mesh_t = refine_t(MeshT(verts, cells, np.zeros(10, np.int32)), CircleT((0.0, 0.0)), times=2)
+    return ProblemJ(mesh_j, cfg), ProblemT(mesh_t, from_dict(dataclasses.asdict(cfg)), device="cpu")
+
+
+@pytest.fixture(scope="module", params=KERNELS + (CIRCLE,))
 def pair(request):
     """(kernel, JAX problem, port problem, euler, seeded u and f) on
-    create_sphere(2)."""
-    cfg = _cfg(request.param)
-    pj = ProblemJ(fac_j.create_sphere(refinements=2), cfg)
-    pt = ProblemT(fac_t.create_sphere(refinements=2), from_dict(dataclasses.asdict(cfg)), device="cpu")
+    create_sphere(2), or on the circle."""
+    if request.param == CIRCLE:
+        pj, pt = _circle_problems()
+    else:
+        cfg = _cfg(request.param)
+        pj = ProblemJ(fac_j.create_sphere(refinements=2), cfg)
+        pt = ProblemT(fac_t.create_sphere(refinements=2), from_dict(dataclasses.asdict(cfg)), device="cpu")
     euler = np.asarray(pj.initial_euler())
     rng = np.random.default_rng(7)
-    u = rng.normal(size=3 * pj.n)
-    f = rng.normal(size=3 * pj.n)
+    u = rng.normal(size=pj.dim * pj.n)
+    f = rng.normal(size=pj.dim * pj.n)
     return request.param, pj, pt, euler, u, f
 
 
@@ -68,11 +90,11 @@ def _close(a_j, a_t, tol=TOL):
     assert err <= tol, err
 
 
-def _exterior_points(n, seed=3, r=(1.3, 3.0)):
-    """Seeded points in a spherical shell around the unit sphere, above the
-    wall plane y = -2."""
+def _exterior_points(n, seed=3, r=(1.3, 3.0), dim=3):
+    """Seeded points in a spherical shell around the unit sphere (an annulus
+    around the unit circle with `dim=2`), above the wall plane y = -2."""
     rng = np.random.default_rng(seed)
-    d = rng.normal(size=(n, 3))
+    d = rng.normal(size=(n, dim))
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     pts = d * rng.uniform(*r, size=(n, 1))
     pts[:, 1] = np.maximum(pts[:, 1], -1.5)
@@ -81,7 +103,7 @@ def _exterior_points(n, seed=3, r=(1.3, 3.0)):
 
 def test_off_boundary_matches_jax(pair):
     kernel, pj, pt, euler, u, f = pair
-    pts = _exterior_points(12)
+    pts = _exterior_points(12, dim=pj.dim)
     out_j = pp_j.evaluate_stokes_bie(jnp.asarray(pts), jnp.asarray(u), jnp.asarray(f), jnp.asarray(euler), pj.tables)
     out_t = pp_t.evaluate_stokes_bie(
         pts, torch.as_tensor(u), torch.as_tensor(f), torch.as_tensor(euler), pt.tables
@@ -91,8 +113,8 @@ def test_off_boundary_matches_jax(pair):
 
 def test_kernels_at_match_jax(pair):
     kernel, pj, pt, euler, u, f = pair
-    pts = _exterior_points(3, seed=5)
-    xq = np.random.default_rng(1).normal(size=(4, 5, 3)) * 2.0
+    pts = _exterior_points(3, seed=5, dim=pj.dim)
+    xq = np.random.default_rng(1).normal(size=(4, 5, pj.dim)) * 2.0
     G_j, W_j = pp_j._kernels_at(pj.tables.cfg, jnp.asarray(pts), jnp.asarray(xq))
     G_t, W_t = pp_t._kernels_at(pt.tables.cfg, torch.as_tensor(pts), torch.as_tensor(xq))
     _close(G_j, G_t, 1e-13)
@@ -100,23 +122,42 @@ def test_kernels_at_match_jax(pair):
 
 
 def test_on_boundary_matches_jax(pair):
-    """Every fourth support point (on the boundary) and two points off it."""
+    """Every fourth support point (on the boundary) and two points off it.
+
+    On the circle the JAX package's evaluator cannot run: it forms the
+    singular panels' normals by a 3D cross product alone
+    (`bemstokes_tpu/postprocess.py:172`).  There the port is held to what
+    the same rules give through the assembly instead: at a support point
+    the field is the row of V f + K u of the uncorrected operators (the
+    smooth rule off the point's panels, their singular rules on them), and
+    off the boundary it is `evaluate_stokes_bie`.  To 1e-9: the singular
+    rules' first points lie ~1e-6 from their node, where p . n cancels to
+    O(r^2), and the assembly contracts W with the normal in another order
+    (measured 1.05e-10 on the K side, 1.7e-15 on the V side)."""
     kernel, pj, pt, euler, u, f = pair
     sp_j = support_points_j(jnp.asarray(euler), pj.map_space, pj.fe_space)
     sp_t = support_points_t(torch.as_tensor(euler), pt.map_space, pt.fe_space)
-    pts = np.concatenate([np.asarray(sp_j)[::4], _exterior_points(2, seed=11)])
-    out_j = pp_j.evaluate_stokes_bie_on_boundary(
-        jnp.asarray(pts), jnp.asarray(u), jnp.asarray(f), jnp.asarray(euler), sp_j, pj.tables
-    )
+    pts = np.concatenate([np.asarray(sp_j)[::4], _exterior_points(2, seed=11, dim=pj.dim)])
     out_t = pp_t.evaluate_stokes_bie_on_boundary(
         pts, torch.as_tensor(u), torch.as_tensor(f), torch.as_tensor(euler), sp_t, pt.tables
+    )
+    if kernel == CIRCLE:
+        from bemstokes_tpu_torch.ops.assemble import assemble_V_K
+
+        V, K = assemble_V_K(torch.as_tensor(euler), sp_t, pt.tables)
+        rows = (V @ torch.as_tensor(f) + K @ torch.as_tensor(u)).reshape(2, -1).T[::4]
+        off = pp_t.evaluate_stokes_bie(pts[-2:], torch.as_tensor(u), torch.as_tensor(f), torch.as_tensor(euler), pt.tables)
+        _close(torch.cat([rows, off]).numpy(), out_t, 1e-9)
+        return
+    out_j = pp_j.evaluate_stokes_bie_on_boundary(
+        jnp.asarray(pts), jnp.asarray(u), jnp.asarray(f), jnp.asarray(euler), sp_j, pj.tables
     )
     _close(out_j, out_t)
 
 
 def test_velocity_gradient_and_stress_match_jax(pair):
     kernel, pj, pt, euler, u, f = pair
-    pts = _exterior_points(3, seed=13)
+    pts = _exterior_points(3, seed=13, dim=pj.dim)
     g_j = pp_j.approximate_velocity_gradient(
         jnp.asarray(pts), jnp.asarray(u), jnp.asarray(f), jnp.asarray(euler), pj.tables, h=1e-4
     )
@@ -131,7 +172,7 @@ def test_velocity_gradient_and_stress_match_jax(pair):
 def test_chunks_change_no_result(pair, monkeypatch):
     """One point a chunk gives the result of one chunk for all points."""
     kernel, pj, pt, euler, u, f = pair
-    pts = _exterior_points(5, seed=17)
+    pts = _exterior_points(5, seed=17, dim=pj.dim)
     args = (torch.as_tensor(u), torch.as_tensor(f), torch.as_tensor(euler), pt.tables)
     whole = pp_t.make_bie_evaluator(pt.tables)(pts, *args[:3])
     monkeypatch.setattr(pp_t, "CHUNK_BYTES", 1)

@@ -268,16 +268,13 @@ def test_print_matrices_names_what_it_waits_for(tmp_path):
     assert sorted(os.listdir(tmp_path)) == ["jax", "torch"]
 
 
-@pytest.mark.parametrize(
-    "change", [dict(mixed_precision_bulk=True), dict(dim=2)], ids=["mixed_bulk", "dim2"]
-)
+@pytest.mark.parametrize("change", [dict(mixed_precision_bulk=True)], ids=["mixed_bulk"])
 def test_unported_setups_raise(change):
     """The image kernels left this list when K2 and K3 were ported
-    (tests/test_torch_image_sweep.py, tests/test_torch_swimmer.py)."""
+    (tests/test_torch_image_sweep.py, tests/test_torch_swimmer.py), and 2D
+    when it was (tests/test_torch_2d_problem.py)."""
     cfg = from_dict(dataclasses.asdict(ProblemConfig(**change)))
     mesh = fac_t.create_sphere(refinements=1)
-    if cfg.dim == 2:
-        mesh = dataclasses.replace(mesh, vertices=mesh.vertices[:, :2])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ProblemT(mesh, cfg, device="cpu")
 

@@ -389,14 +389,11 @@ def test_frozen_needs_kept_operators():
 # ---- what is left for later -------------------------------------------------
 
 
-@pytest.mark.parametrize(
-    "change",
-    [dict(distributed=True), dict(dim=2)],
-    ids=["distributed", "dim2"],
-)
+@pytest.mark.parametrize("change", [dict(distributed=True)], ids=["distributed"])
 def test_unported_simulations_raise(change, tmp_path):
     """Gaits read from frame mesh files left this list when the readers were
-    ported (tests/test_torch_cli.py, `test_frame_mesh_gait_*` below)."""
+    ported (tests/test_torch_cli.py, `test_frame_mesh_gait_*` below), and 2D
+    when it was (tests/test_torch_2d_swimmer.py)."""
     cfg = dataclasses.replace(from_dict(dataclasses.asdict(sphere_cfg("no_slip", 1))), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SimT(cfg, str(tmp_path), device="cpu")
