@@ -19,11 +19,19 @@ cycle (`convergence.py`).
 
 The frame solves and the convergence study run on the CUDA card; `--device
 cpu` asks for the plain torch versions on the CPU, and without a card and
-without that option the command fails.  The JAX command line's `--platform` is this `--device`.  Its
-persistent compilation cache, `--profile` (a `jax.profiler` trace) and
-multi-host start-up have no counterpart here: torch runs eagerly, the
-per-phase timers print at the end of a run, and the port has no distributed
-path yet.
+without that option the command fails.  The JAX command line's `--platform`
+is this `--device`.  Its persistent compilation cache and `--profile` (a
+`jax.profiler` trace) have no counterpart here: torch runs eagerly, and the
+per-phase timers print at the end of a run.
+
+Several processes, one per device, run the distributed frame loop
+(`"distributed": true` in the parameters):
+
+    torchrun --nproc_per_node=W -m bemstokes_tpu_torch run -p params.json [--device cpu] ...
+
+Each process joins the group at start-up (`parallel.multihost`), takes the
+card cuda:LOCAL_RANK (or the CPU, gloo, with `--device cpu`), and rank 0
+alone writes files.
 """
 
 from __future__ import annotations
@@ -87,6 +95,21 @@ def main(argv=None):
         print(f"wrote template parameters to {args.params}")
         return 0
 
+    # "cuda" is the entry points' default device (None): it raises without a
+    # card and never carries on on the CPU by itself
+    device = "cpu" if args.device == "cpu" else None
+
+    # several processes under torchrun: join the process group, one rank per
+    # device; a single process goes on alone (reference: every rank enters
+    # main() identically, `source/main.cc:22`)
+    import torch.distributed as dist
+
+    from .parallel.multihost import initialize_multihost, is_coordinator
+
+    multi = initialize_multihost(device=device)
+    if multi:
+        print(f"multi-process: rank {dist.get_rank()}/{dist.get_world_size()}", file=sys.stderr)
+
     if args.params:
         cfg = load_config(args.params, dim=args.dim)
         cfg.dim = args.dim
@@ -96,12 +119,9 @@ def main(argv=None):
         cfg = ProblemConfig(dim=args.dim)
         path = os.path.join(args.output_dir, f"parameters_{args.dim}d.json")
         os.makedirs(args.output_dir, exist_ok=True)
-        save_config(cfg, path)
+        if is_coordinator():
+            save_config(cfg, path)
         print(f"no parameter file given; wrote defaults to {path}", file=sys.stderr)
-
-    # "cuda" is the entry points' default device (None): it raises without a
-    # card and never carries on on the CPU by itself
-    device = "cpu" if args.device == "cpu" else None
 
     if args.command == "convergence":
         from .convergence import convergence_study, format_table
@@ -137,10 +157,13 @@ def main(argv=None):
     if args.command == "run":
         end = args.end_frame if args.end_frame is not None else cfg.n_frames
         sim.run(args.start_frame, end)
-    else:
+    elif is_coordinator():
         sim.compose(args.start_frame, args.end_frame)
-    # echo the fully-expanded parameters (used_parameters_*.prm analog)
-    save_config(cfg, os.path.join(args.output_dir, f"used_parameters_{args.dim}d.json"))
+    if is_coordinator():
+        # echo the fully-expanded parameters (used_parameters_*.prm analog)
+        save_config(cfg, os.path.join(args.output_dir, f"used_parameters_{args.dim}d.json"))
+    if multi:
+        dist.destroy_process_group()
     return 0
 
 

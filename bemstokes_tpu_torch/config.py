@@ -196,7 +196,8 @@ class ProblemConfig:
     # NotImplementedError in StokesBEMProblem (like `galerkin`)
     apply_iges_to_frame: bool = False
     apply_iges_to_reference: bool = False
-    # distributed (multi-device) frame solves; not ported yet (ROADMAP.md)
+    # distributed frame solves (parallel/solve.py): one process per device,
+    # so distributed_devices must be None or the process group's size
     distributed: bool = False
     distributed_devices: int | None = None  # None = all devices
     # matrix-free monolithic solve (matfree.py): the operators are never

@@ -9,7 +9,11 @@ accumulated Givens rotations, the stopping rule |g[j+1]| < tol * ||b||, and
 each restart begun from the TRUE residual b - A x.  Each Arnoldi step reads
 one scalar back to the host for the convergence test.
 
-matvec and precond are arbitrary callables on flat tensors.
+matvec and precond are arbitrary callables on flat tensors.  `agree`, when
+given, maps every tensor whose value decides a branch before it is read to
+the host: the distributed frame step (`parallel/solve.py`) passes one that
+broadcasts it from rank 0, so that every rank takes the same branches and
+runs the same collectives inside matvec and precond.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ def gmres(
     restart: int = 100,
     tol: float = 1e-10,
     max_restarts: int = 10,
+    agree=None,
 ):
     """Solve A x = b. Returns (x, info) with info = dict(residual, iterations)
     (the residual a 0-d tensor, the iteration count an int).
@@ -38,16 +43,18 @@ def gmres(
     is the true residual."""
     if precond is None:
         precond = _identity
+    if agree is None:
+        agree = _identity
     n = b.shape[0]
     dt, dev = b.dtype, b.device
     x = torch.zeros_like(b) if x0 is None else x0
     m = restart
-    b_norm = float(torch.linalg.vector_norm(b))
+    b_norm = float(agree(torch.linalg.vector_norm(b)))
     atol = tol * (1.0 if b_norm == 0 else b_norm)
 
     def arnoldi_cycle(x, r):
         beta = torch.linalg.vector_norm(r)
-        beta_f = float(beta)
+        beta_f = float(agree(beta))
         V = torch.zeros((m + 1, n), dtype=dt, device=dev)
         H = torch.zeros((m + 1, m), dtype=dt, device=dev)
         cs, sn = [], []  # Givens rotations, applied on the host in f64
@@ -69,7 +76,7 @@ def gmres(
             V[j + 1] = w / torch.where(hj1 == 0, torch.ones_like(hj1), hj1)
             # the rotations act on a host copy of the new column (j + 2
             # scalars, in float64)
-            hc = hcol[: j + 2].tolist()
+            hc = agree(hcol[: j + 2]).tolist()
             for i in range(j):
                 hi = hc[i] * cs[i] + hc[i + 1] * sn[i]
                 hi1 = -hc[i] * sn[i] + hc[i + 1] * cs[i]
@@ -99,7 +106,7 @@ def gmres(
     res = torch.linalg.vector_norm(r)
     total_it = 0
     c = 0
-    while c < max_restarts and float(res) > atol:
+    while c < max_restarts and float(agree(res)) > atol:
         x, k = arnoldi_cycle(x, r)
         # restart on the TRUE residual (the in-cycle Givens estimate drifts
         # from it under finite precision)

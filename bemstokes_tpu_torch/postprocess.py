@@ -263,8 +263,18 @@ def make_bie_evaluator(tables):
 
 
 def sharded_evaluate_stokes_bie(val_points, velocities_flat, forces_flat, euler, tables, mesh):
-    """Off-boundary BIE evaluation with the points sharded over a device
-    mesh: the distributed path of the port is not there yet."""
-    raise NotImplementedError(
-        "sharded_evaluate_stokes_bie is not ported yet (ROADMAP.md: queue 1 item 7, parallel/*)"
-    )
+    """Off-boundary BIE evaluation with the POINTS split over the ranks of a
+    row mesh (`parallel.row_mesh`; fields replicated): the distributed
+    counterpart of the reference's replicated `evaluate_stokes_bie`
+    (`source/bem_stokes.cc:5366-5451`).  The points are padded to a multiple
+    of the world size, each rank integrates the whole boundary against its
+    own share, and an all-gather returns every value [P, d] to every rank."""
+    from .parallel.sharded import all_gather_rows
+
+    pts = _points(val_points, tables.cfg, euler.device)
+    P = pts.shape[0]
+    share = -(-P // mesh.world)
+    pad = pts.new_full((share * mesh.world - P, pts.shape[1]), 1e6)
+    mine = torch.cat([pts, pad])[mesh.rank * share : (mesh.rank + 1) * share]
+    out = evaluate_stokes_bie(mine, velocities_flat, forces_flat, euler, tables)
+    return all_gather_rows(out, mesh)[:P]

@@ -73,10 +73,6 @@ def _dtype_of(cfg: ProblemConfig) -> torch.dtype:
     return torch.float64 if cfg.dtype == "float64" else torch.float32
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md: {item})")
-
-
 #: `ProblemConfig.assembly_backend` -> (column_mode, node_layout) of the
 #: port's AssemblyConfig.  The JAX package's backend names keep the port on
 #: its node mode (K1, K2, K3), as before; "gather" (K6 in free space),

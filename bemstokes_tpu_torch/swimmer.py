@@ -18,9 +18,12 @@ the caller passes `device="cpu"`).
 Geometry sources: the analytic flagellum handler, the sphere(s) built in
 code and gaits read from frame mesh files (`mesh/io.py`), in 3D or in 2D
 (line-cell frames; a 2x2 body rotation advanced by the rate U[2]).
-Distributed runs raise NotImplementedError naming their `ROADMAP.md` item.  `SwimmerState`
-files have the JAX package's fields, so a state saved by either package
-loads in the other.
+`cfg.distributed` solves each frame with the distributed frame step
+(`parallel/solve.py`) over every rank of the process group, one process per
+device (`torchrun`; a single process forms a group of one), and only rank 0
+writes the output files: the JAX package runs one process per host and
+writes from each.  `SwimmerState` files have the JAX package's fields, so a
+state saved by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -40,10 +43,10 @@ from .physics.kinematics import (
     rotation_matrix_from_quaternion,
     update_rotation_matrix_np,
 )
+from .parallel.multihost import is_coordinator
 from .physics.rigid import flatten
 from .problem import (
     StokesBEMProblem,
-    _not_ported,
     _resolve_manifold,
     resolve_device,
     result_to_numpy,
@@ -101,8 +104,6 @@ class SwimmerSimulation:
         self.cfg = cfg
         self.out = output_dir
         self.device = resolve_device(device)
-        if cfg.distributed:
-            raise _not_ported("the distributed frame loop (cfg.distributed)", "parallel/*")
         os.makedirs(output_dir, exist_ok=True)
         self._static_base_mesh = None
         self.flagellum_cfg = None
@@ -166,6 +167,9 @@ class SwimmerSimulation:
         mask[body_nodes] = 1.0
         self.map_body_mask = mask[:, None]
         self.history: list[dict] = []
+        self._dist_step = None
+        if cfg.distributed:
+            self._ensure_dist_step()
 
     # ------------------------------------------------------------------
     def _read_frame_mesh(self, frame: int):
@@ -287,8 +291,104 @@ class SwimmerSimulation:
         )
 
     def _solve(self, euler, sdot):
-        """One frame solve on the problem's device."""
-        return self.problem.solve_frame(euler, sdot, self.state.rotation)
+        """One frame solve: `StokesBEMProblem.solve_frame` on the problem's
+        device, or the distributed frame step (cfg.distributed) with its
+        fields repackaged into the same result schema."""
+        if not self.cfg.distributed:
+            return self.problem.solve_frame(euler, sdot, self.state.rotation)
+        rigid_vel, _, info, fields = self._dist_step(euler, sdot, self.state.rotation)
+        return self._package_dist_result(rigid_vel, info, fields)
+
+    def _ensure_dist_step(self):
+        from .parallel import row_mesh
+        from .parallel.solve import make_sharded_frame_step
+
+        cfg = self.cfg
+        if self._dist_step is None:
+            # frozen-geometry squirmer runs keep the operators and LU factors
+            # on the device so that later frames only rebuild the rhs
+            frozen_capable = (
+                cfg.velocity_type == "Squirmer"
+                and not cfg.squirmer_change_geometry
+                and cfg.monolithic
+                and cfg.grid_type == "Real"
+                and not cfg.solve_with_torque
+                and cfg.solver.preconditioner_type == "Direct"
+            )
+            self._dist_step = make_sharded_frame_step(
+                self.problem,
+                row_mesh(cfg.distributed_devices, device=self.device),
+                return_fields=True,
+                keep_frozen_pieces=frozen_capable,
+            )
+
+    def _solve_frozen_distributed(self, sdot):
+        """Distributed frozen-geometry fast path: reuse the device-resident
+        operators and factors of the previous full step, rebuild only the
+        rhs (reference squirmer branch `source/bem_stokes.cc:5734-5759`)."""
+        rigid_vel, _, info, fields = self._dist_step.frozen(sdot)
+        return self._package_dist_result(rigid_vel, info, fields)
+
+    def _package_dist_result(self, rigid_vel, info, fields):
+        cfg = self.cfg
+        # the per-frame scalars to the host; the large fields (forces,
+        # modes, normals) stay on the device until the output writers read
+        # them
+        scalar_keys = [
+            "F",
+            "F_complete",
+            "mass_body",
+            "com_body",
+            "rhs_norm",
+            "v_null_residual_pre",
+            "k_solid_angle_check",
+        ]
+        scalar_keys += [k for k in ("flagellum_omega", "motor_torque") if k in fields]
+        f = {k: result_to_numpy(fields[k]) for k in scalar_keys}
+        iters = int(info["iterations"])
+        residual = float(info["residual"])
+        b_norm = float(f["rhs_norm"])
+        converged = residual <= cfg.solver.tolerance * (b_norm if b_norm > 0 else 1.0) * 1.0001
+        if not converged:
+            import warnings
+
+            warnings.warn(
+                f"distributed GMRES did not converge in {iters} iterations "
+                f"(residual {residual:.3e}, max_steps {cfg.solver.max_steps})",
+                stacklevel=2,
+            )
+        stale = getattr(self._dist_step, "stale_state", {})
+        ops = dict(N=fields["N"], normal=dict(normal=fields["normal"]))
+        extra = {}
+        if "torque_mode_flat" in fields:
+            # the single-card result schema (motor_torque.txt, the
+            # rigid_flagellum VTU field, torque-driven gait velocities)
+            ops["N_flagellum_torque"] = fields["torque_mode_flat"]
+            extra["motor_torque"] = float(f["motor_torque"])
+        if "flagellum_omega" in f:
+            extra["flagellum_omega"] = float(f["flagellum_omega"])
+            extra["shape_velocities"] = fields["shape_velocities_flat"]
+        if "resistance_matrix" in fields:
+            extra["resistance_matrix"] = result_to_numpy(fields["resistance_matrix"])
+        return dict(
+            stokes_forces=fields["forces"],
+            wall_velocities=fields["wall_velocities"],
+            rigid_velocities=result_to_numpy(rigid_vel),
+            rigid_forces_pole=f["F"],
+            rigid_forces_complete=f["F_complete"],
+            iterations=iters,
+            converged=converged,
+            refactored=stale.get("refactored", False),
+            residual=residual,
+            diagnostics=dict(
+                mass_body=f["mass_body"],
+                com_body=f["com_body"],
+                v_null_residual_pre=f["v_null_residual_pre"],
+                k_solid_angle_check=f["k_solid_angle_check"],
+            ),
+            operators=ops,
+            **extra,
+        )
 
     def _advance_state(self, rigid_velocities: np.ndarray, N):
         """Advance the rigid state.  All host numpy: the per-frame state
@@ -331,15 +431,20 @@ class SwimmerSimulation:
                     sdot = self.shape_velocities(frame, euler)
                 # squirmer frozen-geometry fast path: reuse the operators,
                 # only rebuild the rhs (reference
-                # `source/bem_stokes.cc:5734-5759`)
+                # `source/bem_stokes.cc:5734-5759`); on the distributed path
+                # the operators and LU factors stay in the step's state
                 frozen = (
                     cfg.velocity_type == "Squirmer"
                     and not cfg.squirmer_change_geometry
                     and cfg.monolithic
                     and prev_res is not None
                 )
+                if frozen and cfg.distributed:
+                    frozen = getattr(self._dist_step, "frozen", None) is not None
                 with timers.scope("Assemble + LAC Solve"):
-                    if frozen:
+                    if frozen and cfg.distributed:
+                        res = self._solve_frozen_distributed(sdot)
+                    elif frozen:
                         res = self.problem.solve_frame_frozen(prev_res, sdot)
                     else:
                         res = self._solve(euler, sdot)
@@ -374,7 +479,10 @@ class SwimmerSimulation:
                 sdot_host = result_to_numpy(sdot)
                 total_vel = sdot_host.reshape(d, -1).T + v_full
                 self._print_frame_checks(frame, res)
-                self._save_frame(frame, euler, res, total_vel, U, sdot_host, N_host)
+                if is_coordinator():
+                    # rank 0 alone writes (the reference's `this_mpi_process
+                    # == 0` guards); the port runs one process per device
+                    self._save_frame(frame, euler, res, total_vel, U, sdot_host, N_host)
                 entry = dict(
                     frame=frame,
                     rigid_velocities=U.tolist(),

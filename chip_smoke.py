@@ -158,12 +158,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    convergence --dim 2 --cycles 8` (10 to 1,280 nodes), its table equal to
    the study on the card, the first six cycles equal to the CPU's to 1e-10;
    (g) the field at 1,024 points in 1.2 <= r <= 5 against u_theta = 1/r
-   (1e-7); and no launch of any of the port's CUDA kernels.
+   (1e-7); and no launch of any of the port's CUDA kernels;
+21. the distributed frame step (`parallel/`) in a 1-rank NCCL group on the
+   card (a broadcast and an all-gather checked first), f64: (a) the Direct
+   step at 18,444 unknowns, fresh then stale, against `solve_frame` fresh
+   then stale on the same inputs (forces, F and rigid velocities within
+   1e-10, equal iterations and refactor flags, drag error 1.728e-4), with
+   both frames' ms, the slab LU's ms against `solve_frame`'s LU and the
+   peak memory; (e) `sharded_evaluate_stokes_bie` of its frame 0 at 4,096
+   points against `evaluate_stokes_bie` (1e-12); (b) the Jacobi step
+   (1e-8) and the resistance step (1e-10, 6 pi U_x within 2.5e-4 of 1)
+   against their single-card frames; (c) the four slabs of a virtual
+   4-rank partition, each assembled alone by the per-rank body of
+   `sharded_assemble` (nloc 1,537, two padded rows on the last): K1 on
+   create_sphere(5), K3 on create_sphere(4) beside the no-slip wall, every
+   real row within 1e-13 of max|V|, max|K| of the single-card operators,
+   padded rows zero; (d) `SwimmerSimulation.run(0, 2)` with `distributed`
+   on a Real gait of three gmsh files from create_sphere(4) beside the
+   no-slip wall against the same loop without it (rigid velocities within
+   1e-10, the same output files, one K3 launch a frame); the group is
+   destroyed at the end.
 
 Before the last line it prints the card's name and power limit and one JSON
 object {"kernels": [...]} with each kernel's launches on its main paths
-(K1-K4: summed over every path of phases 5, 6, 9, 10, 14 and 16-19 that
-reaches them, the block factors of the matrix-free frames included; beside that raw
+(K1-K4: summed over every path of phases 5, 6, 9, 10, 14, 16-19 and 21 that
+reaches them, the block factors of the matrix-free frames included, and
+phase 21's frames, slabs and loop; beside that raw
 count, what the launches were worth in whole create_sphere(5) sweeps per
 type, and those sweeps times each type's gap between time and bound;
 `tile_nodes` likewise over the gather frames of phase 14, in whole
@@ -383,7 +403,7 @@ def clock_under_load(fn):
 
 
 #: launches of K1-K4 summed over every main path that reaches them (phases
-#: 5, 6, 9, 10, 14 and 16-19), each path's counts read just after it ran with the
+#: 5, 6, 9, 10, 14, 16-19 and 21), each path's counts read just after it ran with the
 #: counters set to 0 just before it; and the interactions they swept, per
 #: (counter, "f32" or "f64")
 PATH_LAUNCHES = {"free_space": 0, "free_surface": 0, "no_slip": 0, "planes": 0}
@@ -2865,6 +2885,289 @@ def phase_2d(node_kernel, matfree_node, slot_kernel, device):
     log("phase 20 " + json.dumps(out))
 
 
+#: phase 21: the distributed frame step (parallel/) at world size 1 in a
+#: 1-rank NCCL group; every replicated value there is the rank's own, so
+#: the distributed frames equal the single-card ones up to the order of
+#: their sums (1e-10 relative), with equal iterations
+DIST_TOL = 1e-10
+#: the Jacobi frames: GMRES stopped at 1e-10 of |rhs| in two runs whose
+#: products round differently, times the operator's conditioning
+DIST_JACOBI_TOL = 1e-8
+#: drag error of the Direct frame at create_sphere(5) (PR 1's 1.728e-4)
+DIST_DRAG = 1.728e-4
+#: (c): a virtual partition into 4 slabs, each assembled alone by
+#: `parallel.sharded.assemble_slab`; its real rows against the single-card
+#: V and K relative to max|V|, max|K|
+SLAB_WORLD = 4
+SLAB_TOL = 1e-13
+FIELD_DIST_TOL = 1e-12
+
+
+def dist_frame(step, euler, sdot):
+    """One distributed step with the timers reset before it: its outputs,
+    host-clock ms (device synchronised), the LU timer's ms and the peak
+    memory (GiB) since the step began."""
+    from bemstokes_tpu_torch.utils import timers
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    timers.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step(euler, sdot)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    spent = {k: v["total_s"] * 1e3 for k, v in timers.as_dict().items()}
+    return out, ms, spent.get("DirectPreconditioner Refactorisation", 0.0), torch.cuda.max_memory_allocated() / 2**30
+
+
+def single_frame(prob, euler, sdot):
+    """`frame_timed` of one single-card frame, as the record `dist_frame`'s
+    outputs are compared with."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    from bemstokes_tpu_torch.physics.rigid import flatten
+
+    res, ms, spent = frame_timed(prob, euler, sdot)
+    if "rigid_forces_pole" not in res:  # the resistance strategy's result
+        res["rigid_forces_pole"] = (flatten(res["operators"]["N_dual"]) @ res["stokes_forces"]).cpu().numpy()
+    rec = dict(
+        U=np.asarray(res["rigid_velocities"]),
+        F=np.asarray(res["rigid_forces_pole"]),
+        forces=res["stokes_forces"].cpu().numpy(),
+        iterations=res["iterations"],
+        refactored=res.get("refactored", False),
+        ms=ms,
+        lu_ms=spent.get("DirectPreconditioner Refactorisation", 0.0),
+        peak=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    return rec
+
+
+def dist_record(out, ms, lu_ms, peak, step):
+    U, _, info, f = out
+    return dict(
+        U=U.cpu().numpy(),
+        F=f["F"].cpu().numpy(),
+        forces=f["forces"].cpu().numpy(),
+        iterations=int(info["iterations"]),
+        refactored=getattr(step, "stale_state", {}).get("refactored", False),
+        ms=ms,
+        lu_ms=lu_ms,
+        peak=peak,
+    )
+
+
+def shown(rec):
+    return {k: (round(v, 3) if isinstance(v, float) else v) for k, v in rec.items() if k not in ("U", "F", "forces")}
+
+
+def phase_distributed(node_kernel, device):
+    """The distributed frame step (`parallel/solve.py`) in a 1-rank NCCL
+    group at 18,444 unknowns against the single-card frames, the slabs of a
+    virtual 4-rank partition through K1 and K3, the distributed frame loop
+    and the points-split BIE field."""
+    import os
+
+    import torch.distributed as dist
+
+    from bemstokes_tpu_torch import postprocess
+    from bemstokes_tpu_torch.config import ProblemConfig, SolverConfig
+    from bemstokes_tpu_torch.config_io import save_config
+    from bemstokes_tpu_torch.fem.geometry import support_points
+    from bemstokes_tpu_torch.mesh import create_sphere
+    from bemstokes_tpu_torch.ops.assemble import assemble_V_K
+    from bemstokes_tpu_torch.parallel import row_mesh
+    from bemstokes_tpu_torch.parallel.sharded import assemble_slab
+    from bemstokes_tpu_torch.parallel.solve import make_sharded_frame_step
+    from bemstokes_tpu_torch.physics.rigid import flatten
+    from bemstokes_tpu_torch.problem import StokesBEMProblem
+    from bemstokes_tpu_torch.swimmer import SwimmerSimulation
+
+    dmesh = row_mesh()
+    probe = torch.arange(4.0, device=device)
+    gathered = [torch.empty_like(probe)]
+    dist.broadcast(probe, src=0)
+    dist.all_gather(gathered, probe)
+    log(f"distributed: backend {dist.get_backend()}, world {dmesh.world}, rank {dmesh.rank}, device {dmesh.device}")
+    if str(dist.get_backend()) != "nccl" or dmesh.world != 1 or not torch.equal(gathered[0], probe):
+        raise AssertionError("distributed: expected a working 1-rank NCCL group")
+    mesh5 = create_sphere(refinements=REFINEMENTS)
+
+    def rel(a, b):
+        return float(np.abs(np.asarray(a) - np.asarray(b)).max() / np.abs(np.asarray(b)).max())
+
+    def compare(name, single, dist_recs, tol):
+        for k, (s, d) in enumerate(zip(single, dist_recs)):
+            F_err = float(np.abs(d["F"] - s["F"]).max() / max(np.abs(s["F"]).max(), np.abs(s["forces"]).max()))
+            errs = dict(U=rel(d["U"], s["U"]), forces=rel(d["forces"], s["forces"]), F=F_err)
+            log(f"distributed {name} frame {k}: single {json.dumps(shown(s))}; distributed {json.dumps(shown(d))}; against single {errs} (tol {tol:g})")
+            if max(errs.values()) > tol or (d["iterations"] != s["iterations"] and tol == DIST_TOL):
+                raise AssertionError(f"distributed {name} frame {k} differs from the single-card frame")
+
+    # (a) Direct, fresh then stale, against solve_frame on the same inputs
+    cfg = ProblemConfig(grid_type="ImposedVelocity", imposed_component=0)
+    prob = StokesBEMProblem(mesh5, cfg, device=device)
+    e0 = prob.initial_euler().cpu().numpy()
+    frames = frames_of(e0)[:2]
+    sdot = np.zeros(3 * prob.n)
+    zero_counts(node_kernel)
+    single = [single_frame(prob, e, sdot) for e in frames]
+    tally(node_kernel)
+    del prob
+    prob = StokesBEMProblem(mesh5, cfg, device=device)
+    step = make_sharded_frame_step(prob, dmesh, return_fields=True)
+    zero_counts(node_kernel)
+    dist_recs, field_in = [], None
+    for e in frames:
+        out = dist_frame(step, e, sdot)
+        dist_recs.append(dist_record(*out, step))
+        if field_in is None:
+            U = dist_recs[0]["U"][:3]
+            u_b = torch.as_tensor(np.tile(U, (prob.n, 1)), dtype=torch.float64, device=device)
+            field_in = (flatten(u_b), out[0][3]["forces"], torch.as_tensor(e, device=device))
+        del out
+    launches = tally(node_kernel)
+    compare("Direct", single, dist_recs, DIST_TOL)
+    drags = [abs(abs(r["F"][0]) - 6 * np.pi) / (6 * np.pi) for r in dist_recs]
+    log(
+        f"distributed Direct at {3 * prob.n + prob.num_rigid} unknowns: frames {[round(r['ms'], 1) for r in dist_recs]} ms "
+        f"(single {[round(r['ms'], 1) for r in single]}), slab LU {dist_recs[0]['lu_ms']:.1f} ms against solve_frame's "
+        f"LU {single[0]['lu_ms']:.1f} ms, peak {[round(r['peak'], 2) for r in dist_recs]} GiB (single "
+        f"{[round(r['peak'], 2) for r in single]}), drag error {drags}, K1 launches {launches['free_space']}"
+    )
+    if [r["refactored"] for r in dist_recs] != [True, False] or [r["refactored"] for r in single] != [True, False]:
+        raise AssertionError("distributed Direct: frame 0 must factor and frame 1 reuse the factors")
+    if not all(abs(dr - DIST_DRAG) < 5e-8 for dr in drags[:1]) or launches["free_space"] != 2:
+        raise AssertionError(f"distributed Direct: drag error {drags} or launches {launches}")
+
+    # (e) the BIE field of frame 0, the points split over the ranks
+    pts = shell_points(FIELD_POINTS, seed=2026)
+    u_flat, f_flat, e0_t = field_in
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = postprocess.sharded_evaluate_stokes_bie(pts, u_flat, f_flat, e0_t, prob.tables, dmesh)
+    torch.cuda.synchronize()
+    sharded_ms = (time.perf_counter() - t0) * 1e3
+    ref = postprocess.evaluate_stokes_bie(pts, u_flat, f_flat, e0_t, prob.tables)
+    field_err = rel(got.cpu().numpy(), ref.cpu().numpy())
+    log(f"distributed field: sharded_evaluate_stokes_bie at {FIELD_POINTS} points {sharded_ms:.1f} ms, against evaluate_stokes_bie {field_err:.3e} (tol {FIELD_DIST_TOL:g})")
+    if not (got.shape == (FIELD_POINTS, 3) and field_err <= FIELD_DIST_TOL):
+        raise AssertionError("distributed field disagrees")
+    del step, prob, field_in, u_flat, f_flat, got, ref
+
+    # (b) Jacobi and the resistance strategy against their single-card frames
+    for name, cfg, tol in (
+        ("Jacobi", ProblemConfig(grid_type="ImposedVelocity", imposed_component=0, solver=SolverConfig(preconditioner_type="Jacobi")), DIST_JACOBI_TOL),
+        ("resistance", ProblemConfig(grid_type="ImposedForce", imposed_component=0, monolithic=False), DIST_TOL),
+    ):
+        prob = StokesBEMProblem(mesh5, cfg, device=device)
+        zero_counts(node_kernel)
+        s = single_frame(prob, e0, sdot)
+        step = make_sharded_frame_step(prob, dmesh, return_fields=True)
+        d = dist_record(*dist_frame(step, e0, sdot), step)
+        launches = tally(node_kernel)
+        compare(name, [s], [d], tol)
+        mobility = 6 * np.pi * d["U"][0] - 1
+        log(
+            f"distributed {name}: 6 pi U_x - 1 = {mobility:.4e}, |F_x| / 6 pi - 1 = "
+            f"{abs(d['F'][0]) / (6 * np.pi) - 1:.4e}, iterations {d['iterations']} (single {s['iterations']}), "
+            f"K1 launches {launches['free_space']}"
+        )
+        if launches["free_space"] != 2 or (name == "resistance" and abs(mobility) > RESISTANCE_TOL["mobility"]):
+            raise AssertionError(f"distributed {name}: launches {launches} or mobility {mobility}")
+        del prob, step
+
+    # (c) the slabs of a virtual 4-rank partition, K1 and K3, against the
+    # single-card operators
+    for name, refinements, kw in (
+        ("free_space", REFINEMENTS, {}),
+        ("no_slip", REFINEMENTS - 1, dict(no_slip_kernel=True, walls=wall_config("no_slip", 1).walls)),
+    ):
+        cfg = ProblemConfig(grid_type="ImposedVelocity", imposed_component=0, **kw)
+        prob = StokesBEMProblem(create_sphere(refinements=refinements), cfg, device=device)
+        e = prob.initial_euler()
+        sp = support_points(e, prob.map_space, prob.fe_space)
+        n = prob.n
+        V, K = assemble_V_K(e, sp, prob.tables)
+        scale_v, scale_k = float(V.abs().max()), float(K.abs().max())
+        nloc = -(-n // SLAB_WORLD)
+        zero_counts(node_kernel)
+        errs, pad_max = [], 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for rank in range(SLAB_WORLD):
+            Vs, Ks = assemble_slab(e, sp, prob.tables, rank, SLAB_WORLD)
+            r0 = rank * nloc
+            nr = min(nloc, n - r0)
+            Vs, Ks = Vs.reshape(3, nloc, 3 * n), Ks.reshape(3, nloc, 3 * n)
+            Vr, Kr = V.reshape(3, n, 3 * n)[:, r0 : r0 + nr], K.reshape(3, n, 3 * n)[:, r0 : r0 + nr]
+            errs.append(
+                (float((Vs[:, :nr] - Vr).abs().max()) / scale_v, float((Ks[:, :nr] - Kr).abs().max()) / scale_k)
+            )
+            if nr < nloc:
+                pad_max = max(pad_max, float(Vs[:, nr:].abs().max()), float(Ks[:, nr:].abs().max()))
+            del Vs, Ks
+        torch.cuda.synchronize()
+        slab_ms = (time.perf_counter() - t0) * 1e3
+        launches = tally(node_kernel)
+        log(
+            f"distributed slabs, {name}, create_sphere({refinements}) ({n} nodes), {SLAB_WORLD} slabs of nloc {nloc} "
+            f"(last {n - (SLAB_WORLD - 1) * nloc} real rows): per rank (V, K) error / max {errs} (tol {SLAB_TOL:g}), "
+            f"padded rows max {pad_max}, {slab_ms:.1f} ms for the four, launches {launches}"
+        )
+        if max(max(x) for x in errs) > SLAB_TOL or pad_max != 0.0 or launches[name] != SLAB_WORLD:
+            raise AssertionError(f"distributed slabs, {name}: wrong rows or launches")
+        del prob, V, K, e, sp
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (d) the distributed frame loop: two frames of a Real gait beside the
+    # no-slip wall, against the same loop without `distributed`
+    mesh4 = create_sphere(refinements=REFINEMENTS - 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        grids = os.path.join(tmp, "grids")
+        os.makedirs(grids)
+        for k in range(3):
+            write_msh(os.path.join(grids, f"gait_{k}.msh"), mesh4.vertices * (1.0 + 0.04 * k * mesh4.vertices[:, :1]), mesh4.cells)
+        runs = {}
+        for distributed in (False, True):
+            cfg = ProblemConfig(
+                grid_type="Real",
+                n_frames=3,
+                time_step=0.1,
+                input_grid_path=grids + os.sep,
+                input_grid_base_name="gait_",
+                input_grid_format="msh",
+                consider_rigid_displacements=True,
+                rigid_displacement_axes=(True, True, True),
+                no_slip_kernel=True,
+                walls=wall_config("no_slip", 1).walls,
+                distributed=distributed,
+            )
+            out = os.path.join(tmp, f"out_{distributed}")
+            zero_counts(node_kernel)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            history = SwimmerSimulation(cfg, out, device=device).run(0, 2)
+            seconds = time.perf_counter() - t0
+            launches = tally(node_kernel)
+            runs[distributed] = (history, sorted(os.listdir(out)), seconds, launches)
+        (h_s, files_s, sec_s, l_s), (h_d, files_d, sec_d, l_d) = runs[False], runs[True]
+        errs = [rel(a["rigid_velocities"], b["rigid_velocities"]) for a, b in zip(h_d, h_s)]
+        log(
+            f"distributed frame loop, create_sphere({REFINEMENTS - 1}) gait beside the no-slip wall: U {[h['rigid_velocities'] for h in h_d]}, "
+            f"against the single-card loop {errs} (tol {DIST_TOL:g}); iterations {[h['iterations'] for h in h_d]} (single "
+            f"{[h['iterations'] for h in h_s]}); {sec_d:.2f} s (single {sec_s:.2f} s); files {files_d == files_s} "
+            f"({len(files_d)}); K3 launches {l_d['no_slip']} (single {l_s['no_slip']})"
+        )
+        if max(errs) > DIST_TOL or files_d != files_s or l_d["no_slip"] != 2:
+            raise AssertionError("distributed frame loop differs from the single-card loop")
+    dist.destroy_process_group()
+
+
 def node_sweep_entry(key, kernel, record):
     """The kernels-line entry of a node sweep: its launches over the main
     paths, what they were worth in sweeps of the timed shape (create_sphere(5)
@@ -2957,6 +3260,7 @@ def smoke(folder, cpu_study):
     phase(phase_postprocess, node_kernel, device, direct)
     phase(phase_convergence, node_kernel, device, folder, cpu_study)
     phase(phase_2d, node_kernel, matfree_node, slot_kernel, device)
+    phase(phase_distributed, node_kernel, device)
     kernels = [
         node_sweep_entry(kernel, KERNELS[kernel], records[kernel]) for kernel in KERNELS
     ] + [

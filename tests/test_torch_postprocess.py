@@ -228,5 +228,34 @@ def test_translating_sphere_field(solved_sphere):
 
 
 def test_sharded_evaluation_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md: queue 1 item 7"):
-        pp_t.sharded_evaluate_stokes_bie(None, None, None, None, None, None)
+    """This raised while the distributed path waited for its module (the
+    test keeps its name): `sharded_evaluate_stokes_bie` on a row mesh of one
+    rank (a gloo group of one in this process) against the JAX package's on
+    three devices, create_sphere(2) in free space, 37 points (not a
+    multiple of 3), 1e-12; its ranks in a group of two:
+    tests/test_torch_parallel_swimmer.py."""
+    import torch.distributed as dist
+    from bemstokes_tpu.parallel import row_mesh as row_mesh_j
+    from bemstokes_tpu_torch.parallel import row_mesh
+
+    cfg = _cfg("free_space")
+    pj = ProblemJ(fac_j.create_sphere(refinements=2), cfg)
+    pt = ProblemT(fac_t.create_sphere(refinements=2), from_dict(dataclasses.asdict(cfg)), device="cpu")
+    euler = np.array(pj.initial_euler())
+    rng = np.random.default_rng(7)
+    u, f = rng.normal(size=3 * pj.n), rng.normal(size=3 * pj.n)
+    pts = _exterior_points(37)
+    ref = np.asarray(
+        pp_j.sharded_evaluate_stokes_bie(
+            jnp.asarray(pts), jnp.asarray(u), jnp.asarray(f), jnp.asarray(euler), pj.tables, row_mesh_j(3)
+        )
+    )
+    created = not dist.is_initialized()
+    mesh = row_mesh(device="cpu")
+    got = pp_t.sharded_evaluate_stokes_bie(
+        pts, torch.as_tensor(u), torch.as_tensor(f), torch.as_tensor(euler), pt.tables, mesh
+    )
+    if created:
+        dist.destroy_process_group()
+    assert got.shape == (37, pj.dim)
+    assert np.abs(got.numpy() - ref).max() <= TOL * np.abs(ref).max()

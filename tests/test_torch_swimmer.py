@@ -392,11 +392,28 @@ def test_frozen_needs_kept_operators():
 @pytest.mark.parametrize("change", [dict(distributed=True)], ids=["distributed"])
 def test_unported_simulations_raise(change, tmp_path):
     """Gaits read from frame mesh files left this list when the readers were
-    ported (tests/test_torch_cli.py, `test_frame_mesh_gait_*` below), and 2D
-    when it was (tests/test_torch_2d_swimmer.py)."""
-    cfg = dataclasses.replace(from_dict(dataclasses.asdict(sphere_cfg("no_slip", 1))), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SimT(cfg, str(tmp_path), device="cpu")
+    ported (tests/test_torch_cli.py, `test_frame_mesh_gait_*` below), 2D
+    when it was (tests/test_torch_2d_swimmer.py), and the distributed frame
+    loop when `parallel/` was (the test keeps its name): two frames of the
+    sphere sedimenting beside the no-slip wall (create_sphere(1)) with
+    `distributed`, the port on a row mesh of one rank (a gloo group of one
+    in this process) against the JAX package's distributed loop on its 8
+    devices, as `test_unported_solves_raise_in_the_loop`; a
+    `distributed_devices` other than the group's size raises, since the port
+    runs one process per device.  Its ranks in a group of two:
+    tests/test_torch_parallel_swimmer.py."""
+    import torch.distributed as dist
+
+    created = not dist.is_initialized()
+    bad = dataclasses.replace(from_dict(dataclasses.asdict(sphere_cfg("no_slip", 1))), distributed_devices=2, **change)
+    with pytest.raises(ValueError, match="one per device|one process per device"):
+        SimT(bad, str(tmp_path / "bad"), device="cpu")
+    sj, st = _sims(sphere_cfg("no_slip", 1, **change), tmp_path)
+    hj, ht = sj.run(0, 2), st.run(0, 2)
+    if created:
+        dist.destroy_process_group()
+    _assert_same_run(sj, st, hj, ht)
+    assert [h["refactored"] for h in ht] == [True, False]
 
 
 @pytest.mark.parametrize(
