@@ -1,15 +1,13 @@
-"""ctypes binding for the native mesh-file parser (native/meshcore.cpp).
+"""ctypes bindings for the native mesh core (native/meshcore.cpp).
 
-A copy of the reader half of `bemstokes_tpu/_native.py` (that package cannot
-be imported without importing jax).  The shared library is built on demand
-with the repo Makefile (a one-time `g++ -O3` of a single TU); if the
-toolchain or the sources are unavailable `read_mesh_native` returns None and
-`mesh.io.read_mesh` takes its numpy readers, which parse the same files to
-the same arrays.  This is a host-side file parser: nothing here decides
-where the solver runs.  Disable explicitly with BEMSTOKES_NATIVE=0.
-
-The library's incidence and weld entry points are not bound: the port
-builds its incidence table in numpy (`ops/assemble.py`).
+A copy of `bemstokes_tpu/_native.py` (that package cannot be imported
+without importing jax).  The shared library is built on demand with the
+repo Makefile (a one-time `g++ -O3` of a single TU); if the toolchain or the
+sources are unavailable every entry point returns None and the callers take
+their numpy versions, which give the same arrays: `mesh.io.read_mesh` its
+readers, `ops/assemble.py:build_assembly_tables` its incidence loop.  This
+is host-side mesh bookkeeping: nothing here decides where the solver runs.
+Disable explicitly with BEMSTOKES_NATIVE=0.
 """
 
 from __future__ import annotations
@@ -83,6 +81,25 @@ def get_lib():
         lib.mc_read_inp.argtypes = lib.mc_read_msh.argtypes
         lib.mc_read_inp.restype = ctypes.c_int
         lib.mc_free_mesh.argtypes = [ctypes.POINTER(_MeshBuf)]
+        lib.mc_free.argtypes = [ctypes.c_void_p]
+        lib.mc_incidence.argtypes = [
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int64,
+            ctypes.c_int32,
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_int32)),
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_double)),
+            ctypes.POINTER(ctypes.c_int32),
+        ]
+        lib.mc_incidence.restype = ctypes.c_int
+        lib.mc_weld.argtypes = [
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.c_int64,
+            ctypes.c_int32,
+            ctypes.c_double,
+            ctypes.POINTER(ctypes.c_int32),
+        ]
+        lib.mc_weld.restype = ctypes.c_int64
         _lib = lib
         return _lib
 
@@ -109,3 +126,56 @@ def read_mesh_native(path: str, dim: int, fmt: str):
     finally:
         lib.mc_free_mesh(ctypes.byref(buf))
     return verts[:, :dim], cells, mats
+
+
+def incidence_native(cells_nodes: np.ndarray, n_nodes: int):
+    """Native node->(cell,local) incidence table. Returns (slots [n, vmax]
+    int32, mask [n, vmax] float64) or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    cn = np.ascontiguousarray(cells_nodes, dtype=np.int32)
+    n_cells, nl = cn.shape
+    slots_p = ctypes.POINTER(ctypes.c_int32)()
+    mask_p = ctypes.POINTER(ctypes.c_double)()
+    vmax = ctypes.c_int32()
+    rc = lib.mc_incidence(
+        cn.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        n_cells,
+        nl,
+        n_nodes,
+        ctypes.byref(slots_p),
+        ctypes.byref(mask_p),
+        ctypes.byref(vmax),
+    )
+    if rc != 0:
+        return None
+    try:
+        v = vmax.value
+        slots = np.ctypeslib.as_array(slots_p, shape=(n_nodes, v)).copy()
+        mask = np.ctypeslib.as_array(mask_p, shape=(n_nodes, v)).copy()
+    finally:
+        lib.mc_free(slots_p)
+        lib.mc_free(mask_p)
+    return slots, mask
+
+
+def weld_native(verts: np.ndarray, tol: float):
+    """Native coincident-vertex weld. Returns (remap [n] int32, n_unique) or
+    None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    v = np.ascontiguousarray(verts, dtype=np.float64)
+    n, dim = v.shape
+    remap = np.empty(n, dtype=np.int32)
+    n_unique = lib.mc_weld(
+        v.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        n,
+        dim,
+        tol,
+        remap.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+    )
+    if n_unique <= 0:
+        return None
+    return remap, int(n_unique)

@@ -3,7 +3,7 @@ reference executables `bem_stokes_2d/3d [start_frame [end_frame [compose]]]`
 (`source/main.cc:5-74`).
 
 Usage:
-    python -m bemstokes_tpu_torch run   [-p params.{json,prm}] [start [end]] [-o DIR] [--device cuda|cpu]
+    python -m bemstokes_tpu_torch run   [-p params.{json,prm}] [start [end]] [-o DIR] [--device cuda|cpu] [--profile DIR]
     python -m bemstokes_tpu_torch compose [-p params] start end [-o DIR]   # offline re-aggregation
     python -m bemstokes_tpu_torch params [-p out.json] [--dim 2|3]         # write a template
     python -m bemstokes_tpu_torch convergence [-p params] [--cycles N] [--source x y z]
@@ -20,9 +20,10 @@ cycle (`convergence.py`).
 The frame solves and the convergence study run on the CUDA card; `--device
 cpu` asks for the plain torch versions on the CPU, and without a card and
 without that option the command fails.  The JAX command line's `--platform`
-is this `--device`.  Its persistent compilation cache and `--profile` (a
-`jax.profiler` trace) have no counterpart here: torch runs eagerly, and the
-per-phase timers print at the end of a run.
+is this `--device`; its persistent compilation cache has no counterpart
+here (torch runs eagerly).  `run --profile DIR` traces the frame loop with
+`torch.profiler` (the JAX command line's `jax.profiler` trace) into a Chrome
+trace in DIR; the per-phase timers still print at the end of a run.
 
 Several processes, one per device, run the distributed frame loop
 (`"distributed": true` in the parameters):
@@ -62,6 +63,16 @@ def _build_parser():
     common(run)
     run.add_argument("start_frame", nargs="?", type=int, default=0)
     run.add_argument("end_frame", nargs="?", type=int, default=None)
+    run.add_argument(
+        "--profile",
+        default=None,
+        metavar="DIR",
+        help="trace the frame loop with torch.profiler (host activity, and the "
+        "card's kernels and copies when the run is on the card) and write it "
+        "as a Chrome trace, DIR/trace.json (DIR/trace_rank<r>.json for each "
+        "process of a distributed run; open it in Perfetto or chrome://tracing); "
+        "the per-phase timers still print at the end of the run",
+    )
 
     comp = sub.add_parser("compose", help="offline composition of saved frames")
     common(comp)
@@ -126,13 +137,9 @@ def main(argv=None):
     if args.command == "convergence":
         from .convergence import convergence_study, format_table
         from .mesh import read_mesh
-        from .problem import _resolve_manifold
+        from .problem import _resolve_manifold, frame_mesh_path
 
-        mesh = read_mesh(
-            f"{cfg.input_grid_path}{cfg.input_grid_base_name}0.{cfg.input_grid_format}",
-            dim=cfg.dim,
-            force_material=0,
-        )
+        mesh = read_mesh(frame_mesh_path(cfg, 0), dim=cfg.dim, force_material=0)
         source = tuple(args.source) if args.source else (
             (0.3, 0.3, 0.3) if cfg.dim == 3 else (0.1, 0.2)
         )
@@ -156,7 +163,20 @@ def main(argv=None):
     sim = SwimmerSimulation(cfg, output_dir=args.output_dir, device=device)
     if args.command == "run":
         end = args.end_frame if args.end_frame is not None else cfg.n_frames
-        sim.run(args.start_frame, end)
+        if args.profile:
+            # no fallback: a profiler that cannot start fails the run
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if sim.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            with profile(activities=activities) as prof:
+                sim.run(args.start_frame, end)
+            os.makedirs(args.profile, exist_ok=True)
+            name = f"trace_rank{dist.get_rank()}.json" if multi else "trace.json"
+            prof.export_chrome_trace(os.path.join(args.profile, name))
+        else:
+            sim.run(args.start_frame, end)
     elif is_coordinator():
         sim.compose(args.start_frame, args.end_frame)
     if is_coordinator():

@@ -5,17 +5,46 @@ array-first replacement for deal.II MappingFEField + FEValues (reference
 Geometry state is a single node-position array `euler[n_map_nodes, dim]`.
 Mapped points, unit normals and JxW are a couple of einsum contractions of
 the precomputed reference-element tables with the gathered per-cell node
-positions (torch, on the caller's device).  `euler_from_mesh` is host-side
-numpy, copied from the JAX package.
+positions (torch, on the caller's device).  `QuadratureTables`,
+`make_tables` and `euler_from_mesh` are host-side numpy, copied from the JAX
+package.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from .reference_element import reference_element
 from ..mesh.dofs import ScalarSpace
+
+
+@dataclasses.dataclass(frozen=True)
+class QuadratureTables:
+    """Static (host-precomputed) tables for one reference quadrature rule and
+    a pair of (mapping, field) elements evaluated on it."""
+
+    points: np.ndarray  # [nq, cell_dim]
+    weights: np.ndarray  # [nq]
+    phi_map: np.ndarray  # [nq, nl_map] mapping shape values
+    dphi_map: np.ndarray  # [nq, nl_map, cell_dim] mapping shape gradients
+    phi_fe: np.ndarray  # [nq, nl_fe] field shape values
+
+
+def make_tables(
+    cell_dim: int, map_degree: int, fe_degree: int, points: np.ndarray, weights: np.ndarray
+) -> QuadratureTables:
+    me = reference_element(cell_dim, map_degree)
+    fe = reference_element(cell_dim, fe_degree)
+    return QuadratureTables(
+        points=np.asarray(points, dtype=np.float64),
+        weights=np.asarray(weights, dtype=np.float64),
+        phi_map=me.shape_values(points),
+        dphi_map=me.shape_grads(points),
+        phi_fe=fe.shape_values(points),
+    )
 
 
 def parametric_normal(J: torch.Tensor, ambient_dim: int) -> torch.Tensor:

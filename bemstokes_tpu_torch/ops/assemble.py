@@ -237,21 +237,26 @@ def build_assembly_tables(
     flip = np.where(mesh.flip_normal, -1.0, 1.0)
 
     # incidence lists: for each node, the flat (cell, local) slots carrying it
-    # (the JAX package's numpy builder; its optional native C++ twin gives the
-    # same table)
+    # (the native C++ table where the library is available, numpy otherwise)
+    from .._native import incidence_native
+
     n_nodes = fe_space.n_nodes
-    flat = np.asarray(fe_space.cells_nodes, dtype=np.int64).reshape(-1)
-    counts = np.bincount(flat, minlength=n_nodes)
-    vmax = int(counts.max()) if len(flat) else 1
-    inc_slot = np.zeros((n_nodes, vmax), dtype=np.int32)
-    inc_mask = np.zeros((n_nodes, vmax), dtype=np.float64)
-    fill = np.zeros(n_nodes, dtype=np.int64)
-    order = np.argsort(flat, kind="stable")
-    for slot in order:
-        j = flat[slot]
-        inc_slot[j, fill[j]] = slot
-        inc_mask[j, fill[j]] = 1.0
-        fill[j] += 1
+    native = incidence_native(fe_space.cells_nodes, n_nodes)
+    if native is not None:
+        inc_slot, inc_mask = native
+    else:
+        flat = np.asarray(fe_space.cells_nodes, dtype=np.int64).reshape(-1)
+        counts = np.bincount(flat, minlength=n_nodes)
+        vmax = int(counts.max()) if len(flat) else 1
+        inc_slot = np.zeros((n_nodes, vmax), dtype=np.int32)
+        inc_mask = np.zeros((n_nodes, vmax), dtype=np.float64)
+        fill = np.zeros(n_nodes, dtype=np.int64)
+        order = np.argsort(flat, kind="stable")
+        for slot in order:
+            j = flat[slot]
+            inc_slot[j, fill[j]] = slot
+            inc_mask[j, fill[j]] = 1.0
+            fill[j] += 1
 
     return AssemblyTables(
         cfg=cfg,

@@ -37,7 +37,7 @@ from .fem.geometry import euler_from_mesh, support_points
 from .la.direct import LUPreconditioner, lu_factor_dense, lu_solve_dense
 from .la.gmres import gmres
 from .la.preconditioners import build_preconditioner
-from .mesh import SurfaceMesh, build_scalar_space
+from .mesh import SurfaceMesh, build_scalar_space, read_mesh
 from .mesh.surface_mesh import MATERIAL_BODY
 from .ops.assemble import (
     AssemblyConfig,
@@ -841,6 +841,19 @@ class StokesBEMProblem:
         # degree mismatch: evaluate the map-space velocity field at the FE
         # support points (nodal interpolation)
         return flatten(support_points(vel_map, self.map_space, self.fe_space))
+
+
+def frame_mesh_path(cfg: ProblemConfig, frame: int) -> str:
+    """The file of a gait's frame: `<input_grid_path><input_grid_base_name>
+    <frame>.<input_grid_format>`."""
+    return (
+        f"{cfg.input_grid_path}{cfg.input_grid_base_name}{frame}."
+        f"{cfg.input_grid_format}"
+    )
+
+
+def load_frame_mesh(cfg: ProblemConfig, frame: int) -> SurfaceMesh:
+    return read_mesh(frame_mesh_path(cfg, frame), dim=cfg.dim)
 
 
 def result_to_numpy(res):

@@ -48,6 +48,7 @@ from .physics.rigid import flatten
 from .problem import (
     StokesBEMProblem,
     _resolve_manifold,
+    frame_mesh_path,
     resolve_device,
     result_to_numpy,
 )
@@ -174,11 +175,7 @@ class SwimmerSimulation:
     # ------------------------------------------------------------------
     def _read_frame_mesh(self, frame: int):
         cfg = self.cfg
-        path = (
-            f"{cfg.input_grid_path}{cfg.input_grid_base_name}{frame}."
-            f"{cfg.input_grid_format}"
-        )
-        mesh = read_mesh(path, dim=cfg.dim, force_material=0)
+        mesh = read_mesh(frame_mesh_path(cfg, frame), dim=cfg.dim, force_material=0)
         if cfg.remove_tria_anisotropies:
             # reference GridTools::remove_anisotropy on the reference tria
             # (`source/bem_stokes.cc:662-664`) and each frame tria
@@ -398,7 +395,10 @@ class SwimmerSimulation:
         U = np.asarray(rigid_velocities)
         N = np.asarray(N)  # [R, n, d]
         v_full = np.einsum("r,rnd->nd", U, N)
-        v_tr = np.einsum("r,rnd->nd", U[:d], N[:d])
+        # the translation of the body's MAP nodes, which the displacements
+        # move (N lives on the FE nodes; the JAX package adds it as it is and
+        # fails whenever fe_degree != map_degree)
+        v_tr = U[None, :d] * self.map_body_mask
         if cfg.consider_rigid_rotations:
             # 3D: quaternion forward-Euler on omega = U[3:6]; 2D: the scalar
             # rate U[2] advances the 2x2 rotation exactly

@@ -106,9 +106,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    f32 K against f64, over all entries and over the own-node 3x3 blocks,
    for the gather and the node assembly, bulk alone and with the deltas;
 15. the command line: `python3 -m bemstokes_tpu_torch run -p <json> 0 2 -o
-   <dir>` as a subprocess on the card, on a gait of three gmsh files that the
-   script writes from create_sphere(5), gather mode: exit code 0, the state
-   and result files of both frames finite, the stroke swims along x;
+   <dir> --profile <dir>` as a subprocess on the card, on a gait of three
+   gmsh files that the script writes from create_sphere(5), gather mode:
+   exit code 0, the state and result files of both frames finite, the
+   stroke swims along x, and the torch.profiler trace names the
+   `tile_nodes` kernel among the card's events;
 16. the preconditioners of the monolithic GMRES solve at 18,444 unknowns,
    one frame each of Jacobi, SOR, SSOR, ILU, AMG (both block-Jacobi) and
    SSOR limited to a band of 100, with the solver's defaults otherwise: each
@@ -177,19 +179,46 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    on a Real gait of three gmsh files from create_sphere(4) beside the
    no-slip wall against the same loop without it (rigid velocities within
    1e-10, the same output files, one K3 launch a frame); the group is
-   destroyed at the end.
+   destroyed at the end;
+22. the higher-order elements, f64, Direct, at 18,444 unknowns, each path
+   with the launch counters set to 0 just before it and read just after,
+   its frames' ms, iterations, drag error and peak memory printed: first
+   every configuration on create_sphere(2), the card against the port on
+   the CPU (1e-10); then (a) the JAX package's drag gate (a Q4 map snapped
+   to the sphere, quadrature 6 / 9, GMRES to 1e-12 on an f32 LU) on
+   create_sphere(5): a fresh and a stale node frame (K1 at 144 samples per
+   column node) and a gather frame (`tile_nodes` at 36 panel points), drag
+   error <= 1e-6, gather forces within 1e-8 of node mode's; (b) that map
+   on phase 5's sphere beside the no-slip wall, one frame of the frame loop
+   (K3 at 144), 6 pi U_y within 1e-3 of Brenner's; (c) one matrix-free
+   frame of (a) (K5 at 144, GMRES to 1e-11) within 1e-7 of (a)'s frame 0;
+   (d) Q2 unknowns on a Q2 map snapped to the sphere, create_sphere(4)
+   (6,146 nodes; K1 at 64 with 44 % of the samples of zero weight,
+   `tile_nodes` with 9 local nodes), and (e) Q0 unknowns on create_sphere(5)
+   (6,144 panel centres; K1 at 16, `tile_nodes` with one local node): a
+   node and a gather frame each, within 1e-8 of each other; (f) a Q2 map
+   with Q1 unknowns, two frames of a translating gait (U_x within 2e-2 of
+   the translation it cancels); (g) the prolate spheroid 2:1:1 from
+   create_sphere(5), a Q3 map on the spheroid, quadrature 5 / 8 (K1 at 100,
+   a last pass of 4 samples), along and across its axis within 2e-3 of
+   Oberbeck's drag.  Each kernel at each new shape is held against its
+   plain version on the card on the first 512 rows and timed over all rows
+   with the SM clock read under load, its bound counting the samples of
+   nonzero weight.
 
 Before the last line it prints the card's name and power limit and one JSON
 object {"kernels": [...]} with each kernel's launches on its main paths
-(K1-K4: summed over every path of phases 5, 6, 9, 10, 14, 16-19 and 21 that
-reaches them, the block factors of the matrix-free frames included, and
+(K1-K4: summed over every path of phases 5, 6, 9, 10, 14, 16-19, 21 and 22
+that reaches them, the block factors of the matrix-free frames included, and
 phase 21's frames, slabs and loop; beside that raw
 count, what the launches were worth in whole create_sphere(5) sweeps per
 type, and those sweeps times each type's gap between time and bound;
-`tile_nodes` likewise over the gather frames of phase 14, in whole
-create_sphere(5) bulks; `tile_slots` is on no path since the gather path
-takes `tile_nodes`: 0), its error against the plain version, both times
-and its bound; the last line is {"ok": true, "device": {...}}.  Without a
+`tile_nodes` likewise over the gather frames of phases 14 and 22, in whole
+create_sphere(5) bulks; K5's free-space count adds phase 22's matrix-free
+frame to the capacity frame's; `tile_slots` is on no path since the gather
+path takes `tile_nodes`: 0), its error against the plain version, both
+times and its bound, and for K1, K3, K5 and `tile_nodes` the records of
+phase 22's new shapes (`higher_order_shapes`); the last line is {"ok": true, "device": {...}}.  Without a
 CUDA device it exits non-zero and prints no result.
 """
 
@@ -403,7 +432,7 @@ def clock_under_load(fn):
 
 
 #: launches of K1-K4 summed over every main path that reaches them (phases
-#: 5, 6, 9, 10, 14, 16-19 and 21), each path's counts read just after it ran with the
+#: 5, 6, 9, 10, 14, 16-19, 21 and 22), each path's counts read just after it ran with the
 #: counters set to 0 just before it; and the interactions they swept, per
 #: (counter, "f32" or "f64")
 PATH_LAUNCHES = {"free_space": 0, "free_surface": 0, "no_slip": 0, "planes": 0}
@@ -557,14 +586,16 @@ def kernel_inputs(refinements, dtype, device):
     return node_sweep_inputs(euler, xi, tables)
 
 
-def bound(kernel, dtype, nr, n, m):
+def bound(kernel, dtype, nr, n, m, live=None):
     """(bound_ms, bound_by): the least time the card could take, the larger
     of the bytes the sweep must move (every input read once, V and K written
-    once) over the memory rate and its operations over the peak rate."""
+    once) over the memory rate and its operations over the peak rate.  Where
+    only `live` of the n * m column samples carry weight (the rest pad each
+    node to the largest valence), the operations are the live samples'."""
     item = torch.finfo(dtype).bits // 8
     nbytes = item * (3 * nr + 7 * n * m + 2 * 9 * nr * n)
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = FLOPS_PER_INTERACTION[kernel] * nr * n * m / PEAK_FLOPS[dtype]
+    t_ops = FLOPS_PER_INTERACTION[kernel] * nr * (n * m if live is None else live) / PEAK_FLOPS[dtype]
     return 1e3 * max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -2022,10 +2053,11 @@ def phase_command_line():
             assembly_backend="gather",
         )
         params, out = os.path.join(tmp, "params.json"), os.path.join(tmp, "out")
+        prof = os.path.join(tmp, "profile")
         save_config(cfg, params)
         t0 = time.perf_counter()
         done = subprocess.run(
-            [sys.executable, "-m", "bemstokes_tpu_torch", "run", "-p", params, "0", "2", "-o", out],
+            [sys.executable, "-m", "bemstokes_tpu_torch", "run", "-p", params, "0", "2", "-o", out, "--profile", prof],
             cwd=os.path.dirname(os.path.abspath(__file__)),
             capture_output=True,
             text=True,
@@ -2047,11 +2079,21 @@ def phase_command_line():
                 raise AssertionError(f"command line run: bad state or result files of frame {k}")
             U.append(res["rigid_velocities"])
         used = os.path.exists(os.path.join(out, "used_parameters_3d.json"))
+        # the torch.profiler trace of the frame loop names the gather path's
+        # kernel among the card's events
+        trace = os.path.join(prof, "trace.json")
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+        ours = [name for name in kernels if "tile_nodes_kernel" in name]
         log(
-            f"command line: `python3 -m bemstokes_tpu_torch run -p params.json 0 2 -o out`, gait of 3 gmsh "
-            f"files ({mesh.n_vertices} nodes), gather mode: exit 0 in {seconds:.1f} s; U = "
-            f"{[u.tolist() for u in U]}"
+            f"command line: `python3 -m bemstokes_tpu_torch run -p params.json 0 2 -o out --profile DIR`, gait of "
+            f"3 gmsh files ({mesh.n_vertices} nodes), gather mode: exit 0 in {seconds:.1f} s; U = "
+            f"{[u.tolist() for u in U]}; trace {os.path.getsize(trace) / 2**20:.1f} MiB, {len(events)} events, "
+            f"{len(kernels)} kernels on the card, of them {ours}"
         )
+        if not ours:
+            raise AssertionError(f"command line run: the profiler trace names no tile_nodes kernel: {kernels[:20]}")
         # the fore end grows: the stroke moves the body along x, and only along x
         for u in U:
             if not (used and abs(u[0]) > 1e-3 and np.all(np.abs(u[1:]) < 1e-6 * abs(u[0]) + 1e-9)):
@@ -3168,6 +3210,508 @@ def phase_distributed(node_kernel, device):
     dist.destroy_process_group()
 
 
+#: phase 22: the higher-order element configurations at the bench's size
+#: class, f64, Direct.  (a) is the JAX package's drag gate (bench.py:474-503:
+#: a Q4 map snapped to the sphere, quadrature 6 / 9, GMRES to 1e-12 on an f32
+#: LU); the others are the configurations that tests/test_torch_high_order.py
+#: and tests/test_torch_spheroid.py hold against the JAX package on the CPU.
+HO_DRAG_GATE = 1e-6
+HO_MODES_TOL = 1e-8  # node mode against gather mode: forces relative to max
+HO_MATFREE_TOL = 1e-7
+HO_CPU_TOL = 1e-10  # the card against the port on the CPU at create_sphere(2)
+HO_BRENNER_TOL = 1e-3
+HO_OBERBECK_TOL = 2e-3
+HO_PLAIN_ROWS = 512  # rows of the plain versions' run at the new shapes
+SPHEROID_RADII = (2.0, 1.0, 1.0)
+GAIT_STEP = 1.0 / 120.0  # the translating gait's step a frame (time_step 0.1)
+#: the drag errors the same configurations give at create_sphere(2), on the
+#: CPU in both packages (tests/test_torch_high_order.py): a finer mesh must
+#: do better
+HO_COARSE_DRAG = {"q2q2": 8.470e-4, "q0": 2.640e-2}
+
+
+def ho_config(case, **changes):
+    from bemstokes_tpu_torch.config import ProblemConfig, QuadratureConfig, SolverConfig
+
+    imposed = dict(grid_type="ImposedVelocity", imposed_component=0, force_pole="Origin")
+    cases = {
+        "gate": dict(
+            imposed,
+            map_degree=4,
+            body_manifold="sphere",
+            quadrature=QuadratureConfig(order=6, singular_order=9),
+            solver=SolverConfig(preconditioner_dtype="float32", tolerance=1e-12),
+        ),
+        "q2q2": dict(imposed, fe_degree=2, map_degree=2, body_manifold="sphere"),
+        "q0": dict(imposed, fe_degree=0, map_degree=1),
+        "q2map": dict(grid_type="Real", force_pole="Origin", fe_degree=1, map_degree=2),
+        "spheroid": dict(
+            imposed,
+            map_degree=3,
+            body_manifold="spheroid",
+            body_manifold_radii=SPHEROID_RADII,
+            quadrature=QuadratureConfig(order=5, singular_order=8),
+        ),
+    }
+    # (c): the gate's elements matrix-free, GMRES to phase 9's 1e-11
+    cases["gate_free"] = dict(cases["gate"], solver=SolverConfig(tolerance=1e-11), matrix_free=True)
+    return ProblemConfig(**{**cases[case], **changes})
+
+
+def ho_wall_config(refinements):
+    """(b): phase 5's sphere 2 radii above the no-slip wall, pushed towards
+    it, with the drag gate's map and quadrature."""
+    from bemstokes_tpu_torch.config import QuadratureConfig
+
+    return wall_config(
+        "no_slip", refinements, map_degree=4, quadrature=QuadratureConfig(order=6, singular_order=9)
+    )
+
+
+def ho_mesh(case, refinements):
+    from bemstokes_tpu_torch.mesh import SurfaceMesh, create_sphere
+
+    mesh = create_sphere(refinements=refinements)
+    if case == "spheroid":
+        mesh = SurfaceMesh(mesh.vertices * np.array(SPHEROID_RADII), mesh.cells, mesh.material_id)
+    return mesh
+
+
+def ho_frames(prob, case, frames):
+    """[(euler, shape velocity)]: `frames` rigid motions of frame 0 under an
+    imposed motion (frames_of); on the gait (q2map) a translation by
+    GAIT_STEP, then the same translation with a pear-shaped stroke, whose
+    shape velocities go through the degree-mismatch interpolation."""
+    e0 = prob.initial_euler().cpu().numpy()
+    if case != "q2map":
+        return [(e, np.zeros(3 * prob.n)) for e in frames_of(e0)[:frames]]
+    shift = np.array([GAIT_STEP, 0.0, 0.0])
+    es = [e0, e0 + shift, e0 + 2 * shift + 0.04 * e0 * e0[:, :1]]
+    return [(a, prob.shape_velocities_fd(a, b)) for a, b in zip(es[:2], es[1:])]
+
+
+def ho_solve(device, case, refinements, frames=1, **changes):
+    """(problem, [frame record]) of a case on `device`: ms (host clock, the
+    card synchronised), iterations, refactored, convergence, the forces, the
+    rigid velocities and forces, and the drag |F_c| along the imposed
+    component c."""
+    from bemstokes_tpu_torch.problem import StokesBEMProblem
+
+    prob = StokesBEMProblem(ho_mesh(case, refinements), ho_config(case, **changes), device=device)
+    out = []
+    for e, sdot in ho_frames(prob, case, frames):
+        if prob.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = prob.solve_frame(e, sdot)
+        if prob.device.type == "cuda":
+            torch.cuda.synchronize()
+        F = np.asarray(res["rigid_forces_pole"])
+        out.append(
+            dict(
+                ms=(time.perf_counter() - t0) * 1e3,
+                iterations=res["iterations"],
+                refactored=res["refactored"],
+                converged=res["converged"],
+                residual=res["residual"],
+                stokes_forces=res["stokes_forces"].cpu().numpy(),
+                rigid_velocities=np.asarray(res["rigid_velocities"]),
+                rigid_forces_pole=F,
+                drag=float(abs(F[prob.cfg.imposed_component])),
+            )
+        )
+        del res
+    return prob, out
+
+
+def ho_diff(a, b):
+    """Largest relative difference of two frame records' forces, rigid
+    velocities and rigid forces, each relative to its largest entry (on
+    the gait's translating frame, whose tractions vanish, to the larger of
+    that and the gait's speed)."""
+    worst = 0.0
+    for key in ARRAYS:
+        scale = max(np.abs(b[key]).max(), GAIT_STEP / 0.1 if key != "rigid_velocities" else 0.0)
+        worst = max(worst, float(np.abs(a[key] - b[key]).max() / scale))
+    return worst
+
+
+#: the configurations of phase 22 on create_sphere(2), the card against the
+#: CPU: (name, case, frames, changes)
+HO_SMALL = (
+    ("(a) node", "gate", 2, {}),
+    ("(a) gather", "gate", 1, dict(assembly_backend="gather")),
+    ("(c) matrix-free", "gate_free", 1, dict(matfree_block_nodes=32)),
+    ("(d) node", "q2q2", 1, {}),
+    ("(d) gather", "q2q2", 1, dict(assembly_backend="gather")),
+    ("(e) node", "q0", 1, {}),
+    ("(e) gather", "q0", 1, dict(assembly_backend="gather")),
+    ("(f)", "q2map", 2, {}),
+    ("(g) axial", "spheroid", 1, {}),
+    ("(g) transverse", "spheroid", 1, dict(imposed_component=1)),
+)
+
+
+def ho_small_reference(device):
+    """Every configuration of phase 22 on create_sphere(2): the card against
+    the port on the CPU (plain versions), 1e-10."""
+    worst_all = 0.0
+    for name, case, frames, changes in HO_SMALL:
+        _, card = ho_solve(device, case, 2, frames, **changes)
+        _, host = ho_solve("cpu", case, 2, frames, **changes)
+        worst = max(ho_diff(a, b) for a, b in zip(card, host))
+        iters = [(a["iterations"], b["iterations"]) for a, b in zip(card, host)]
+        log(f"higher order, create_sphere(2), {name}: card vs CPU {worst:.3e} (tol {HO_CPU_TOL:g}), iterations {iters}")
+        # the drag gate's f32 LU rounds differently on the card: one GMRES
+        # iteration more or fewer to the same 1e-12
+        slack = 1 if case == "gate" else 0
+        if worst > HO_CPU_TOL or any(abs(a - b) > slack for a, b in iters):
+            raise AssertionError(f"higher order {name}: the card disagrees with the CPU")
+        worst_all = max(worst_all, worst)
+    hc, _, fc, _ = run_simulation(ho_wall_config(2), device, 1)
+    hh, _, fh, _ = run_simulation(ho_wall_config(2), "cpu", 1)
+    ua, ub = np.asarray(hc[0]["rigid_velocities"]), np.asarray(hh[0]["rigid_velocities"])
+    worst = max(np.abs(ua - ub).max() / np.abs(ub).max(), np.abs(fc[0] - fh[0]).max() / np.abs(fh[0]).max())
+    log(f"higher order, create_sphere(2), (b) no-slip wall: card vs CPU {worst:.3e} (tol {HO_CPU_TOL:g})")
+    if worst > HO_CPU_TOL:
+        raise AssertionError("higher order (b): the card disagrees with the CPU")
+    return max(worst_all, worst)
+
+
+def ho_log(name, prob, recs, launches, extra=""):
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    unknowns = 3 * prob.n + prob.num_rigid
+    frames = "; ".join(
+        f"frame {k}: {r['ms']:.1f} ms, {r['iterations']} iterations, refactored {r['refactored']}, "
+        f"converged {r['converged']}, residual {r['residual']:.3e}, drag {r['drag']:.10f}"
+        for k, r in enumerate(recs)
+    )
+    log(
+        f"higher order {name}: {prob.n} nodes, {unknowns} unknowns, vmax x nq = "
+        f"{prob.tables.inc_slot.shape[1]} x {len(prob.tables.q_weights)}; {frames}; peak "
+        f"{peak:.3f} GiB; launches {launches}{extra}"
+    )
+    if not all(r["converged"] and np.isfinite(r["stokes_forces"]).all() for r in recs):
+        raise AssertionError(f"higher order {name}: a frame did not converge")
+
+
+def ho_path(device, case, refinements, frames, kernels, calls, **changes):
+    """One full-width path with the launch counters (and the count of calls
+    of the plain gather-reduce) set to 0 just before it and read just after;
+    returns (problem, records, launches and calls that were not 0)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(*kernels.values())
+    calls["gather_reduce"] = 0
+    prob, recs = ho_solve(device, case, refinements, frames, **changes)
+    launches = {f"{name}:{k}": v for name, mod in kernels.items() for k, v in mod.launches.items() if v}
+    if calls["gather_reduce"]:
+        launches["gather_reduce"] = calls["gather_reduce"]
+    return prob, recs, launches
+
+
+def ho_sweep_check(node_kernel, counts, label, args, kernel="free_space"):
+    """K1 (or K3, wall at y = WALL_Y) at a new shape against its plain
+    version on the first HO_PLAIN_ROWS rows; timed over all rows with the SM
+    clock read under load and the pipe floor beside it."""
+    dtype = torch.float64
+    xi, Yj, Nj, Wj = args
+    kw = dict(kernel=kernel, wall_axis=1, wall_position=WALL_Y)
+    rows = xi[:HO_PLAIN_ROWS].contiguous()
+    V, K = node_kernel.node_sweep(rows, Yj, Nj, Wj, **kw)
+    (Vr, Kr), plain_ms = event_ms(
+        lambda: node_kernel.node_sweep_reference(rows, Yj, Nj, Wj, row_tile=64, col_chunk=1024, **kw)
+    )
+    err = max(rel(V, Vr), rel(K, Kr))
+    abs_err = max((V - Vr).abs().max().item(), (K - Kr).abs().max().item())
+    finite = bool(torch.isfinite(V).all() and torch.isfinite(K).all())
+    del V, K, Vr, Kr
+    ms = cuda_ms(lambda: node_kernel.node_sweep(xi, Yj, Nj, Wj, **kw), reps=5)
+    clock = clock_under_load(lambda: node_kernel.node_sweep(xi, Yj, Nj, Wj, **kw))
+    nr, n, m = xi.shape[0], Yj.shape[0], Yj.shape[1]
+    live = int((Wj != 0).sum())
+    bound_ms, bound_by = bound(kernel, dtype, nr, n, m, live)
+    instructions, floor_ms = pipe_floor(counts[kernel, dtype], dtype, nr, n, m, sm_clock_mhz(clock))
+    tol = tolerance(kernel, dtype)
+    rec = dict(
+        shape=label, m=m, rows=nr, cols=n, live_sample_share=live / (n * m), ms=ms,
+        ps_per_interaction=ms * 1e9 / (nr * n * m), plain_ms=plain_ms, plain_rows=rows.shape[0],
+        bound_ms=bound_ms, bound_by=bound_by, pipe_floor_ms=floor_ms, max_abs_err=abs_err,
+        max_rel_err=err, sm_clock=clock,
+    )
+    log(
+        f"higher order {kernel} {label}: rows={nr} cols={n} m={m} ({100 * live / (n * m):.1f} % of the samples "
+        f"carry weight): rel err on {rows.shape[0]} rows {err:.3e} (tol {tol:.0e}), max abs err {abs_err:.3e}; "
+        f"kernel {ms:.3f} ms ({rec['ps_per_interaction']:.3f} ps an interaction), plain {plain_ms:.3f} ms on "
+        f"{rows.shape[0]} rows, bound {bound_ms:.3f} ms by {bound_by}, {instructions:.2f} FP64 instructions an "
+        f"interaction, pipe floor {floor_ms:.3f} ms; SM clock, its maximum and power under this load: {clock}"
+    )
+    if not (finite and err <= tol):
+        raise AssertionError(f"higher order: {kernel} disagrees with its plain version at {label}")
+    return rec
+
+
+def ho_matvec_check(matfree_node, label, prob):
+    """K5 (free space) at the drag gate's m = 144: V alone (1, 0), the GMRES
+    matvec, and the setup sweep (1, 10) against the plain version on the
+    first HO_PLAIN_ROWS rows; V alone timed over all rows."""
+    from bemstokes_tpu_torch.fem.geometry import support_points
+    from bemstokes_tpu_torch.physics.rigid import build_mass_operator
+
+    dtype = torch.float64
+    e = prob.initial_euler()
+    sp = support_points(e, prob.map_space, prob.fe_space)
+    _, (xq, normals, jxw) = build_mass_operator(e, prob.tables)
+    st, arrs = matfree_node.build_sweep(prob.tables, sp, xq, normals, jxw)
+    st_r, arrs_r = matfree_node.build_sweep(prob.tables, sp[:HO_PLAIN_ROWS], xq, normals, jxw)
+    rng = np.random.default_rng(22)
+    X = torch.as_tensor(rng.standard_normal((3 * st.n, 11)), dtype=dtype, device=prob.device)
+    XV, XK = X[:, :1], X[:, 1:]
+    (Vr, Kr), plain_ms = event_ms(
+        lambda: matfree_node.sweep_matvec_reference(st_r, arrs_r, XV, XK, row_tile=64, col_chunk=1024)
+    )
+    V, _ = matfree_node.sweep_matvec(st_r, arrs_r, XV, XK[:, :0])
+    Vs, Ks = matfree_node.sweep_matvec(st_r, arrs_r, XV, XK)
+    err = max(rel(V, Vr), rel(Vs, Vr), rel(Ks, Kr))
+    abs_err = (V - Vr).abs().max().item()
+    ms = cuda_ms(lambda: matfree_node.sweep_matvec(st, arrs, XV, XK[:, :0]), reps=5)
+    setup_ms = cuda_ms(lambda: matfree_node.sweep_matvec(st, arrs, XV, XK), reps=2)
+    clock = clock_under_load(lambda: matfree_node.sweep_matvec(st, arrs, XV, XK[:, :0]))
+    nr, n, m = st.nr, st.n, st.vmax * st.nq
+    bound_ms, bound_by = matvec_bound("free_space", dtype, nr, n, m)
+    rec = dict(
+        shape=label, m=m, rows=nr, cols=n, ms=ms, ps_per_interaction=ms * 1e9 / (nr * n * m),
+        setup_ms=setup_ms, plain_ms=plain_ms, plain_rows=st_r.nr, bound_ms=bound_ms, bound_by=bound_by,
+        max_abs_err=abs_err, max_rel_err=err, sm_clock=clock,
+    )
+    log(
+        f"higher order sweep_matvec free_space {label}: rows={nr} cols={n} m={m}: rel err of (1,0) and (1,10) on "
+        f"{st_r.nr} rows {err:.3e} (tol {TOL_MATVEC[dtype]:.0e}); V alone {ms:.3f} ms "
+        f"({rec['ps_per_interaction']:.3f} ps an interaction), setup shape (1,10) {setup_ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms on {st_r.nr} rows, bound {bound_ms:.3f} ms by {bound_by}; SM clock, its maximum and "
+        f"power under this load: {clock}"
+    )
+    if not (bool(torch.isfinite(V).all()) and err <= TOL_MATVEC[dtype]):
+        raise AssertionError(f"higher order: sweep_matvec disagrees with its plain version at {label}")
+    return rec
+
+
+def ho_nodes_check(slot_kernel, counts, label, prob):
+    """`tile_nodes` at a new shape (the gather frames' tables): against its
+    plain version on the first HO_PLAIN_ROWS rows, timed over all rows in
+    the gather path's row blocks with the SM clock read under load."""
+    from bemstokes_tpu_torch.fem.geometry import support_points
+    from bemstokes_tpu_torch.ops import assemble
+
+    dtype = torch.float64
+    tables = prob.tables
+    e = prob.initial_euler()
+    sp = support_points(e, prob.map_space, prob.fe_space)
+    xq, nrm, wphi = assemble.slot_inputs(e, tables)
+    groups = slot_kernel.node_groups(tables)
+    nt, (nc, nq, nl), n = sp.shape[0], wphi.shape, groups.n_nodes
+    ids = torch.arange(nt, device=sp.device)
+    rows, rids = sp[:HO_PLAIN_ROWS].contiguous(), ids[:HO_PLAIN_ROWS]
+    V, K = slot_kernel.tile_nodes(rows, xq, nrm, wphi, rids, groups)
+    (Vr, Kr), plain_ms = event_ms(lambda: slot_kernel.tile_nodes_reference(rows, xq, nrm, wphi, rids, groups))
+    err = max(rel(V, Vr), rel(K, Kr))
+    abs_err = max((V - Vr).abs().max().item(), (K - Kr).abs().max().item())
+    finite = bool(torch.isfinite(V).all() and torch.isfinite(K).all())
+    del V, K, Vr, Kr
+    T = assemble.node_block_rows(tables)
+    blocks = [(sp[t0 : t0 + T].contiguous(), ids[t0 : t0 + T]) for t0 in range(0, nt, T)]
+
+    def all_blocks():
+        return [slot_kernel.tile_nodes(xi, xq, nrm, wphi, b, groups) for xi, b in blocks]
+
+    ms = cuda_ms(all_blocks, reps=3)
+    clock = clock_under_load(all_blocks)
+    valence = np.bincount(groups.cells_fe.reshape(-1), minlength=n)
+    bound_ms, bound_by = nodes_bound(dtype, nt, nc, nq, nl, n, int(valence.sum()))
+    floor = ""
+    if nl == 4:
+        # the loop counted in phase 2 is Q1's: one pass of 4 local nodes
+        instructions, floor_ms = pipe_floor(counts["tile_nodes", dtype], dtype, nt, groups.union_panels, nq, sm_clock_mhz(clock))
+        floor = f", {instructions:.2f} FP64 instructions a (row, panel point), pipe floor {floor_ms:.3f} ms"
+    smem = groups.group_max * 12 * 32 * 8 + 2 * slot_kernel.NODE_GROUP_WARPS * nq * (6 + nl) * 8 + (
+        groups.round_max * slot_kernel.NODE_GROUP_WARPS * (1 + 2 * nl) * 4
+    )
+    rec = dict(
+        shape=label, nq=nq, nl=nl, rows=nt, panels=nc, nodes=n, row_blocks=len(blocks), ms=ms,
+        plain_ms=plain_ms, plain_rows=rows.shape[0], bound_ms=bound_ms, bound_by=bound_by, max_abs_err=abs_err,
+        max_rel_err=err, shared_memory_bytes=smem, panels_evaluated_per_panel=groups.redundancy, sm_clock=clock,
+    )
+    log(
+        f"higher order tile_nodes {label}: rows={nt} panels={nc} nq={nq} nl={nl} nodes={n}, {len(blocks)} row "
+        f"blocks of {T}, {groups.n_groups} groups, panels evaluated per panel {groups.redundancy:.4f}, {smem} B of "
+        f"shared memory a block: rel err on {rows.shape[0]} rows {err:.3e} (tol {TOL_SLOTS[dtype]:.0e}), max abs "
+        f"err {abs_err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms on {rows.shape[0]} rows, bound "
+        f"{bound_ms:.3f} ms by {bound_by}{floor}; SM clock, its maximum and power under this load: {clock}"
+    )
+    if not (finite and err <= TOL_SLOTS[dtype]):
+        raise AssertionError(f"higher order: tile_nodes disagrees with its plain version at {label}")
+    return rec
+
+
+def phase_higher_order(node_kernel, matfree_node, slot_kernel, device, counts):
+    """Phase 22: the higher-order element configurations at full width;
+    returns the new-shape records per kernel and the launches of K5 (free
+    space, in all and by shape) and of `tile_nodes` (with the (row, panel)
+    pairs it covered) on these paths."""
+    log(f"higher order: {card_line()}")
+    t0 = time.perf_counter()
+    small = ho_small_reference(device)
+    log(f"higher order: create_sphere(2) references {time.perf_counter() - t0:.1f} s, worst {small:.3e}")
+    shapes = {"free_space": [], "no_slip": [], "matvec": [], "tile_nodes": []}
+    kernels = {"K1-K4": node_kernel, "K6": slot_kernel, "K5": matfree_node}
+    calls = {"gather_reduce": 0}
+    inner = counting(slot_kernel, "gather_reduce", calls)
+    try:
+        out = higher_order_paths(node_kernel, matfree_node, slot_kernel, device, counts, shapes, kernels, calls)
+    finally:
+        slot_kernel.gather_reduce = inner
+    return (shapes, *out)
+
+
+def sweep_args(prob):
+    """(xi, Yj, Nj, Wj) of a problem's node sweep under its initial geometry."""
+    from bemstokes_tpu_torch.fem.geometry import support_points
+    from bemstokes_tpu_torch.ops import assemble
+
+    e = prob.initial_euler()
+    return assemble.node_sweep_inputs(e, support_points(e, prob.map_space, prob.fe_space), prob.tables)
+
+
+def higher_order_paths(node_kernel, matfree_node, slot_kernel, device, counts, shapes, kernels, calls):
+    def path(case, refinements, frames, **changes):
+        return ho_path(device, case, refinements, frames, kernels, calls, **changes)
+
+    nodes_launches, nodes_pairs = 0, {"f32": 0, "f64": 0}
+
+    # (a) the drag gate: a fresh and a stale node frame, one gather frame
+    prob, node, launches = path("gate", REFINEMENTS, 2)
+    tally(node_kernel)
+    errs = [abs(r["drag"] - 6 * np.pi) / (6 * np.pi) for r in node]
+    ho_log("(a) drag gate, node", prob, node, launches, f"; drag errors {errs} (gate {HO_DRAG_GATE:g})")
+    if launches != {"K1-K4:free_space": 2} or [r["refactored"] for r in node] != [True, False] or max(errs) > HO_DRAG_GATE:
+        raise AssertionError(f"higher order (a): launches {launches} or drag errors {errs}")
+    args = sweep_args(prob)
+    shapes["free_space"].append(ho_sweep_check(node_kernel, counts, "Q4 map, quadrature 6 (a)", args))
+    shapes["no_slip"].append(ho_sweep_check(node_kernel, counts, "Q4 map, quadrature 6 (b)", args, "no_slip"))
+    del args
+    shapes["matvec"].append(ho_matvec_check(matfree_node, "Q4 map, quadrature 6 (c)", prob))
+    del prob
+    prob, gather, launches = path("gate", REFINEMENTS, 1, assembly_backend="gather")
+    nodes_launches += slot_kernel.launches["tile_nodes"]
+    nodes_pairs["f64"] += slot_kernel.pairs["f64"]
+    diff = ho_diff(gather[0], node[0])
+    err = abs(gather[0]["drag"] - 6 * np.pi) / (6 * np.pi)
+    ho_log(
+        "(a) drag gate, gather", prob, gather, launches,
+        f"; drag error {err:.4e}, forces against node mode {diff:.3e} (tol {HO_MODES_TOL:g})",
+    )
+    if set(launches) != {"K6:tile_nodes"} or diff > HO_MODES_TOL or err > HO_DRAG_GATE:
+        raise AssertionError(f"higher order (a) gather: launches {launches}, diff {diff}, drag error {err}")
+    shapes["tile_nodes"].append(ho_nodes_check(slot_kernel, counts, "Q1 panels, nq 36 (a)", prob))
+    del prob
+
+    # (b) the same map beside the no-slip wall: one frame of the frame loop
+    history, records, launches, _ = wall_path(
+        node_kernel, device, "higher order (b) no-slip wall", ho_wall_config(REFINEMENTS), 1
+    )
+    mobility = 6 * np.pi * history[0]["rigid_velocities"][1]
+    exact = 1.0 / brenner_lambda(-WALL_Y)
+    log(
+        f"higher order (b) no-slip wall: 6 pi U_y = {mobility:.6f}, Brenner {exact:.6f}, off by "
+        f"{abs(mobility - exact):.3e} (tol {HO_BRENNER_TOL:g}); {records[0]['seconds'] * 1e3:.1f} ms, "
+        f"{records[0]['iterations']} iterations, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
+    )
+    if abs(mobility - exact) > HO_BRENNER_TOL or launches != {"free_space": 0, "free_surface": 0, "no_slip": 1, "planes": 0}:
+        raise AssertionError(f"higher order (b): mobility {mobility} or launches {launches}")
+
+    # (c) one matrix-free frame of (a) against its materialized frame 0
+    prob, (free,), launches = path("gate_free", REFINEMENTS, 1, matfree_block_nodes=1024)
+    blocks = tally(node_kernel)
+    k5 = shapes_of(matfree_node, "free_space")
+    matvec_launches = (matfree_node.launches["free_space"], k5)
+    diff = ho_diff(free, node[0])
+    ho_log(
+        "(c) matrix-free", prob, [free], launches,
+        f", K5 by shape {k5}; forces against (a)'s materialized frame 0 {diff:.3e} (tol {HO_MATFREE_TOL:g})",
+    )
+    check_one_sided("higher order (c)", "free_space", k5, free["iterations"])
+    if diff > HO_MATFREE_TOL or blocks["free_space"] < 1:
+        raise AssertionError(f"higher order (c): diff {diff}, block factor launches {blocks}")
+    del prob
+
+    # (d) Q2 / Q2 and (e) Q0: a node frame and a gather frame each
+    for tag, case, refinements, label in (
+        ("(d) Q2/Q2", "q2q2", REFINEMENTS - 1, "Q2 unknowns (d)"),
+        ("(e) Q0", "q0", REFINEMENTS, "Q0 unknowns (e)"),
+    ):
+        prob, (nd,), launches = path(case, refinements, 1)
+        tally(node_kernel)
+        ho_log(f"{tag} node", prob, [nd], launches)
+        if launches != {"K1-K4:free_space": 1}:
+            raise AssertionError(f"higher order {tag}: node launches {launches}")
+        args = sweep_args(prob)
+        shapes["free_space"].append(ho_sweep_check(node_kernel, counts, label, args))
+        del args, prob
+        prob, (ga,), launches = path(case, refinements, 1, assembly_backend="gather")
+        nodes_launches += slot_kernel.launches["tile_nodes"]
+        nodes_pairs["f64"] += slot_kernel.pairs["f64"]
+        diff = ho_diff(ga, nd)
+        errs = [abs(r["drag"] - 6 * np.pi) / (6 * np.pi) for r in (nd, ga)]
+        ho_log(
+            f"{tag} gather", prob, [ga], launches,
+            f"; drag errors node, gather {errs} (at create_sphere(2): {HO_COARSE_DRAG[case]:g}); forces "
+            f"against node mode {diff:.3e} (tol {HO_MODES_TOL:g})",
+        )
+        if set(launches) != {"K6:tile_nodes"} or diff > HO_MODES_TOL or max(errs) > HO_COARSE_DRAG[case]:
+            raise AssertionError(f"higher order {tag}: gather launches {launches}, diff {diff}, drag errors {errs}")
+        shapes["tile_nodes"].append(ho_nodes_check(slot_kernel, counts, label, prob))
+        del prob
+
+    # (f) a Q2 map with Q1 unknowns: two frames of the translating gait
+    prob, recs, launches = path("q2map", REFINEMENTS, 2)
+    tally(node_kernel)
+    speed = GAIT_STEP / prob.cfg.time_step
+    err = abs(recs[0]["rigid_velocities"][0] + speed) / speed
+    ho_log(
+        "(f) Q2 map, Q1 unknowns", prob, recs, launches,
+        f"; U_x of the translating frame against -{speed:.6f}: {err:.3e} (tol 2e-2)",
+    )
+    if launches != {"K1-K4:free_space": 2} or [r["refactored"] for r in recs] != [True, False] or err > 2e-2:
+        raise AssertionError(f"higher order (f): launches {launches} or U_x error {err}")
+    del prob
+
+    # (g) the prolate spheroid, along and across its axis, against Oberbeck
+    a, b = SPHEROID_RADII[:2]
+    ecc = np.sqrt(1.0 - (b / a) ** 2)
+    L = np.log((1.0 + ecc) / (1.0 - ecc))
+    oberbeck = {
+        0: 16.0 * np.pi * a * ecc**3 / ((1.0 + ecc * ecc) * L - 2.0 * ecc),
+        1: 32.0 * np.pi * a * ecc**3 / ((3.0 * ecc * ecc - 1.0) * L + 2.0 * ecc),
+    }
+    for component, exact in oberbeck.items():
+        prob, (rec,), launches = path("spheroid", REFINEMENTS, 1, imposed_component=component)
+        tally(node_kernel)
+        err = abs(rec["drag"] - exact) / exact
+        ho_log(
+            f"(g) spheroid {('axial', 'transverse')[component]}", prob, [rec], launches,
+            f"; Oberbeck {exact:.6f}, off by {err:.3e} (tol {HO_OBERBECK_TOL:g})",
+        )
+        if launches != {"K1-K4:free_space": 1} or err > HO_OBERBECK_TOL:
+            raise AssertionError(f"higher order (g): launches {launches} or Oberbeck error {err}")
+        if component == 0:
+            args = sweep_args(prob)
+            shapes["free_space"].append(ho_sweep_check(node_kernel, counts, "Q3 map, quadrature 5 (g)", args))
+            del args
+        del prob
+    return matvec_launches, nodes_launches, nodes_pairs
+
+
 def node_sweep_entry(key, kernel, record):
     """The kernels-line entry of a node sweep: its launches over the main
     paths, what they were worth in sweeps of the timed shape (create_sphere(5)
@@ -3261,6 +3805,24 @@ def smoke(folder, cpu_study):
     phase(phase_convergence, node_kernel, device, folder, cpu_study)
     phase(phase_2d, node_kernel, matfree_node, slot_kernel, device)
     phase(phase_distributed, node_kernel, device)
+    ho_shapes, ho_matvec, ho_nodes, ho_pairs = phase(
+        phase_higher_order, node_kernel, matfree_node, slot_kernel, device, counts
+    )
+    # phase 22's launches join the main paths' counts; its new shapes stand
+    # beside each kernel's main-path record
+    total, by_shape = matvec_launches["free_space"]
+    matvec_launches["free_space"] = (
+        total + ho_matvec[0],
+        {k: by_shape.get(k, 0) + ho_matvec[1].get(k, 0) for k in {*by_shape, *ho_matvec[1]}},
+    )
+    nodes_launches += ho_nodes
+    nodes_pairs = {k: nodes_pairs[k] + ho_pairs[k] for k in nodes_pairs}
+    new_shapes = {
+        "free_space": ho_shapes["free_space"],
+        "no_slip": ho_shapes["no_slip"],
+        "sweep_matvec_free_space": ho_shapes["matvec"],
+        "tile_nodes": ho_shapes["tile_nodes"],
+    }
     kernels = [
         node_sweep_entry(kernel, KERNELS[kernel], records[kernel]) for kernel in KERNELS
     ] + [
@@ -3277,6 +3839,10 @@ def smoke(folder, cpu_study):
         dict(route="cuda", launches=slots_launches, **SLOT_KERNEL, **slots_record),
         nodes_entry(nodes_launches, nodes_pairs, nodes_record),
     ]
+    for entry in kernels:
+        key = {"node_sweep": "free_space", "node_sweep_no_slip": "no_slip"}.get(entry["name"], entry["name"])
+        if key in new_shapes:
+            entry["higher_order_shapes"] = new_shapes[key]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": kernels}))

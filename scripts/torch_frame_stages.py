@@ -5,7 +5,7 @@
                                           [--refinements 5] [--frames 3]
                                           [--matrix-free [--block-nodes 1024]]
                                           [--column-mode node|gather|scatter|node_planes]
-                                          [--dtype float64|float32]
+                                          [--dtype float64|float32] [--drag-gate]
 
 Runs `SwimmerSimulation(...).run(0, frames)` of bemstokes_tpu_torch for the
 unit sphere 2 radii above the image plane (chip_smoke.py's configuration) on
@@ -26,8 +26,11 @@ bulk and the stages name it whole and, within it, the slot kernel K6
 (`tile_nodes`, which sums into the node columns itself, in free-space
 gather mode; plain slot tensors beside a wall and in scatter mode), the
 incidence gather-reduce of the plain slots and the inputs;
-`node_planes` runs the node sweep through K4 (free space only).  Prints the
-card's name and power limit first.
+`node_planes` runs the node sweep through K4 (free space only).  With
+`--drag-gate` the sphere takes the JAX package's drag-gate elements
+(bench.py:474-503): a Q4 map snapped to the sphere, quadrature 6 / 9 (K1 at
+144 samples per column node, the order-9 singular rules) and GMRES to 1e-12
+on an f32 LU.  Prints the card's name and power limit first.
 """
 
 import argparse
@@ -47,7 +50,7 @@ import bemstokes_tpu_torch.matfree as matfree  # noqa: E402
 import bemstokes_tpu_torch.ops.assemble as asm  # noqa: E402
 import bemstokes_tpu_torch.problem as problem  # noqa: E402
 import bemstokes_tpu_torch.swimmer as swimmer  # noqa: E402
-from bemstokes_tpu_torch.config import ProblemConfig, WallConfig  # noqa: E402
+from bemstokes_tpu_torch.config import ProblemConfig, QuadratureConfig, SolverConfig, WallConfig  # noqa: E402
 from bemstokes_tpu_torch.la.direct import LUPreconditioner  # noqa: E402
 
 
@@ -77,6 +80,7 @@ def main():
         "--column-mode", default="node", choices=["node", "gather", "scatter", "node_planes"]
     )
     ap.add_argument("--dtype", default="float64", choices=["float64", "float32"])
+    ap.add_argument("--drag-gate", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_frame_stages: no CUDA device; nothing was run", file=sys.stderr)
@@ -106,6 +110,13 @@ def main():
         assembly_backend=args.column_mode,
         dtype=args.dtype,
     )
+    if args.drag_gate:
+        cfg = dataclasses.replace(
+            cfg,
+            map_degree=4,
+            quadrature=QuadratureConfig(order=6, singular_order=9),
+            solver=SolverConfig(preconditioner_dtype="float32", tolerance=1e-12),
+        )
     if not args.no_warmup:
         with tempfile.TemporaryDirectory() as out:
             small = dataclasses.replace(cfg, internal_sphere_refinements=2)
@@ -154,7 +165,8 @@ def main():
         sim = swimmer.SwimmerSimulation(cfg, out)
         print(
             f"kernel {args.kernel}, {3 * sim.problem.n + 6} unknowns, {cfg.dtype}, "
-            f"column mode {args.column_mode}"
+            f"column mode {args.column_mode}, map degree {cfg.map_degree}, quadrature "
+            f"{cfg.quadrature.order} / {cfg.quadrature.singular_order}"
         )
         for frame in range(args.frames):
             stages.clear()

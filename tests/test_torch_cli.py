@@ -371,3 +371,63 @@ def test_cli_default_device_is_the_card(tmp_path):
     else:
         with pytest.raises(RuntimeError, match="CUDA device"):
             cli.main(argv)
+
+
+def test_cli_run_profile_writes_a_trace(tmp_path, capsys):
+    """`run --profile DIR --device cpu` traces the frame loop with
+    torch.profiler into DIR/trace.json (a Chrome trace whose events name the
+    frame loop's operators), writes the frames' files as a plain run does,
+    and the per-phase timer table still prints."""
+    _write_gait(tmp_path / "grids", frames=2)
+    params = str(tmp_path / "params.json")
+    cio_t.save_config(cfg_t.from_dict(dataclasses.asdict(_gait_cfg(tmp_path / "grids"))), params)
+    out, prof = str(tmp_path / "out"), str(tmp_path / "prof")
+    argv = ["run", "-p", params, "--device", "cpu", "0", "1", "-o", out, "--profile", prof]
+    assert cli.main(argv) == 0
+    assert os.listdir(prof) == ["trace.json"]
+    with open(os.path.join(prof, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert any(name.startswith("aten::") for name in names)
+    assert os.path.exists(os.path.join(out, "result_0.npz"))
+    assert "Assemble + LAC Solve" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("fmt", ["msh", "inp"])
+def test_load_frame_mesh_matches_jax(fmt, tmp_path):
+    """`problem.load_frame_mesh(cfg, frame)` reads the frame file that the
+    JAX package's function reads, to the same arrays."""
+    from bemstokes_tpu.problem import load_frame_mesh as load_j
+    from bemstokes_tpu_torch.problem import load_frame_mesh as load_t
+
+    _write_gait(tmp_path / "grids", fmt=fmt)
+    cfg = _gait_cfg(tmp_path / "grids", fmt=fmt)
+    cfg_port = cfg_t.from_dict(dataclasses.asdict(cfg))
+    for frame in (0, 2):
+        mj, mt = load_j(cfg, frame), load_t(cfg_port, frame)
+        for key in ("vertices", "cells", "material_id"):
+            np.testing.assert_array_equal(getattr(mt, key), getattr(mj, key))
+    assert not np.array_equal(load_t(cfg_port, 0).vertices, load_t(cfg_port, 2).vertices)
+
+
+def test_port_names_the_jax_packages_module_names():
+    """`from bemstokes_tpu_torch.ops import assemble_rows` and
+    `fem.geometry.make_tables`: the port's `ops` names every name of the
+    JAX package's `ops`, and `make_tables` gives the JAX package's tables."""
+    import bemstokes_tpu.ops as ops_j
+    import bemstokes_tpu_torch.ops as ops_t
+    from bemstokes_tpu.fem.geometry import make_tables as tables_j
+    from bemstokes_tpu_torch.fem.geometry import QuadratureTables, make_tables
+    from bemstokes_tpu_torch.fem.quadrature import gauss_quad
+    from bemstokes_tpu_torch.ops import assemble_rows
+    from bemstokes_tpu_torch.ops.assemble import assemble_rows as rows
+
+    assert assemble_rows is rows
+    assert set(ops_j.__all__) <= set(ops_t.__all__)
+    assert all(hasattr(ops_t, name) for name in ops_t.__all__)
+    pts, wts = gauss_quad(3)
+    tt, tj = make_tables(2, 2, 1, pts, wts), tables_j(2, 2, 1, pts, wts)
+    assert isinstance(tt, QuadratureTables)
+    for key in ("points", "weights", "phi_map", "dphi_map", "phi_fe"):
+        np.testing.assert_array_equal(getattr(tt, key), getattr(tj, key))
+    assert tt.phi_map.shape == (9, 9) and tt.phi_fe.shape == (9, 4)

@@ -264,11 +264,27 @@ def test_config_io_tables_identical():
 
 
 def test_native_reader_binding_is_the_original_code():
-    """`_native.py` binds the same library the same way (the reader half)."""
+    """`_native.py` binds the same library the same way: the reader half,
+    and the table half (`incidence_native`, `weld_native` and the argument
+    types `get_lib` declares for them), which `build_assembly_tables` takes
+    first, as the JAX package's does."""
     assert _code(native_t.read_mesh_native) == _code(native_j.read_mesh_native)
     assert _code(native_t._build) == _code(native_j._build)
     assert native_t._SO == native_j._SO
     assert native_t._MeshBuf._fields_ == native_j._MeshBuf._fields_
+    assert _code(native_t.incidence_native) == _code(native_j.incidence_native)
+    assert _code(native_t.weld_native) == _code(native_j.weld_native)
+    assert _code(native_t.get_lib) == _code(native_j.get_lib)
+    assert _code(asm_t.build_assembly_tables) == _code(asm_j.build_assembly_tables)
+
+
+def test_make_tables_is_the_original_code():
+    """`fem/geometry.py`: `QuadratureTables` and `make_tables` are the JAX
+    package's, statement for statement and field for field."""
+    assert _code(geo_t.make_tables) == _code(geo_j.make_tables)
+    assert [(f.name, f.type) for f in dataclasses.fields(geo_t.QuadratureTables)] == [
+        (f.name, f.type) for f in dataclasses.fields(geo_j.QuadratureTables)
+    ]
 
 
 def test_cylinder_import_reads_a_mesh_file(tmp_path):

@@ -33,8 +33,13 @@ against `tile_nodes_reference` (the gather-reduce of `tile_slots_reference`)
 on create_sphere(1) and (2), Q1 and Q2 panels (4 and 9 local nodes, passes
 of 4 and 3 that divide them) and Q4 on create_sphere(1) (25 local nodes: a
 last pass that is cut short), a ragged row count, rows on their own panels
-(masked) and rows out of order; two calls give the same bits.  Skips where
-no g++ is found.
+(masked) and rows out of order; two calls give the same bits.  And the
+shapes of the higher-order element configurations: K1 at 144, 100, 16 and
+64 samples per column node (a Q4 map at quadrature 6, a Q3 map at 5, Q0 and
+Q2 unknowns; 100 leaves a last pass of 4 samples of the 16 staged), K3 at
+144, and `tile_nodes` with Q0 panels (one local node: `LB = 4, EXACT =
+false`) and with 36 panel points under Q1 and Q2 panels.  Skips where no g++
+is found.
 """
 
 import ctypes
@@ -272,6 +277,42 @@ def test_k1_and_k4_match_plain_version(libs, refinements, rows, samples):
     assert torch.equal(node_kernel.planes_to_dense(Kp), K)
 
 
+def _mapped_inputs(refinements, rows, map_degree, order, fe_degree=1):
+    """(xi, Yj, Nj, Wj) of create_sphere(refinements) with a Q`map_degree`
+    map snapped to the sphere and Q`fe_degree` unknowns at quadrature
+    `order`, f64, cut to `rows` rows: the shapes of the higher-order element
+    configurations (m = vmax x nq samples per column node)."""
+    from bemstokes_tpu_torch.mesh.refine import SphericalManifold
+
+    mesh = create_sphere(refinements=refinements)
+    fe, mp = build_scalar_space(mesh, fe_degree), build_scalar_space(mesh, map_degree)
+    tables = build_assembly_tables(fe, mp, AssemblyConfig(dtype=torch.float64, quad_order=order))
+    euler = torch.as_tensor(euler_from_mesh(mesh.vertices, mp, manifold=SphericalManifold()), dtype=torch.float64)
+    xi, Yj, Nj, Wj = node_sweep_inputs(euler, support_points(euler, mp, fe), tables)
+    return xi[:rows].contiguous(), Yj, Nj, Wj
+
+
+#: (refinements, rows, map degree, quadrature order, unknowns' degree, m):
+#: K1 at the higher-order configurations' samples per column node: Q4 map at
+#: order 6 (144 = 9 passes of 16), Q3 map at order 5 (100: a last pass of 4),
+#: Q0 unknowns (16: one panel a node), Q2 unknowns (64, 44 % zero weights)
+HIGH_ORDER = [(2, 13, 4, 6, 1, 144), (2, 17, 3, 5, 1, 100), (2, 29, 1, 4, 0, 16), (1, 45, 2, 4, 2, 64)]
+
+
+@pytest.mark.parametrize("refinements,rows,map_degree,order,fe_degree,m", HIGH_ORDER)
+def test_k1_matches_plain_version_at_higher_order_shapes(libs, refinements, rows, map_degree, order, fe_degree, m):
+    args = _mapped_inputs(refinements, rows, map_degree, order, fe_degree)
+    assert args[1].shape[1] == m
+    V, K = _call(libs["node_sweep"].node_sweep_f64, *args, False)
+    Vr, Kr = node_kernel.node_sweep_reference(*args)
+    assert _rel(V, Vr) <= TOL and _rel(K, Kr) <= TOL
+    if map_degree == 4:
+        kind, wall = 2, -2.0  # K3 at m = 144 too, the no-slip wall at y = -2
+        V, K = _call(libs["node_sweep_image"].node_sweep_image_f64, *args, False, kind, 1, wall)
+        Vr, Kr = node_kernel.node_sweep_reference(*args, kernel="no_slip", wall_axis=1, wall_position=wall)
+        assert _rel(V, Vr) <= TOL and _rel(K, Kr) <= TOL
+
+
 @pytest.mark.parametrize("wall_axis", [0, 1, 2])
 @pytest.mark.parametrize("kernel", ["free_surface", "no_slip"])
 @pytest.mark.parametrize("refinements,rows,samples", [CASES[1], CASES[3]])
@@ -294,16 +335,20 @@ def test_image_sweep_rejects_unknown_kind_and_axis(libs):
 
 
 
-def _node_inputs(refinements, degree, rows, size=slot_kernel.NODE_GROUP_SIZE):
+def _node_inputs(refinements, degree, rows, size=slot_kernel.NODE_GROUP_SIZE, order=4):
     """(xi, xq, nrm, wphi, row_ids, groups) of the gather assembly on
     create_sphere(refinements) with Q`degree` panels, f64, nodes in groups
     of `size`: `rows` rows, each the support point of its node (so every
-    row lies on its own panels), taken in a shuffled order."""
+    row lies on its own panels), taken in a shuffled order.  The map is the
+    panels' space, Q1 under Q0 panels."""
     mesh = create_sphere(refinements=refinements)
     space = build_scalar_space(mesh, degree)
-    tables = build_assembly_tables(space, space, AssemblyConfig(dtype=torch.float64, column_mode="gather"))
-    euler = torch.as_tensor(euler_from_mesh(mesh.vertices, space), dtype=torch.float64)
-    sp = support_points(euler, space, space)
+    mp = space if degree else build_scalar_space(mesh, 1)
+    tables = build_assembly_tables(
+        space, mp, AssemblyConfig(dtype=torch.float64, column_mode="gather", quad_order=order)
+    )
+    euler = torch.as_tensor(euler_from_mesh(mesh.vertices, mp), dtype=torch.float64)
+    sp = support_points(euler, mp, space)
     ids = torch.randperm(tables.n_nodes, generator=torch.Generator().manual_seed(rows))[:rows]
     groups = slot_kernel.build_node_groups(
         tables.cells_nodes_fe, tables.n_nodes, tables.inc_slot, tables.inc_mask, size
@@ -336,6 +381,18 @@ def test_tile_nodes_matches_plain_version(slots_lib, refinements, degree, rows, 
     assert _rel(V, Vr) <= TOL and _rel(K, Kr) <= TOL
     V2, K2 = _call_nodes(slots_lib.tile_nodes_f64, *args)
     assert torch.equal(V, V2) and torch.equal(K, K2)
+
+
+@pytest.mark.parametrize("degree,order,nl,nq", [(0, 4, 1, 16), (1, 6, 4, 36), (2, 6, 9, 36)])
+def test_tile_nodes_matches_plain_version_at_higher_order_shapes(slots_lib, degree, order, nl, nq):
+    """Q0 panels (nl = 1: `LB = 4, EXACT = false`, a pass of one local node),
+    and 36 panel points (quadrature order 6) with Q1 and Q2 panels, whose
+    shared memory a block grows with nq and nl (`node_smem`)."""
+    args = _node_inputs(2, degree, 17, order=order)
+    assert args[3].shape[1:] == (nq, nl)
+    V, K = _call_nodes(slots_lib.tile_nodes_f64, *args)
+    Vr, Kr = slot_kernel.tile_nodes_reference(*args)
+    assert _rel(V, Vr) <= TOL and _rel(K, Kr) <= TOL
 
 
 def test_tile_nodes_round_width_is_the_source_warps():
