@@ -1,11 +1,12 @@
 """ctypes bindings for the native mesh core (native/meshcore.cpp).
 
 A copy of `bemstokes_tpu/_native.py` (that package cannot be imported
-without importing jax).  The shared library is built on demand with the
-repo Makefile (a one-time `g++ -O3` of a single TU); if the toolchain or the
-sources are unavailable every entry point returns None and the callers take
-their numpy versions, which give the same arrays: `mesh.io.read_mesh` its
-readers, `ops/assemble.py:build_assembly_tables` its incidence loop.  This
+without importing jax), whose `_build` also takes a file lock.  The shared
+library is built on demand with the repo Makefile (a one-time `g++ -O3` of
+a single TU); if the toolchain or the sources are unavailable every entry
+point returns None and the callers take their numpy versions, which give the
+same arrays: `mesh.io.read_mesh` its readers,
+`ops/assemble.py:build_assembly_tables` its incidence loop.  This
 is host-side mesh bookkeeping: nothing here decides where the solver runs.
 Disable explicitly with BEMSTOKES_NATIVE=0.
 """
@@ -13,6 +14,7 @@ Disable explicitly with BEMSTOKES_NATIVE=0.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 import threading
@@ -39,21 +41,41 @@ class _MeshBuf(ctypes.Structure):
 
 
 def _build():
+    """Build the library once, however many processes ask at the same time:
+    under an exclusive `flock` of the `native/` directory, into a file of
+    this process's own that is then renamed over the library, so no process
+    that takes the lock meets a half-written file.  A library that is there
+    but does not load (written in place by a builder that took no lock) is
+    built again."""
     src = os.path.join(_NATIVE_DIR, "meshcore.cpp")
     if not os.path.exists(src):
         return False
-    if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(src):
-        return True
+    fd = os.open(_NATIVE_DIR, os.O_RDONLY)
     try:
-        subprocess.run(
-            ["make", "-C", _NATIVE_DIR],
-            check=True,
-            capture_output=True,
-            timeout=120,
-        )
-        return os.path.exists(_SO)
-    except Exception:
-        return False
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(src):
+            try:
+                ctypes.CDLL(_SO)
+                return True
+            except OSError:
+                pass
+        tmp = f"{os.path.basename(_SO)}.{os.getpid()}.tmp"
+        try:
+            subprocess.run(
+                ["make", "-C", _NATIVE_DIR, f"TARGET={tmp}"],
+                check=True,
+                capture_output=True,
+                timeout=120,
+            )
+            os.replace(os.path.join(_NATIVE_DIR, tmp), _SO)
+            return True
+        except Exception:
+            return False
+        finally:
+            if os.path.exists(os.path.join(_NATIVE_DIR, tmp)):
+                os.remove(os.path.join(_NATIVE_DIR, tmp))
+    finally:
+        os.close(fd)  # releases the lock
 
 
 def get_lib():

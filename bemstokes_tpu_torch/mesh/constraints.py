@@ -264,7 +264,9 @@ def hanging_node_constraints_for_space(mesh: SurfaceMesh, space) -> HangingConst
 def apply_hanging_constraints_monolithic(A, rhs, hc: HangingConstraints, n, d):
     """Overwrite the d constrained rows per hanging node with the
     interpolation identity u_h - sum w_k u_{m_k} = 0 (reference `:2970-2995`).
-    Torch tensors in, new tensors out (A and rhs are not modified)."""
+    The rows of the torch tensors A and rhs are overwritten where they lie
+    (the JAX package returns new arrays): the frame solve's system is its
+    own, and a copy would add a second system to the peak."""
     import torch
 
     if hc.n == 0:
@@ -273,7 +275,6 @@ def apply_hanging_constraints_monolithic(A, rhs, hc: HangingConstraints, n, d):
     comp = np.arange(d)[:, None] * n  # [d, 1]
     rows_np = (hc.slaves[None, :] + comp).reshape(-1)  # [d*H]
     rows = torch.as_tensor(rows_np, dtype=torch.long, device=dev)
-    A = A.clone()
     A[rows, :] = 0.0
     A[rows, rows] = 1.0
     cols = torch.as_tensor(
@@ -290,6 +291,5 @@ def apply_hanging_constraints_monolithic(A, rhs, hc: HangingConstraints, n, d):
         np.repeat(rows_np, hc.masters.shape[1]), dtype=torch.long, device=dev
     )
     A.index_put_((rr, cols), vals, accumulate=True)
-    rhs = rhs.clone()
     rhs[rows] = 0.0
     return A, rhs

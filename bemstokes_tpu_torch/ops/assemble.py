@@ -571,9 +571,12 @@ def _add_near_corrections(V, K, euler, support_pts, xi, node_ids, tables, nr):
     return scatter_coo(V, ri, ci, dV), scatter_coo(K, ri, ci, dK)
 
 
-def _near_coo(euler, support_pts, xi, node_ids, tables, nr, RC: int = 256):
+def _near_coo(euler, support_pts, xi, node_ids, tables, nr, RC: int = 4096):
     """COO triplets (ri, ci, dV, dK) of the near-pair quadrature upgrade, in
     row chunks of RC.  Returns None unless adaptive quadrature is enabled.
+    (The local blocks are chains of small elementwise ops: in chunks of 256
+    rows a promoted create_sphere(5) frame's delta paid for its launches,
+    in chunks of 4,096 it is half the time, PERF.md §5.)
 
     The nearest panels are the `near_panels` smallest squared center
     distances, ties broken towards the lower panel index (a stable sort;

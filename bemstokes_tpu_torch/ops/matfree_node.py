@@ -304,12 +304,14 @@ def sweep_matvec_reference(
                 R_img = R
             G, Wn = eval_G_Wn(st.kernel, st.wall_axis, R, R_img, Nj[None, j0 : j0 + col_chunk])
             Wcc = Wj[j0 : j0 + col_chunk]
-            oV[i0 : i0 + row_tile] += torch.einsum(
-                "tjmab,jm,jBb->taB", G, Wcc, XVn[j0 : j0 + col_chunk]
-            )
-            oK[i0 : i0 + row_tile] -= torch.einsum(
-                "tjmab,jm,jBb->taB", Wn, Wcc, XKn[j0 : j0 + col_chunk]
-            )
+            if BV:
+                oV[i0 : i0 + row_tile] += torch.einsum(
+                    "tjmab,jm,jBb->taB", G, Wcc, XVn[j0 : j0 + col_chunk]
+                )
+            if BK:
+                oK[i0 : i0 + row_tile] -= torch.einsum(
+                    "tjmab,jm,jBb->taB", Wn, Wcc, XKn[j0 : j0 + col_chunk]
+                )
     return (
         oV.permute(1, 0, 2).reshape(d * nr, BV),
         oK.permute(1, 0, 2).reshape(d * nr, BK),

@@ -119,8 +119,12 @@ def evaluate_stokes_bie(
         G, W = _kernels_at(cfg, pts[s : s + chunk], xq)  # [p, Nc, nq, d, d(,d)]
         Wn = torch.einsum("pcqijk,cqk->pcqij", W, normals)
         del W
+        # each point's sum over (panel, point) is its own reduction, so a
+        # point gets the same bits in a chunk of any size (one contraction
+        # "pcqij,cqj->pi" lets the matrix product's blocking follow p)
         out.append(
-            torch.einsum("pcqij,cqj->pi", G, fw) - torch.einsum("pcqij,cqj->pi", Wn, uw)
+            torch.einsum("pcqij,cqj->pcqi", G, fw).sum(dim=(1, 2))
+            - torch.einsum("pcqij,cqj->pcqi", Wn, uw).sum(dim=(1, 2))
         )
     return torch.cat(out)
 

@@ -205,21 +205,53 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    plain version on the card on the first 512 rows and timed over all rows
    with the SM clock read under load, its bound counting the samples of
    nonzero weight.
+23. walls and near contact, f64, Direct, each path with the launch
+   counters set to 0 just before it and read just after, its frames' ms,
+   iterations, residual, drag, hanging nodes and peak memory printed:
+   first each part's small twin (create_sphere(1-2), coarse walls, every
+   vertex jittered by 1e-6 so that no near-pair selection meets a distance
+   tie), the card against the port on the CPU (1e-10, equal iterations and
+   column masks); then (a) create_sphere(4) 2 radii above a meshed no-slip
+   plate (span 12) refined near the body to threshold 0.5 within 7 (6,091
+   nodes, 152 hanging, 18,279 unknowns), per-component solid angle: fresh
+   and stale node frames along x and toward the plate, the unrefined plate,
+   the Blake image wall (K3) on the same sphere, a gather frame
+   (`tile_nodes`, 1e-8), a matrix-free frame (blocks of 1,024, GMRES to
+   1e-11, 1e-8) and two frames of the frame loop toward the plate on the
+   stale LU; the refined x-drag's error against Lorentz's series under half
+   the unrefined one's and under 2e-2, both under Lorentz's drag; (b) that
+   sphere with a dirichlet, a neumann, a do-nothing and a free-surface plate
+   8 away, each refined uniformly 5 times: a node frame (the unknowns follow
+   the column mask, 6 pi < drag < 12 pi) and a matrix-free frame through
+   K5's two-sided (1, 1) launch (1e-8); (c) create_sphere(5) moving toward
+   the Blake wall at H = 2, 1.2, 1.1, 1.05, 1.02 under the order-2 far rule,
+   the same with auto-promotion (boost 6) and uniform order 8: the
+   promotion where the image gap is below the local panel diameter, lambda
+   within 1e-2 of Brenner's at H >= 1.1, and where it promotes the
+   promoted rule within 1e-4 of order 8 and the plain one more than 3
+   times further; (d) two create_sphere(5) bodies 3.0 and 2.05 apart along
+   x (12,292 nodes, 36,882 unknowns): lambda within 1e-2 of Stimson and
+   Jeffery's, the promotion at 2.05 only, and a matrix-free frame at 2.05
+   with the near-pair delta in each iteration (1e-8).  K3 at m = 16 and
+   256, K1 at 12,292 nodes and K5 (1, 1) on the four-wall mesh are held
+   against their plain versions on the first 512 rows and timed.
 
 Before the last line it prints the card's name and power limit and one JSON
 object {"kernels": [...]} with each kernel's launches on its main paths
-(K1-K4: summed over every path of phases 5, 6, 9, 10, 14, 16-19, 21 and 22
+(K1-K4: summed over every path of phases 5, 6, 9, 10, 14, 16-19 and 21-23
 that reaches them, the block factors of the matrix-free frames included, and
 phase 21's frames, slabs and loop; beside that raw
 count, what the launches were worth in whole create_sphere(5) sweeps per
 type, and those sweeps times each type's gap between time and bound;
-`tile_nodes` likewise over the gather frames of phases 14 and 22, in whole
-create_sphere(5) bulks; K5's free-space count adds phase 22's matrix-free
-frame to the capacity frame's; `tile_slots` is on no path since the gather
-path takes `tile_nodes`: 0), its error against the plain version, both
-times and its bound, and for K1, K3, K5 and `tile_nodes` the records of
-phase 22's new shapes (`higher_order_shapes`); the last line is {"ok": true, "device": {...}}.  Without a
-CUDA device it exits non-zero and prints no result.
+`tile_nodes` likewise over the gather frames of phases 14, 22 and 23, in
+whole create_sphere(5) bulks; K5's free-space count adds the matrix-free
+frames of phases 22 and 23 to the capacity frame's; `tile_slots` is on no
+path since the gather path takes `tile_nodes`: 0), its error against the
+plain version, both times and its bound, for K1, K3, K5 and `tile_nodes`
+the records of phase 22's new shapes (`higher_order_shapes`) and for K1, K3
+and K5 those of phase 23 (`walls_near_contact_shapes`); the last line is
+{"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
+prints no result.
 """
 
 import contextlib
@@ -432,7 +464,7 @@ def clock_under_load(fn):
 
 
 #: launches of K1-K4 summed over every main path that reaches them (phases
-#: 5, 6, 9, 10, 14, 16-19, 21 and 22), each path's counts read just after it ran with the
+#: 5, 6, 9, 10, 14, 16-19 and 21-23), each path's counts read just after it ran with the
 #: counters set to 0 just before it; and the interactions they swept, per
 #: (counter, "f32" or "f64")
 PATH_LAUNCHES = {"free_space": 0, "free_surface": 0, "no_slip": 0, "planes": 0}
@@ -3712,6 +3744,667 @@ def higher_order_paths(node_kernel, matfree_node, slot_kernel, device, counts, s
     return matvec_launches, nodes_launches, nodes_pairs
 
 
+#: phase 23: the sphere's height above each wall, in radii
+WN_H = 2.0
+#: (a) the meshed no-slip plate and its local refinement: with create_sphere(4)
+#: 6,091 nodes (152 hanging), 18,279 unknowns; the small twin's, with
+#: create_sphere(2), 171 nodes (24 hanging)
+WN_SPAN = (12.0, 0.0, 12.0)
+WN_REFINEMENT = dict(threshold=0.5, distance_from_center=7.0)
+WN_SMALL_REFINEMENT = dict(threshold=2.0, distance_from_center=2.5)
+#: the stale frames move the body along the wall, not the wall
+WN_BODY_SHIFT = np.array([0.1, 0.0, 0.0])
+#: (b) the four wall kinds: (kind, position, span); each meshed plate refined
+#: uniformly WN_MIXED_REFINEMENTS times (1,089 nodes; the small twin's once)
+WN_MIXED = (
+    ("dirichlet", (0.0, -8.0, 0.0), (8.0, 0.0, 8.0)),
+    ("neumann", (0.0, 8.0, 0.0), (8.0, 0.0, 8.0)),
+    ("do_nothing", (8.0, 0.0, 0.0), (0.0, 8.0, 8.0)),
+    ("free_surface", (0.0, 0.0, -8.0), (8.0, 8.0, 0.0)),
+)
+WN_MIXED_REFINEMENTS = 5
+#: (c) the gaps and quadratures of the near-contact sweep (scripts/
+#: near_contact_sweep.py's, with order 8 where the TPU compiler took 6)
+WN_GAPS = (2.0, 1.2, 1.1, 1.05, 1.02)
+WN_QUADRATURES = {
+    "far2": dict(order=2, auto_promote=False),
+    "far2+auto": dict(order=2, auto_promote=True, promote_boost=6),
+    "uniform8": dict(order=8, auto_promote=False),
+}
+#: (d) two create_sphere(5) bodies, centre distances
+WN_DISTANCES = (3.0, 2.05)
+WN_CPU_TOL = 1e-10  # each small twin: the card against the port on the CPU
+WN_MATFREE_TOL = 1e-8  # a matrix-free frame against its materialized frame
+WN_MODES_TOL = 1e-8  # the gather frame against the node frame
+WN_RESIDUAL = 1e-8
+WN_BRENNER_TOL = 1e-2  # (c) at H >= 1.1, each quadrature
+WN_RECOVERY = 1e-4  # (c) the promoted far rule against uniform order 8
+WN_SJ_TOL = 1e-2  # (d) against Stimson and Jeffery
+WN_JITTER = 1e-6  # the small twins' vertex jitter
+WN_SMALL_BLOCK = 128  # the small twins' matrix-free blocks (their CPU runs pay each iteration in plain torch)
+
+
+def lorentz_drag(H):
+    """The drag of a unit sphere translating parallel to an infinite no-slip
+    plane at height H (Lorentz / Faxen series, tests/test_wall_refinement.py:
+    30-33)."""
+    lam = 1.0 / H
+    return 6.0 * np.pi / (1.0 - 9.0 / 16.0 * lam + lam**3 / 8.0 - 45.0 / 256.0 * lam**4 - lam**5 / 16.0)
+
+
+def stimson_jeffery_lambda(Hd, terms=5000):
+    """Two equal spheres translating with equal velocity along their line of
+    centres: the exact drag correction of each (Stimson and Jeffery 1926),
+    Hd = d / (2a) with d the centre separation (tests/test_near_contact.py:53)."""
+    al = np.arccosh(np.float64(Hd))
+    n = np.arange(1, terms + 1, dtype=np.float64)
+    k = 2 * n + 1
+    e = np.exp(-k * al)
+    sha, sh2a = np.sinh(al), np.sinh(2 * al)
+    den = (1 - e * e) + k * sh2a * e
+    num = (1 - e) ** 2 - (k * sha) ** 2 * e
+    return (4.0 / 3.0) * sha * np.sum(n * (n + 1) / ((2 * n - 1) * (2 * n + 3)) * (1.0 - num / den))
+
+
+def wn_jittered(mesh):
+    """`mesh` with every vertex moved by a seeded WN_JITTER: the small twins'
+    near-pair selections then meet no exact distance tie, which the card's
+    and the CPU's roundings could break apart."""
+    from bemstokes_tpu_torch.mesh import SurfaceMesh
+
+    v = mesh.vertices + WN_JITTER * np.random.default_rng(23).standard_normal(mesh.vertices.shape)
+    return SurfaceMesh(v, mesh.cells, mesh.material_id, mesh.flip_normal, mesh.edge_midpoints)
+
+
+def wn_wall_config(refinement, component, y=-WN_H, **kw):
+    """(a): the sphere moving along x (component 0) or y beside the meshed
+    no-slip plate at y, refined near the body by `refinement` (None: the
+    plate as `create_wall` makes it, 2 x 2 panels), per-component solid angle."""
+    from bemstokes_tpu_torch.config import ProblemConfig, WallConfig, WallRefinementConfig
+
+    return ProblemConfig(
+        grid_type="ImposedVelocity",
+        imposed_component=component,
+        force_pole="Origin",
+        body_manifold="sphere",
+        alpha_row_sum="component",
+        walls=(WallConfig(enabled=True, wall_type="no_slip", position=(0.0, y, 0.0), span=WN_SPAN),),
+        wall_refinement=WallRefinementConfig(enabled=refinement is not None, **(refinement or {})),
+        **kw,
+    )
+
+
+def wn_mixed_config(**kw):
+    from bemstokes_tpu_torch.config import ProblemConfig, WallConfig
+
+    return ProblemConfig(
+        grid_type="ImposedVelocity",
+        imposed_component=0,
+        force_pole="Origin",
+        walls=tuple(WallConfig(enabled=True, wall_type=k, position=p, span=s) for k, p, s in WN_MIXED),
+        **kw,
+    )
+
+
+def wn_mixed_mesh(refinements, wall_refinements):
+    from bemstokes_tpu_torch.mesh import create_sphere
+    from bemstokes_tpu_torch.mesh.factories import create_wall
+
+    mesh = create_sphere(refinements=refinements)
+    for kind, position, span in WN_MIXED:
+        mesh = mesh.merged_with(create_wall(position, span, kind, False, refinements=wall_refinements))
+    return mesh
+
+
+def wn_blake_config(H, quadrature=None, component=1):
+    """(c): the sphere moving toward (component 1) or along the Blake image
+    wall at y = -H."""
+    from bemstokes_tpu_torch.config import ProblemConfig, QuadratureConfig, WallConfig
+
+    return ProblemConfig(
+        grid_type="ImposedVelocity",
+        imposed_component=component,
+        force_pole="Origin",
+        no_slip_kernel=True,
+        body_manifold="sphere",
+        walls=(WallConfig(enabled=False, position=(0.0, -H, 0.0), span=(10.0, 0.0, 10.0)),),
+        quadrature=QuadratureConfig(**(quadrature or {})),
+    )
+
+
+def wn_spheres_config(d, refinements, **kw):
+    from bemstokes_tpu_torch.config import ProblemConfig
+
+    return ProblemConfig(
+        grid_type="ImposedVelocity",
+        imposed_component=0,
+        force_pole="Origin",
+        build_sphere_in_code=True,
+        internal_sphere_refinements=refinements,
+        two_spheres=True,
+        spheres_distance=d,
+        **kw,
+    )
+
+
+def wn_solve(device, mesh, cfg, shifts=((0.0, 0.0, 0.0),)):
+    """(problem, [frame record]) of one problem on `device`, a frame per body
+    shift (the first fresh, the rest on its stale LU): ms (host clock, the
+    card synchronised), iterations, refactored, convergence, residual, the
+    unknowns (tractions, wall velocities), the rigid velocities and forces,
+    the drag |F_c| along the imposed component c and the column mask."""
+    from bemstokes_tpu_torch.problem import StokesBEMProblem
+
+    prob = StokesBEMProblem(mesh, cfg, device=device)
+    e0 = prob.initial_euler().cpu().numpy()
+    body = prob.body_node_mask > 0
+    if e0.shape[0] != prob.n:
+        raise AssertionError("phase 23 moves the body's nodes: the map must be the unknowns' space")
+    out = []
+    for shift in shifts:
+        e = e0.copy()
+        e[body] += np.asarray(shift)
+        if prob.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = prob.solve_frame(e, np.zeros(3 * prob.n))
+        if prob.device.type == "cuda":
+            torch.cuda.synchronize()
+        F = np.asarray(res["rigid_forces_pole"])
+        out.append(
+            dict(
+                ms=(time.perf_counter() - t0) * 1e3,
+                iterations=int(res["iterations"]),
+                refactored=bool(res["refactored"]),
+                converged=bool(res["converged"]),
+                residual=float(res["residual"]),
+                stokes_forces=res["stokes_forces"].cpu().numpy(),
+                wall_velocities=res["wall_velocities"].cpu().numpy(),
+                rigid_velocities=np.asarray(res["rigid_velocities"]),
+                rigid_forces_pole=F,
+                drag=float(abs(F[prob.cfg.imposed_component])),
+                sel_V=res["operators"]["sel_V"].cpu().numpy(),
+            )
+        )
+        del res
+    return prob, out
+
+
+def wn_diff(a, b):
+    """Largest relative difference of two frame records' unknowns and rigid
+    velocities and forces, each relative to its largest entry."""
+    worst = 0.0
+    for key in ("stokes_forces", "wall_velocities", "rigid_velocities", "rigid_forces_pole"):
+        scale = np.abs(b[key]).max()
+        if scale > 0:
+            worst = max(worst, float(np.abs(a[key] - b[key]).max() / scale))
+    return worst
+
+
+def wn_small(device):
+    """Each part's small twin, the card against the port on the CPU: equal
+    column masks and iterations, unknowns within WN_CPU_TOL."""
+    from bemstokes_tpu_torch.mesh import create_sphere
+    from bemstokes_tpu_torch.mesh.factories import add_walls_to_mesh, create_body_in_code
+
+    shifts = ((0.0, 0.0, 0.0), WN_BODY_SHIFT)
+    cfg_a = wn_wall_config(WN_SMALL_REFINEMENT, 0)
+    mesh_a = wn_jittered(add_walls_to_mesh(create_sphere(refinements=2), cfg_a))
+    cases = [
+        ("(a) refined wall, fresh and stale", mesh_a, cfg_a, shifts),
+        ("(a) gather", mesh_a, wn_wall_config(WN_SMALL_REFINEMENT, 0, assembly_backend="gather"), shifts[:1]),
+        (
+            "(a) matrix-free",
+            mesh_a,
+            wn_wall_config(WN_SMALL_REFINEMENT, 0, matrix_free=True, matfree_block_nodes=WN_SMALL_BLOCK),
+            shifts[:1],
+        ),
+        ("(b) four wall kinds", wn_jittered(wn_mixed_mesh(2, 1)), wn_mixed_config(), shifts[:1]),
+        (
+            "(b) four wall kinds, matrix-free",
+            wn_jittered(wn_mixed_mesh(2, 1)),
+            wn_mixed_config(matrix_free=True, matfree_block_nodes=32),
+            shifts[:1],
+        ),
+    ]
+    for name, quad in (("far2+auto", WN_QUADRATURES["far2+auto"]), ("uniform8", WN_QUADRATURES["uniform8"])):
+        cases.append((f"(c) H = 1.1, {name}", wn_jittered(create_sphere(refinements=2)), wn_blake_config(1.1, quad), shifts[:1]))
+    cfg_d = wn_spheres_config(2.2, 1)
+    mesh_d = wn_jittered(create_body_in_code(cfg_d))
+    cases.append(("(d) two spheres at 2.2", mesh_d, cfg_d, shifts[:1]))
+    cases.append(
+        ("(d) matrix-free", mesh_d, wn_spheres_config(2.2, 1, matrix_free=True, matfree_block_nodes=16), shifts[:1])
+    )
+    worst_all = 0.0
+    for name, mesh, cfg, frame_shifts in cases:
+        t0 = time.perf_counter()
+        prob_c, card = wn_solve(device, mesh, cfg, frame_shifts)
+        t1 = time.perf_counter()
+        prob_h, host = wn_solve("cpu", mesh, cfg, frame_shifts)
+        t2 = time.perf_counter()
+        worst = max(wn_diff(a, b) for a, b in zip(card, host))
+        iters = [(a["iterations"], b["iterations"]) for a, b in zip(card, host)]
+        same_mask = all(np.array_equal(a["sel_V"], b["sel_V"]) for a, b in zip(card, host))
+        log(
+            f"walls and near contact, small twin {name}: {prob_c.n} nodes ({prob_c.hanging.n} hanging), promoted "
+            f"{prob_c.quadrature_promoted}; card vs CPU {worst:.3e} (tol {WN_CPU_TOL:g}), iterations {iters}, "
+            f"equal column masks {same_mask} ({int(card[0]['sel_V'].sum())} V columns of {len(card[0]['sel_V'])}); "
+            f"card {t1 - t0:.1f} s, CPU {t2 - t1:.1f} s"
+        )
+        if (
+            worst > WN_CPU_TOL
+            or any(a != b for a, b in iters)
+            or not same_mask
+            or prob_c.quadrature_promoted != prob_h.quadrature_promoted
+        ):
+            raise AssertionError(f"walls and near contact {name}: the card disagrees with the CPU")
+        worst_all = max(worst_all, worst)
+    return worst_all
+
+
+def wn_path(device, mesh, cfg, kernels, shifts=((0.0, 0.0, 0.0),)):
+    """One full-width problem with the launch counters set to 0 just before
+    it and read just after; returns (problem, records, launches that were
+    not 0, peak GiB)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(*kernels.values())
+    prob, recs = wn_solve(device, mesh, cfg, shifts)
+    launches = {f"{name}:{k}": v for name, mod in kernels.items() for k, v in mod.launches.items() if v}
+    return prob, recs, launches, torch.cuda.max_memory_allocated() / 2**30
+
+
+def wn_log(name, prob, recs, launches, peak, extra=""):
+    unknowns = 3 * prob.n + prob.num_rigid
+    frames = "; ".join(
+        f"frame {k}: {r['ms']:.1f} ms, {r['iterations']} iterations, refactored {r['refactored']}, "
+        f"converged {r['converged']}, residual {r['residual']:.3e}, drag {r['drag']:.10f}"
+        for k, r in enumerate(recs)
+    )
+    log(
+        f"walls and near contact {name}: {prob.n} nodes ({prob.hanging.n} hanging, {3 * prob.hanging.n} "
+        f"constrained rows), {unknowns} unknowns, promoted {prob.quadrature_promoted}, vmax x nq = "
+        f"{prob.tables.inc_slot.shape[1]} x {len(prob.tables.q_weights)}; {frames}; peak {peak:.3f} GiB; "
+        f"launches {launches}{extra}"
+    )
+    if not all(r["converged"] and np.isfinite(r["stokes_forces"]).all() for r in recs):
+        raise AssertionError(f"walls and near contact {name}: a frame did not converge")
+    if max(r["residual"] for r in recs) > WN_RESIDUAL:
+        raise AssertionError(f"walls and near contact {name}: residual above {WN_RESIDUAL:g}")
+
+
+class StageTimer:
+    """Wraps a module function with a synchronised host timer: its calls and
+    their ms summed, until `restore`."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.inner = module, name, getattr(module, name)
+        self.calls, self.ms = 0, 0.0
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.inner(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.calls += 1
+            self.ms += (time.perf_counter() - t0) * 1e3
+            return out
+
+        setattr(module, name, timed)
+
+    def reset(self):
+        self.calls, self.ms = 0, 0.0
+
+    def restore(self):
+        setattr(self.module, self.name, self.inner)
+
+
+def wn_matvec_check(matfree_node, label, prob, shape=(1, 1)):
+    """K5 (free space) in `shape` on the problem's sweep against its plain
+    version on the first HO_PLAIN_ROWS rows, timed over all rows."""
+    from bemstokes_tpu_torch.fem.geometry import support_points
+    from bemstokes_tpu_torch.physics.rigid import build_mass_operator
+
+    dtype = torch.float64
+    e = prob.initial_euler()
+    sp = support_points(e, prob.map_space, prob.fe_space)
+    _, (xq, normals, jxw) = build_mass_operator(e, prob.tables)
+    st, arrs = matfree_node.build_sweep(prob.tables, sp, xq, normals, jxw)
+    st_r, arrs_r = matfree_node.build_sweep(prob.tables, sp[:HO_PLAIN_ROWS], xq, normals, jxw)
+    BV, BK = shape
+    rng = np.random.default_rng(23)
+    X = torch.as_tensor(rng.standard_normal((3 * st.n, BV + BK)), dtype=dtype, device=prob.device)
+    XV, XK = X[:, :BV], X[:, BV:]
+    (Vr, Kr), plain_ms = event_ms(
+        lambda: matfree_node.sweep_matvec_reference(st_r, arrs_r, XV, XK, row_tile=64, col_chunk=1024)
+    )
+    V, K = matfree_node.sweep_matvec(st_r, arrs_r, XV, XK)
+    err = max(rel(a, b) for a, b in ((V, Vr), (K, Kr)) if b.numel())
+    abs_err = max((a - b).abs().max().item() for a, b in ((V, Vr), (K, Kr)) if b.numel())
+    finite = bool(torch.isfinite(V).all() and torch.isfinite(K).all())
+    ms = cuda_ms(lambda: matfree_node.sweep_matvec(st, arrs, XV, XK), reps=5)
+    clock = clock_under_load(lambda: matfree_node.sweep_matvec(st, arrs, XV, XK))
+    nr, n, m = st.nr, st.n, st.vmax * st.nq
+    bound_ms, bound_by = matvec_bound("free_space", dtype, nr, n, m, shape)
+    rec = dict(
+        shape=label, launch_shape=shape_name(shape), m=m, rows=nr, cols=n, ms=ms,
+        ps_per_interaction=ms * 1e9 / (nr * n * m), plain_ms=plain_ms, plain_rows=st_r.nr, bound_ms=bound_ms,
+        bound_by=bound_by, max_abs_err=abs_err, max_rel_err=err, sm_clock=clock,
+    )
+    log(
+        f"walls and near contact sweep_matvec free_space {shape} {label}: rows={nr} cols={n} m={m}: rel err on "
+        f"{st_r.nr} rows {err:.3e} (tol {TOL_MATVEC[dtype]:.0e}), max abs err {abs_err:.3e}; kernel {ms:.3f} ms "
+        f"({rec['ps_per_interaction']:.3f} ps an interaction), plain {plain_ms:.3f} ms on {st_r.nr} rows, bound "
+        f"{bound_ms:.3f} ms by {bound_by}; SM clock, its maximum and power under this load: {clock}"
+    )
+    if not (finite and err <= TOL_MATVEC[dtype]):
+        raise AssertionError(f"walls and near contact: sweep_matvec disagrees with its plain version at {label}")
+    return rec
+
+
+def phase_walls_near_contact(node_kernel, matfree_node, slot_kernel, device, counts):
+    """Phase 23: meshed walls with hanging nodes, the four wall kinds, the
+    near-contact sweep against the Blake wall and two spheres in near
+    contact, at full width; returns the new-shape records per kernel, K5's
+    free-space launches (in all and by shape) and `tile_nodes`' launches and
+    (row, panel) pairs on these paths."""
+    from bemstokes_tpu_torch import matfree
+    from bemstokes_tpu_torch.la.direct import LUPreconditioner
+    from bemstokes_tpu_torch.ops import assemble
+
+    log(f"walls and near contact: {card_line()}")
+    t0 = time.perf_counter()
+    small = wn_small(device)
+    log(f"walls and near contact: small twins {time.perf_counter() - t0:.1f} s, worst {small:.3e}")
+    shapes = {"free_space": [], "no_slip": [], "matvec": []}
+    kernels = {"K1-K4": node_kernel, "K6": slot_kernel, "K5": matfree_node}
+    k5 = {"total": 0, "by_shape": {}}
+    nodes = {"launches": 0, "pairs": {"f32": 0, "f64": 0}}
+    near = StageTimer(assemble, "_add_near_corrections")
+    near_free = StageTimer(matfree, "_near_coo")
+    lu = StageTimer(LUPreconditioner, "set_up")
+    try:
+        wn_meshed_wall(node_kernel, matfree_node, slot_kernel, device, kernels, k5, nodes)
+        shapes["matvec"].append(wn_mixed_walls(node_kernel, matfree_node, device, kernels, k5))
+        shapes["no_slip"] += wn_near_contact(node_kernel, device, kernels, counts, near)
+        shapes["free_space"].append(
+            wn_two_spheres(node_kernel, matfree_node, device, kernels, counts, k5, near, near_free, lu)
+        )
+    finally:
+        near.restore()
+        near_free.restore()
+        lu.restore()
+    return shapes, (k5["total"], k5["by_shape"]), nodes["launches"], nodes["pairs"]
+
+
+def wn_add_k5(matfree_node, k5):
+    k5["total"] += matfree_node.launches["free_space"]
+    for shape, count in shapes_of(matfree_node, "free_space").items():
+        k5["by_shape"][shape] = k5["by_shape"].get(shape, 0) + count
+
+
+def wn_meshed_wall(node_kernel, matfree_node, slot_kernel, device, kernels, k5, nodes):
+    """(a) create_sphere(4) 2 radii above the meshed no-slip plate, refined
+    near the body: along x and toward the wall, fresh and stale frames; the
+    unrefined plate; a gather frame; a matrix-free frame; two frames of the
+    frame loop toward the wall; and the Blake image wall on the same sphere."""
+    from bemstokes_tpu_torch.config import SolverConfig
+    from bemstokes_tpu_torch.mesh import create_sphere
+    from bemstokes_tpu_torch.mesh.factories import add_walls_to_mesh
+
+    refinements = REFINEMENTS - 1
+    shifts = ((0.0, 0.0, 0.0), WN_BODY_SHIFT)
+    lorentz, brenner = lorentz_drag(WN_H), 6.0 * np.pi * brenner_lambda(WN_H)
+    drag = {}
+    for component in (0, 1):
+        cfg = wn_wall_config(WN_REFINEMENT, component)
+        mesh = add_walls_to_mesh(create_sphere(refinements=refinements), cfg)
+        prob, recs, launches, peak = wn_path(device, mesh, cfg, kernels, shifts)
+        tally(node_kernel)
+        drag[component] = recs[0]["drag"]
+        exact = lorentz if component == 0 else brenner
+        wn_log(
+            f"(a) refined wall, {'xy'[component]}", prob, recs, launches, peak,
+            f"; drag against {('Lorentz', 'Brenner')[component]} {exact:.6f}: {(recs[0]['drag'] - exact) / exact:+.4e}",
+        )
+        if launches != {"K1-K4:free_space": 2} or [r["refactored"] for r in recs] != [True, False]:
+            raise AssertionError(f"walls and near contact (a): launches {launches} or refactor flags")
+        if prob.hanging.n == 0:
+            raise AssertionError("walls and near contact (a): the refined wall has no hanging node")
+        if component == 0:
+            node = recs[0]
+            refined = prob.n
+        del prob
+    cfg = wn_wall_config(None, 0)
+    prob, recs, launches, peak = wn_path(
+        device, add_walls_to_mesh(create_sphere(refinements=refinements), cfg), cfg, kernels
+    )
+    tally(node_kernel)
+    coarse = recs[0]["drag"]
+    wn_log("(a) unrefined wall, x", prob, recs, launches, peak)
+    del prob
+    err_fine, err_coarse = abs(drag[0] - lorentz) / lorentz, abs(coarse - lorentz) / lorentz
+    log(
+        f"walls and near contact (a): {refined} nodes; x drag refined {drag[0]:.6f}, unrefined {coarse:.6f}, "
+        f"Lorentz {lorentz:.6f}: errors {err_fine:.4e}, {err_coarse:.4e}; y drag {drag[1]:.6f}, Brenner "
+        f"{brenner:.6f}: {(drag[1] - brenner) / brenner:+.4e}"
+    )
+    if not (err_fine < 0.5 * err_coarse and err_fine < 2e-2 and drag[0] < lorentz and coarse < lorentz):
+        raise AssertionError("walls and near contact (a): the refined wall misses the Lorentz properties")
+
+    # the Blake image wall (K3) on the same sphere, both directions
+    for component in (0, 1):
+        cfg = wn_blake_config(WN_H, component=component)
+        prob, recs, launches, peak = wn_path(device, create_sphere(refinements=refinements), cfg, kernels)
+        tally(node_kernel)
+        exact = lorentz if component == 0 else brenner
+        wn_log(
+            f"(a) Blake image wall, {'xy'[component]}", prob, recs, launches, peak,
+            f"; drag against {('Lorentz', 'Brenner')[component]}: {(recs[0]['drag'] - exact) / exact:+.4e}, "
+            f"meshed refined wall against it: {(drag[component] - recs[0]['drag']) / recs[0]['drag']:+.4e}",
+        )
+        if launches != {"K1-K4:no_slip": 1}:
+            raise AssertionError(f"walls and near contact (a) Blake: launches {launches}")
+        del prob
+
+    cfg = wn_wall_config(WN_REFINEMENT, 0, assembly_backend="gather")
+    mesh = add_walls_to_mesh(create_sphere(refinements=refinements), cfg)
+    prob, recs, launches, peak = wn_path(device, mesh, cfg, kernels)
+    nodes["launches"] += slot_kernel.launches["tile_nodes"]
+    nodes["pairs"]["f64"] += slot_kernel.pairs["f64"]
+    diff = wn_diff(recs[0], node)
+    wn_log("(a) gather", prob, recs, launches, peak, f"; against the node frame {diff:.3e} (tol {WN_MODES_TOL:g})")
+    if set(launches) != {"K6:tile_nodes"} or diff > WN_MODES_TOL:
+        raise AssertionError(f"walls and near contact (a) gather: launches {launches}, diff {diff}")
+    del prob
+
+    cfg = wn_wall_config(
+        WN_REFINEMENT, 0, matrix_free=True, matfree_block_nodes=1024, solver=SolverConfig(tolerance=1e-11)
+    )
+    prob, recs, launches, peak = wn_path(device, mesh, cfg, kernels)
+    tally(node_kernel)
+    wn_add_k5(matfree_node, k5)
+    by_shape = shapes_of(matfree_node, "free_space")
+    diff = wn_diff(recs[0], node)
+    wn_log(
+        "(a) matrix-free", prob, recs, launches, peak,
+        f", K5 by shape {by_shape}; against the node frame {diff:.3e} (tol {WN_MATFREE_TOL:g})",
+    )
+    check_one_sided("walls and near contact (a)", "free_space", by_shape, recs[0]["iterations"])
+    if diff > WN_MATFREE_TOL:
+        raise AssertionError(f"walls and near contact (a) matrix-free: diff {diff}")
+    del prob, mesh
+
+    # the frame loop: the sphere under a unit force toward the plate above it
+    loop = dataclasses.replace(
+        wn_wall_config(WN_REFINEMENT, 1, y=WN_H),
+        grid_type="ImposedForce",
+        build_sphere_in_code=True,
+        internal_sphere_refinements=refinements,
+        consider_rigid_displacements=True,
+        rigid_displacement_axes=(True, True, True),
+        time_step=5.0,
+    )
+    history, records, launches, unknowns = wall_path(node_kernel, device, "walls and near contact (a) frame loop", loop, 2)
+    U = [h["rigid_velocities"][1] for h in history]
+    log(f"walls and near contact (a) frame loop: {unknowns} unknowns, U_y {U}, refactored {[r['refactored'] for r in records]}")
+    # approaching the plate, the sphere's mobility falls frame by frame
+    if [r["refactored"] for r in records] != [True, False] or not 0 < U[1] < U[0]:
+        raise AssertionError(f"walls and near contact (a) frame loop: U_y {U} or refactor flags {records}")
+
+
+def wn_mixed_walls(node_kernel, matfree_node, device, kernels, k5):
+    """(b) create_sphere(4) with a dirichlet, a neumann, a do-nothing and a
+    free-surface plate, each refined uniformly: a materialized frame and a
+    matrix-free frame (K5 two-sided); returns K5's (1, 1) record."""
+    from bemstokes_tpu_torch.config import SolverConfig
+    from bemstokes_tpu_torch.mesh.surface_mesh import MATERIAL_BODY
+
+    refinements = REFINEMENTS - 1
+    mesh = wn_mixed_mesh(refinements, WN_MIXED_REFINEMENTS)
+    prob, recs, launches, peak = wn_path(device, mesh, wn_mixed_config(), kernels)
+    tally(node_kernel)
+    rec = recs[0]
+    sel = rec["sel_V"]
+    mats = np.tile(prob.node_material, 3)
+    kinds = {int(m): (int((sel & (mats == m)).sum()), int((~sel & (mats == m)).sum())) for m in np.unique(mats)}
+    wn_log(
+        "(b) four wall kinds", prob, recs, launches, peak,
+        f"; drag / 6 pi {rec['drag'] / (6 * np.pi):.6f}; (V, -K) columns per material {kinds}",
+    )
+    if launches != {"K1-K4:free_space": 1} or not 6 * np.pi < rec["drag"] < 2 * 6 * np.pi:
+        raise AssertionError(f"walls and near contact (b): launches {launches} or drag {rec['drag']}")
+    if not (np.all(rec["stokes_forces"][~sel] == 0) and np.all(rec["wall_velocities"][sel] == 0)):
+        raise AssertionError("walls and near contact (b): the unknowns do not follow the column mask")
+    if len([m for m, (v, k) in kinds.items() if m != MATERIAL_BODY and v and k]) != 2:
+        raise AssertionError(f"walls and near contact (b): the split walls do not split: {kinds}")
+
+    cfg = wn_mixed_config(matrix_free=True, matfree_block_nodes=1024, solver=SolverConfig(tolerance=1e-11))
+    del prob
+    prob, recs, launches, peak = wn_path(device, mesh, cfg, kernels)
+    tally(node_kernel)
+    wn_add_k5(matfree_node, k5)
+    by_shape = shapes_of(matfree_node, "free_space")
+    diff = wn_diff(recs[0], rec)
+    wn_log(
+        "(b) matrix-free", prob, recs, launches, peak,
+        f", K5 by shape {by_shape}; against the materialized frame {diff:.3e} (tol {WN_MATFREE_TOL:g})",
+    )
+    if not (by_shape["1x1"] >= recs[0]["iterations"] and by_shape["1x0"] == 0 and by_shape["wide"] >= 1):
+        raise AssertionError(f"walls and near contact (b): K5 launch shapes {by_shape}")
+    if diff > WN_MATFREE_TOL:
+        raise AssertionError(f"walls and near contact (b) matrix-free: diff {diff}")
+    out = wn_matvec_check(matfree_node, "four wall kinds (b)", prob)
+    out["launches_in_phase"] = by_shape["1x1"]
+    return out
+
+
+def wn_near_contact(node_kernel, device, kernels, counts, near):
+    """(c) create_sphere(5) moving toward the Blake wall at five gaps under
+    three quadratures; returns K3's records at m = 16 and 256."""
+    from bemstokes_tpu_torch.mesh import create_sphere
+    from bemstokes_tpu_torch.mesh.proximity import wall_image_gap
+
+    mesh = create_sphere(refinements=REFINEMENTS)
+    lam, records = {}, []
+    for H in WN_GAPS:
+        gap, diam = wall_image_gap(mesh, 1, -H)
+        for quad, q in WN_QUADRATURES.items():
+            near.reset()
+            prob, recs, launches, peak = wn_path(device, mesh, wn_blake_config(H, q), kernels)
+            tally(node_kernel)
+            r = recs[0]
+            lam[H, quad] = r["drag"] / (6 * np.pi)
+            truth = brenner_lambda(H)
+            err = (lam[H, quad] - truth) / truth
+            wn_log(
+                f"(c) H = {H}, {quad}", prob, recs, launches, peak,
+                f"; image gap {gap:.4f}, local panel diameter {diam:.4f}, lambda {lam[H, quad]:.8f}, Brenner "
+                f"{truth:.8f}, error {err:+.4e}; near delta {near.ms:.1f} ms in {near.calls} calls",
+            )
+            records.append(dict(H=H, quad=quad, promoted=prob.quadrature_promoted, lam=lam[H, quad], err=err, ms=r["ms"], near_ms=near.ms))
+            if launches != {"K1-K4:no_slip": 1} or prob.quadrature_promoted != (quad == "far2+auto" and gap < diam):
+                raise AssertionError(f"walls and near contact (c): launches {launches} or promotion")
+            if H >= 1.1 and abs(err) > WN_BRENNER_TOL:
+                raise AssertionError(f"walls and near contact (c): lambda {lam[H, quad]} at H = {H} off Brenner")
+            if H == WN_GAPS[0] and quad != "far2+auto":
+                args = sweep_args(prob)
+            del prob
+            if H == WN_GAPS[0] and quad != "far2+auto":
+                label = f"m = {args[1].shape[1]}, {quad}, H = {H} (c)"
+                records.append(ho_sweep_check(node_kernel, counts, label, args, "no_slip"))
+                del args
+    log("walls and near contact (c) sweep: " + json.dumps([r for r in records if "H" in r]))
+    for H in WN_GAPS:
+        promoted = [r for r in records if r.get("H") == H and r["quad"] == "far2+auto"][0]["promoted"]
+        if not promoted:
+            continue
+        auto, full, plain = lam[H, "far2+auto"], lam[H, "uniform8"], lam[H, "far2"]
+        log(
+            f"walls and near contact (c) H = {H} promoted: |auto - order 8| / order 8 = {abs(auto - full) / full:.3e} "
+            f"(tol {WN_RECOVERY:g}), |plain - order 8| / order 8 = {abs(plain - full) / full:.3e}"
+        )
+        if not (abs(auto - full) <= WN_RECOVERY * full and abs(plain - full) > 3 * abs(auto - full)):
+            raise AssertionError(f"walls and near contact (c): no recovery at H = {H}")
+    return [r for r in records if "shape" in r]
+
+
+def wn_two_spheres(node_kernel, matfree_node, device, kernels, counts, k5, near, near_free, lu):
+    """(d) two create_sphere(5) bodies along x at two distances, the
+    materialized frame against Stimson and Jeffery, a matrix-free frame at
+    the closer distance; returns K1's record at 12,292 nodes."""
+    from bemstokes_tpu_torch.config import SolverConfig
+    from bemstokes_tpu_torch.mesh.factories import create_body_in_code
+    from bemstokes_tpu_torch.mesh.proximity import min_intercomponent_gap
+
+    for d in WN_DISTANCES:
+        cfg = wn_spheres_config(d, REFINEMENTS)
+        mesh = create_body_in_code(cfg)
+        gap, diam = min_intercomponent_gap(mesh)
+        near.reset()
+        lu.reset()
+        prob, recs, launches, peak = wn_path(device, mesh, cfg, kernels)
+        tally(node_kernel)
+        lam = recs[0]["drag"] / (2 * 6 * np.pi)
+        truth = stimson_jeffery_lambda(d / 2.0)
+        wn_log(
+            f"(d) two spheres at {d}", prob, recs, launches, peak,
+            f"; gap {gap:.4f}, local panel diameter {diam:.4f}; lambda {lam:.8f}, Stimson-Jeffery {truth:.8f}, "
+            f"error {(lam - truth) / truth:+.4e}; near delta {near.ms:.1f} ms in {near.calls} calls, LU "
+            f"{lu.ms:.1f} ms",
+        )
+        if launches != {"K1-K4:free_space": 1} or prob.quadrature_promoted != (gap < diam):
+            raise AssertionError(f"walls and near contact (d): launches {launches} or promotion")
+        if abs(lam - truth) > WN_SJ_TOL * truth:
+            raise AssertionError(f"walls and near contact (d): lambda {lam} off Stimson-Jeffery")
+        if d == WN_DISTANCES[-1]:
+            rec = recs[0]
+            args = sweep_args(prob)
+        del prob
+    sweep = ho_sweep_check(node_kernel, counts, f"two spheres, {args[0].shape[0]} nodes (d)", args)
+    del args
+    near_free.reset()
+    cfg = wn_spheres_config(
+        WN_DISTANCES[-1], REFINEMENTS, matrix_free=True, matfree_block_nodes=1024, solver=SolverConfig(tolerance=1e-11)
+    )
+    prob, recs, launches, peak = wn_path(device, mesh, cfg, kernels)
+    tally(node_kernel)
+    wn_add_k5(matfree_node, k5)
+    by_shape = shapes_of(matfree_node, "free_space")
+    diff = wn_diff(recs[0], rec)
+    wn_log(
+        f"(d) matrix-free at {WN_DISTANCES[-1]}", prob, recs, launches, peak,
+        f", K5 by shape {by_shape}; near COO {near_free.ms:.1f} ms in {near_free.calls} calls; against the "
+        f"materialized frame {diff:.3e} (tol {WN_MATFREE_TOL:g})",
+    )
+    check_one_sided("walls and near contact (d)", "free_space", by_shape, recs[0]["iterations"])
+    if diff > WN_MATFREE_TOL or near_free.calls < 1:
+        raise AssertionError(f"walls and near contact (d) matrix-free: diff {diff}, near COO calls {near_free.calls}")
+    del prob
+    return sweep
+
+
 def node_sweep_entry(key, kernel, record):
     """The kernels-line entry of a node sweep: its launches over the main
     paths, what they were worth in sweeps of the timed shape (create_sphere(5)
@@ -3817,11 +4510,27 @@ def smoke(folder, cpu_study):
     )
     nodes_launches += ho_nodes
     nodes_pairs = {k: nodes_pairs[k] + ho_pairs[k] for k in nodes_pairs}
+    wn_shapes, wn_matvec, wn_nodes, wn_pairs = phase(
+        phase_walls_near_contact, node_kernel, matfree_node, slot_kernel, device, counts
+    )
+    # phase 23's likewise (K1-K4's through tally)
+    total, by_shape = matvec_launches["free_space"]
+    matvec_launches["free_space"] = (
+        total + wn_matvec[0],
+        {k: by_shape.get(k, 0) + wn_matvec[1].get(k, 0) for k in {*by_shape, *wn_matvec[1]}},
+    )
+    nodes_launches += wn_nodes
+    nodes_pairs = {k: nodes_pairs[k] + wn_pairs[k] for k in nodes_pairs}
     new_shapes = {
         "free_space": ho_shapes["free_space"],
         "no_slip": ho_shapes["no_slip"],
         "sweep_matvec_free_space": ho_shapes["matvec"],
         "tile_nodes": ho_shapes["tile_nodes"],
+    }
+    wall_shapes = {
+        "free_space": wn_shapes["free_space"],
+        "no_slip": wn_shapes["no_slip"],
+        "sweep_matvec_free_space": wn_shapes["matvec"],
     }
     kernels = [
         node_sweep_entry(kernel, KERNELS[kernel], records[kernel]) for kernel in KERNELS
@@ -3843,6 +4552,8 @@ def smoke(folder, cpu_study):
         key = {"node_sweep": "free_space", "node_sweep_no_slip": "no_slip"}.get(entry["name"], entry["name"])
         if key in new_shapes:
             entry["higher_order_shapes"] = new_shapes[key]
+        if key in wall_shapes:
+            entry["walls_near_contact_shapes"] = wall_shapes[key]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -6,6 +6,7 @@
                                           [--matrix-free [--block-nodes 1024]]
                                           [--column-mode node|gather|scatter|node_planes]
                                           [--dtype float64|float32] [--drag-gate]
+                                          [--near-contact H [--near-chunk RC] | --meshed-wall]
 
 Runs `SwimmerSimulation(...).run(0, frames)` of bemstokes_tpu_torch for the
 unit sphere 2 radii above the image plane (chip_smoke.py's configuration) on
@@ -30,11 +31,21 @@ incidence gather-reduce of the plain slots and the inputs;
 `--drag-gate` the sphere takes the JAX package's drag-gate elements
 (bench.py:474-503): a Q4 map snapped to the sphere, quadrature 6 / 9 (K1 at
 144 samples per column node, the order-9 singular rules) and GMRES to 1e-12
-on an f32 LU.  Prints the card's name and power limit first.
+on an f32 LU.  With `--near-contact H` the sphere sits H radii above the
+image plane under chip_smoke.py phase 23's promoted quadrature (order 2,
+`promote_boost` 6: below H = 1.035 or so the near-pair delta runs), whose
+local blocks (`_pair_local_blocks`, both rules) are a stage within it and
+whose rows go in chunks of `--near-chunk` (default: `_near_coo`'s); with
+`--meshed-wall` the image plane gives way to phase 23's meshed no-slip plate
+(span 12, refined near the body to threshold 0.5 within 7, per-component
+solid angle; free-space kernel), whose hanging-node rows are their own
+stage (`--refinements 4` is phase 23's 18,279-unknown size).  Prints the
+card's name and power limit first.
 """
 
 import argparse
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -47,10 +58,17 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import bemstokes_tpu_torch.matfree as matfree  # noqa: E402
+import bemstokes_tpu_torch.mesh.constraints as constraints  # noqa: E402
 import bemstokes_tpu_torch.ops.assemble as asm  # noqa: E402
 import bemstokes_tpu_torch.problem as problem  # noqa: E402
 import bemstokes_tpu_torch.swimmer as swimmer  # noqa: E402
-from bemstokes_tpu_torch.config import ProblemConfig, QuadratureConfig, SolverConfig, WallConfig  # noqa: E402
+from bemstokes_tpu_torch.config import (  # noqa: E402
+    ProblemConfig,
+    QuadratureConfig,
+    SolverConfig,
+    WallConfig,
+    WallRefinementConfig,
+)
 from bemstokes_tpu_torch.la.direct import LUPreconditioner  # noqa: E402
 
 
@@ -81,6 +99,10 @@ def main():
     )
     ap.add_argument("--dtype", default="float64", choices=["float64", "float32"])
     ap.add_argument("--drag-gate", action="store_true")
+    place = ap.add_mutually_exclusive_group()
+    place.add_argument("--near-contact", type=float, metavar="H")
+    place.add_argument("--meshed-wall", action="store_true")
+    ap.add_argument("--near-chunk", type=int, metavar="RC")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_frame_stages: no CUDA device; nothing was run", file=sys.stderr)
@@ -117,6 +139,21 @@ def main():
             quadrature=QuadratureConfig(order=6, singular_order=9),
             solver=SolverConfig(preconditioner_dtype="float32", tolerance=1e-12),
         )
+    if args.near_contact is not None:
+        cfg = dataclasses.replace(
+            cfg,
+            walls=(WallConfig(enabled=False, position=(0.0, -args.near_contact, 0.0), span=(10.0, 0.0, 10.0)),),
+            quadrature=QuadratureConfig(order=2, promote_boost=6),
+        )
+    if args.meshed_wall:
+        cfg = dataclasses.replace(
+            cfg,
+            no_slip_kernel=False,
+            reflect_kernel=False,
+            alpha_row_sum="component",
+            walls=(WallConfig(enabled=True, wall_type="no_slip", position=(0.0, -2.0, 0.0), span=(12.0, 0.0, 12.0)),),
+            wall_refinement=WallRefinementConfig(enabled=True, threshold=0.5, distance_from_center=7.0),
+        )
     if not args.no_warmup:
         with tempfile.TemporaryDirectory() as out:
             small = dataclasses.replace(cfg, internal_sphere_refinements=2)
@@ -148,6 +185,13 @@ def main():
     asm.node_sweep_inputs = timed(stages, "column sample tables", asm.node_sweep_inputs)
     asm._add_singular_rows = timed(stages, "singular delta", asm._add_singular_rows)
     asm._add_near_corrections = timed(stages, "near delta", asm._add_near_corrections)
+    nested.add("near delta: local blocks, both rules")
+    asm._pair_local_blocks = timed(stages, "near delta: local blocks, both rules", asm._pair_local_blocks)
+    if args.near_chunk:
+        asm._near_coo = functools.partial(asm._near_coo, RC=args.near_chunk)
+    constraints.apply_hanging_constraints_monolithic = timed(
+        stages, "hanging-node rows", constraints.apply_hanging_constraints_monolithic
+    )
     problem.normal_vector_l2 = timed(stages, "L2 normal (CG)", problem.normal_vector_l2)
     problem.v_nullspace_correction = timed(stages, "V correction", problem.v_nullspace_correction)
     problem.k_solid_angle_correction = timed(stages, "K correction", problem.k_solid_angle_correction)
@@ -164,9 +208,10 @@ def main():
     with tempfile.TemporaryDirectory() as out:
         sim = swimmer.SwimmerSimulation(cfg, out)
         print(
-            f"kernel {args.kernel}, {3 * sim.problem.n + 6} unknowns, {cfg.dtype}, "
+            f"kernel {sim.problem.asm_cfg.kernel}, {3 * sim.problem.n + 6} unknowns, {cfg.dtype}, "
             f"column mode {args.column_mode}, map degree {cfg.map_degree}, quadrature "
-            f"{cfg.quadrature.order} / {cfg.quadrature.singular_order}"
+            f"{cfg.quadrature.order} / {cfg.quadrature.singular_order}, promoted "
+            f"{sim.problem.quadrature_promoted}, {sim.problem.hanging.n} hanging nodes"
         )
         for frame in range(args.frames):
             stages.clear()

@@ -32,6 +32,7 @@ import bemstokes_tpu_torch.ops.matfree_node as mfn_t
 from bemstokes_tpu_torch.mesh.refine import SphericalManifold as CircleT, refine_uniform as refine_t
 from bemstokes_tpu_torch.mesh.surface_mesh import SurfaceMesh as MeshT
 from bemstokes_tpu_torch.ops import bulk_2d, node_kernel, slot_kernel
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TOL = 1e-12
 

@@ -35,6 +35,7 @@ from bemstokes_tpu_torch.config import from_dict
 from bemstokes_tpu_torch.mesh.refine import SphericalManifold as CircleT, refine_uniform as refine_t
 from bemstokes_tpu_torch.mesh.surface_mesh import SurfaceMesh as MeshT
 from bemstokes_tpu_torch.problem import StokesBEMProblem as ProblemT, result_to_numpy
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TOL = 1e-10
 TOL_MATFREE_JAX = 1e-8

@@ -30,6 +30,7 @@ from bemstokes_tpu.swimmer import SwimmerSimulation as SimJ
 from bemstokes_tpu_torch.config import from_dict
 from bemstokes_tpu_torch.config_io import save_config
 from bemstokes_tpu_torch.swimmer import SwimmerSimulation as SimT
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 ALPHA = 0.04
 TOL = 1e-10

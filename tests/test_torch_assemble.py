@@ -31,6 +31,7 @@ import bemstokes_tpu_torch.mesh.factories as fac_t
 import bemstokes_tpu_torch.ops.assemble as asm_t
 from bemstokes_tpu_torch.config import from_dict
 from bemstokes_tpu_torch.problem import StokesBEMProblem as ProblemT
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 def _setup(refinements):

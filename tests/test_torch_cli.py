@@ -35,6 +35,7 @@ import bemstokes_tpu_torch.mesh.io as io_t
 from bemstokes_tpu_torch import cli
 from bemstokes_tpu_torch.mesh import create_sphere
 from bemstokes_tpu_torch.swimmer import SwimmerSimulation as SimT, SwimmerState as StateT
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TOL = 1e-9
 

@@ -38,6 +38,7 @@ import bemstokes_tpu_torch.ops.assemble as asm_t
 from bemstokes_tpu_torch.config import from_dict
 from bemstokes_tpu_torch.ops import node_kernel, slot_kernel
 from bemstokes_tpu_torch.problem import ASSEMBLY_BACKENDS, StokesBEMProblem as ProblemT, result_to_numpy
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 KERNELS = ["free_space", "free_surface", "no_slip"]
 SHEAR = np.array([[1.0, 0.13, -0.07], [0.0, 1.0, 0.11], [0.0, 0.0, 1.0]])

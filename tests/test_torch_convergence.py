@@ -17,6 +17,7 @@ from bemstokes_tpu.mesh.refine import SphericalManifold as SphereJ
 import bemstokes_tpu_torch.convergence as conv_t
 import bemstokes_tpu_torch.mesh.factories as fac_t
 from bemstokes_tpu_torch.mesh.refine import SphericalManifold as SphereT
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 SOURCE = (0.3, 0.3, 0.3)
 

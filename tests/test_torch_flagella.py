@@ -13,6 +13,7 @@ import torch
 
 import bemstokes_tpu.flagella as fl_j
 import bemstokes_tpu_torch.flagella as fl_t
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TOL = 1e-13
 

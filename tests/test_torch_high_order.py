@@ -40,6 +40,7 @@ import bemstokes_tpu_torch.mesh.factories as fac_t
 from bemstokes_tpu_torch.config import from_dict
 from bemstokes_tpu_torch.ops import node_kernel, slot_kernel
 from bemstokes_tpu_torch.problem import StokesBEMProblem as ProblemT, result_to_numpy
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 KEYS = ("rigid_forces_pole", "rigid_velocities", "stokes_forces")
 TOL = 1e-10

@@ -44,6 +44,7 @@ import bemstokes_tpu_torch.ops.assemble as asm_t
 from bemstokes_tpu_torch.config import from_dict
 from bemstokes_tpu_torch.ops import node_kernel
 from bemstokes_tpu_torch.problem import StokesBEMProblem as ProblemT
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 KERNELS = ["free_surface", "no_slip"]
 WALL = -2.0

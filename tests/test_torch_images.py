@@ -11,6 +11,7 @@ import torch
 
 import bemstokes_tpu.kernels.images as img_j
 import bemstokes_tpu_torch.kernels.images as img_t
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TOL = 1e-13
 

@@ -23,6 +23,7 @@ import bemstokes_tpu.kernels.repeated as rep_j
 import bemstokes_tpu_torch.kernels as kern_t
 import bemstokes_tpu_torch.kernels.autodiff as ad_t
 import bemstokes_tpu_torch.kernels.repeated as rep_t
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TOL = 1e-13
 

@@ -11,6 +11,7 @@ import bemstokes_tpu.kernels as kj
 import bemstokes_tpu.kernels.helpers as hj
 import bemstokes_tpu.kernels.stokeslet as sj
 import bemstokes_tpu_torch.kernels as kt
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 RTOL = 1e-14
 

@@ -11,6 +11,7 @@ import torch
 
 import bemstokes_tpu.physics.kinematics as kin_j
 import bemstokes_tpu_torch.physics.kinematics as kin_t
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TOL = 1e-14
 

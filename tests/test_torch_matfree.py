@@ -53,6 +53,7 @@ from bemstokes_tpu_torch.matfree import MatfreeSolver
 from bemstokes_tpu_torch.ops import matfree_node
 from bemstokes_tpu_torch.problem import StokesBEMProblem as ProblemT, result_to_numpy
 from bemstokes_tpu_torch.swimmer import SwimmerSimulation as SimT
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TOL_JAX = 1e-8
 TOL_MATERIALIZED = 1e-7

@@ -26,6 +26,7 @@ from bemstokes_tpu.problem import StokesBEMProblem as ProblemJ
 import bemstokes_tpu_torch.mesh.factories as fac_t
 from bemstokes_tpu_torch.config import from_dict
 from bemstokes_tpu_torch.problem import StokesBEMProblem as ProblemT, result_to_numpy
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TOLERANCE = 3e-5
 

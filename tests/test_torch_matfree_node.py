@@ -46,6 +46,7 @@ import bemstokes_tpu_torch.ops.assemble as asm_t
 from bemstokes_tpu_torch.ops import matfree_node as mfn_t
 from bemstokes_tpu_torch.ops import node_kernel
 from bemstokes_tpu_torch.physics.rigid import build_mass_operator
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 KERNELS = ["free_space", "free_surface", "no_slip"]
 WALL = -2.0

@@ -4,7 +4,17 @@
 meshes built in code (the cases of tests/test_native.py), exact equality:
 the C++ loops and the numpy ones do the same integer bookkeeping.  And
 `build_assembly_tables`, which takes the native table first, gives the same
-tables with the library and without it (BEMSTOKES_NATIVE=0)."""
+tables with the library and without it (BEMSTOKES_NATIVE=0).
+
+The library is built once, by the port's loader under its lock on `native/`;
+the JAX binding caches a failed load for the life of its process (a worker
+that met the file mid-build keeps None), so each comparison resets that
+cache first and loads the finished library."""
+
+import fcntl
+import os
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -15,6 +25,7 @@ from bemstokes_tpu_torch.mesh import build_scalar_space
 from bemstokes_tpu_torch.mesh.factories import create_sphere, create_wall
 from bemstokes_tpu_torch.mesh.refine import refine_uniform
 from bemstokes_tpu_torch.ops.assemble import AssemblyConfig, build_assembly_tables
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 @pytest.fixture
@@ -22,6 +33,19 @@ def lib():
     if native_t.get_lib() is None:
         pytest.skip("native meshcore not buildable here (no make / g++)")
     return native_t.get_lib()
+
+
+@pytest.fixture
+def jax_native(lib, monkeypatch):
+    """The JAX package's binding, loaded afresh from the library that `lib`
+    built: its cached load state is reset for this test only."""
+    for _ in range(20):
+        monkeypatch.setattr(native_j, "_lib", None)
+        monkeypatch.setattr(native_j, "_tried", False)
+        if native_j.get_lib() is not None:
+            return native_j
+        time.sleep(0.5)  # another process's `make` may be rewriting the file
+    pytest.fail("the JAX package's binding does not load the library the port built")
 
 
 def numpy_incidence(cells, n):
@@ -64,14 +88,14 @@ def _cells(name):
 
 
 @pytest.mark.parametrize("name", sorted(SPACES))
-def test_incidence_native_matches_numpy_and_jax(lib, name):
+def test_incidence_native_matches_numpy_and_jax(lib, jax_native, name):
     cells, n, _ = _cells(name)
     slots, mask = native_t.incidence_native(cells, n)
     ref_slots, ref_mask = numpy_incidence(cells, n)
     assert slots.dtype == np.int32 and mask.dtype == np.float64
     np.testing.assert_array_equal(slots, ref_slots)
     np.testing.assert_array_equal(mask, ref_mask)
-    jax_slots, jax_mask = native_j.incidence_native(cells, n)
+    jax_slots, jax_mask = jax_native.incidence_native(cells, n)
     np.testing.assert_array_equal(slots, jax_slots)
     np.testing.assert_array_equal(mask, jax_mask)
 
@@ -81,12 +105,12 @@ def test_incidence_native_rejects_out_of_range_nodes(lib):
     assert native_t.incidence_native(cells, 4) is None
 
 
-def test_weld_native(lib):
+def test_weld_native(lib, jax_native):
     verts = np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 0.0], [1.0, 0.0, 1e-15]])
     remap, n_unique = native_t.weld_native(verts, 1e-12)
     assert n_unique == 2
     assert remap[0] == remap[2] and remap[1] == remap[3] and remap[0] != remap[1]
-    jr, jn = native_j.weld_native(verts, 1e-12)
+    jr, jn = jax_native.weld_native(verts, 1e-12)
     np.testing.assert_array_equal(remap, jr)
     assert jn == n_unique
 
@@ -123,3 +147,21 @@ def test_assembly_tables_equal_with_and_without_the_library(lib, name, monkeypat
         a, b = getattr(with_lib, key), getattr(without, key)
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
+
+
+def test_build_waits_for_the_lock(lib):
+    """The port's `_build` takes the exclusive lock on `native/`: while
+    another holder keeps it, the build waits; once it is released, the build
+    finds the finished library."""
+    done = []
+    fd = os.open(native_t._NATIVE_DIR, os.O_RDONLY)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        worker = threading.Thread(target=lambda: done.append(native_t._build()))
+        worker.start()
+        worker.join(0.5)
+        assert not done
+    finally:
+        os.close(fd)
+    worker.join(60)
+    assert done == [True]

@@ -31,6 +31,7 @@ from bemstokes_tpu.ops.pallas_assemble import pallas_tile_slots
 from bemstokes_tpu_torch.fem.geometry import euler_from_mesh, support_points
 from bemstokes_tpu_torch.mesh import build_scalar_space, create_sphere
 from bemstokes_tpu_torch.ops import assemble, slot_kernel
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TOL = {torch.float64: 1e-12, torch.float32: 2e-5}
 

@@ -38,6 +38,7 @@ from bemstokes_tpu_torch.ops.assemble import (
     build_assembly_tables,
     node_sweep_inputs,
 )
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 def _random_inputs(nr=7, n=5, m=6, seed=0, dtype=torch.float64):

@@ -55,6 +55,7 @@ from bemstokes_tpu_torch.fem.geometry import euler_from_mesh, support_points
 from bemstokes_tpu_torch.mesh import build_scalar_space, create_sphere
 from bemstokes_tpu_torch.ops import node_kernel, slot_kernel
 from bemstokes_tpu_torch.ops.assemble import AssemblyConfig, build_assembly_tables, node_sweep_inputs, slot_inputs
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 CSRC = Path(node_kernel.__file__).resolve().parent.parent / "csrc"
 WALL = -2.0

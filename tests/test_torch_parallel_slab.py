@@ -30,6 +30,7 @@ import torch
 from bemstokes_tpu_torch.mesh.constraints import HangingConstraints
 from bemstokes_tpu_torch.parallel import lu, sharded, solve
 from torch_dist_group import Group
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 N, D = 37, 3
 RELTOL = 1e-12

@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from torch_dist_group import Group
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TOL = 1e-10
 #: two different preconditioners, each GMRES stopped at 1e-10 of |rhs|

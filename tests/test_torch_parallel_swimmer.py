@@ -34,6 +34,7 @@ import pytest
 import torch
 
 from torch_dist_group import Group
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TOL = 1e-10
 WORLD = 2

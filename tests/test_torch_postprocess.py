@@ -31,6 +31,7 @@ from bemstokes_tpu_torch.config import from_dict
 from bemstokes_tpu_torch.fem.geometry import support_points as support_points_t
 from bemstokes_tpu_torch.physics.rigid import flatten
 from bemstokes_tpu_torch.problem import StokesBEMProblem as ProblemT, result_to_numpy
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TOL = 1e-12
 KERNELS = ("free_space", "free_surface", "no_slip")

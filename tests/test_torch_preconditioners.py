@@ -30,6 +30,7 @@ import bemstokes_tpu_torch.la.preconditioners as pc_t
 import bemstokes_tpu_torch.mesh.factories as fac_t
 from bemstokes_tpu_torch.config import from_dict
 from bemstokes_tpu_torch.problem import StokesBEMProblem as ProblemT, result_to_numpy
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 KINDS = ("Jacobi", "SOR", "SSOR", "ILU", "AMG", "BlockJacobi", "Direct")
 

@@ -21,6 +21,7 @@ from bemstokes_tpu.swimmer import SwimmerSimulation as SimJ
 from bemstokes_tpu_torch.config import from_dict
 from bemstokes_tpu_torch.swimmer import SwimmerSimulation as SimT
 from test_torch_walls_refined import LORENTZ, drag, solve_both, wall_config
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 
 def test_q2_map_without_exact_manifold():

@@ -38,6 +38,7 @@ from bemstokes_tpu_torch.mesh.factories import create_sphere
 from bemstokes_tpu_torch.mesh.surface_mesh import SurfaceMesh
 from bemstokes_tpu_torch.ops import AssemblyConfig, assemble_V_K, build_assembly_tables
 from bemstokes_tpu_torch.problem import StokesBEMProblem as ProblemT, result_to_numpy
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 ASSEMBLY = dict(quad_order=3, singular_quadrature_type="Mixed", singular_quadrature_order=5)
 

@@ -29,6 +29,7 @@ import bemstokes_tpu_torch.ops.resistance as res_t
 from bemstokes_tpu_torch.config import from_dict
 from bemstokes_tpu_torch.la.direct import lu_factor_dense as lu_factor_t
 from bemstokes_tpu_torch.problem import StokesBEMProblem as ProblemT, result_to_numpy
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 KEYS = ("rigid_velocities", "stokes_forces", "resistance_matrix")
 

@@ -11,6 +11,7 @@ import importlib.util
 from pathlib import Path
 
 import pytest
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 ROOT = Path(__file__).resolve().parent.parent
 

@@ -12,6 +12,7 @@ from bemstokes_tpu.la import direct as direct_j
 from bemstokes_tpu.la.gmres import gmres as gmres_j
 from bemstokes_tpu_torch.la import direct as direct_t
 from bemstokes_tpu_torch.la.gmres import gmres as gmres_t
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 N = 60
 

@@ -27,6 +27,7 @@ from bemstokes_tpu_torch.mesh.factories import create_sphere
 from bemstokes_tpu_torch.mesh.surface_mesh import SurfaceMesh
 from bemstokes_tpu_torch.physics.rigid import flatten
 from bemstokes_tpu_torch.problem import StokesBEMProblem as ProblemT, result_to_numpy
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 RADII = (2.0, 1.0, 1.0)
 TOL = 1e-10

@@ -32,6 +32,7 @@ from bemstokes_tpu_torch.config import from_dict
 from bemstokes_tpu_torch.ops import node_kernel
 from bemstokes_tpu_torch.problem import StokesBEMProblem as ProblemT, result_to_numpy
 from bemstokes_tpu_torch.swimmer import SwimmerSimulation as SimT, SwimmerState as StateT
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 TOL = 1e-9
 

@@ -42,6 +42,7 @@ from bemstokes_tpu_torch.mesh import build_scalar_space
 from bemstokes_tpu_torch.mesh.surface_mesh import SurfaceMesh
 from bemstokes_tpu_torch.ops import AssemblyConfig, build_assembly_tables
 from bemstokes_tpu_torch.problem import StokesBEMProblem as ProblemT, result_to_numpy
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 R, RT = 12.0, 3.0  # major and minor radius
 EXACT_MASS = 4.0 * np.pi**2 * R * RT

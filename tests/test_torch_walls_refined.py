@@ -49,6 +49,7 @@ import bemstokes_tpu_torch.mesh.factories as fac_t
 from bemstokes_tpu_torch.config import from_dict
 from bemstokes_tpu_torch.mesh.surface_mesh import SurfaceMesh
 from bemstokes_tpu_torch.problem import StokesBEMProblem as ProblemT, result_to_numpy
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 H = 2.0
 LAM = 1.0 / H
@@ -165,3 +166,27 @@ def test_dilated_sphere_imposed_torque():
     assert abs(U[3] - exact) / exact < 3e-2, (U[3], exact)
     assert np.all(np.abs(U[[0, 1, 2, 4, 5]]) < 1e-2 * abs(U[3]))
     assert rt["iterations"] == rj["iterations"]
+
+
+def test_hanging_rows_match_jax():
+    """`apply_hanging_constraints_monolithic` on the refined wall's
+    constraints and a seeded system: the JAX package's rows exactly, written
+    into the system itself (the JAX package returns new arrays; the frame
+    solve's system is its own, and a copy would add a second one to the
+    peak)."""
+    import torch
+    from bemstokes_tpu.mesh.constraints import apply_hanging_constraints_monolithic as apply_j
+    from bemstokes_tpu_torch.mesh.constraints import apply_hanging_constraints_monolithic as apply_t
+
+    cfg = from_dict(dataclasses.asdict(wall_config()))
+    prob = ProblemT(fac_t.add_walls_to_mesh(fac_t.create_sphere(refinements=2), cfg), cfg, device="cpu")
+    hc, n = prob.hanging, prob.n
+    assert hc.n > 0
+    rng = np.random.default_rng(13)
+    A0, b0 = rng.standard_normal((3 * n + 6, 3 * n + 6)), rng.standard_normal(3 * n + 6)
+    Aj, bj = apply_j(jnp.asarray(A0), jnp.asarray(b0), hc, n, 3)
+    A, b = torch.as_tensor(A0.copy()), torch.as_tensor(b0.copy())
+    At, bt = apply_t(A, b, hc, n, 3)
+    assert At is A and bt is b
+    np.testing.assert_array_equal(A.numpy(), np.asarray(Aj))
+    np.testing.assert_array_equal(b.numpy(), np.asarray(bj))
