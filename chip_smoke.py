@@ -235,21 +235,56 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    with the near-pair delta in each iteration (1e-8).  K3 at m = 16 and
    256, K1 at 12,292 nodes and K5 (1, 1) on the four-wall mesh are held
    against their plain versions on the first 512 rows and timed.
+24. the swimmer gaits through SwimmerSimulation.run, f64, each path with the
+   launch counters set to 0 just before it and read just after, each solve's
+   ms, iterations, refactor flag, residual and launches printed: first each
+   path's small twin (a 128-node bacterium whose vertices are jittered by
+   1e-6, create_sphere(2) otherwise), the card against the port on the CPU
+   (1e-10, equal iterations; the f32 LU one iteration either way); then
+   (a) the bacterium: a head sphere remapped each frame onto the ellipsoid
+   of `spherical_head` (1,538 nodes) and the 384 x 16 tube deformed to the
+   reference spiral (6,160), turned by 11.25 degrees a frame (gmsh files
+   of the frames the loops read), its rate solved
+   from the motor-torque balance (`solve_with_torque`: 23,101 unknowns),
+   rigid displacements on every axis, auto-promotion on (whether it fires
+   and the near delta's ms printed): three frames in free space (K1) and
+   beside the no-slip wall at y = -3 (K3), the motor torque -2 within 1e-8
+   every frame and in motor_torque.txt, the body counter-rotating against
+   the flagellum and swimming head first, the centre-of-mass series
+   written; frame 0 on an f32 LU (GMRES to 1e-12) within 1e-8 of the f64
+   frame; a gather frame (`tile_nodes`) within 1e-8 of the node frame; the
+   matrix-free loop (K5 V alone, the torque unknown in the Schur tail)
+   within 1e-7 of the materialized loop; the loop with `distributed` at
+   world size 1 within 1e-10 with equal iterations; (b) Heun: phase 15's
+   translation gait of create_sphere(5) under the free-surface image plane
+   at y = -4 and phase 5's sphere beside the no-slip wall, three frames
+   each, two K2 (K3) launches a frame, the velocities more than 1e-3 from a
+   Forward loop's; (c) Blake's squirmer on frozen geometry
+   (`velocity_type="Squirmer"`, `squirmer_change_geometry=False`),
+   create_sphere(5) with gait files of B1 = 1, -0.5, 1 (one of them deal.II
+   binary): three frames in free space (U.e within 1e-3 of (2/3) B1, the
+   other components below 1e-6, frames 1-2 frozen with no bulk launch and
+   no refactor, frame 1 within 1e-9 of a re-assembled frame), beside the
+   no-slip wall and with `distributed` at world size 1 (the frozen step,
+   1e-10).  K1 and K3 at 7,698 nodes and `tile_nodes` on the head-and-tube
+   node groups are held against their plain versions on the first 512 rows
+   and timed.
 
 Before the last line it prints the card's name and power limit and one JSON
 object {"kernels": [...]} with each kernel's launches on its main paths
-(K1-K4: summed over every path of phases 5, 6, 9, 10, 14, 16-19 and 21-23
+(K1-K4: summed over every path of phases 5, 6, 9, 10, 14, 16-19 and 21-24
 that reaches them, the block factors of the matrix-free frames included, and
 phase 21's frames, slabs and loop; beside that raw
 count, what the launches were worth in whole create_sphere(5) sweeps per
 type, and those sweeps times each type's gap between time and bound;
-`tile_nodes` likewise over the gather frames of phases 14, 22 and 23, in
+`tile_nodes` likewise over the gather frames of phases 14 and 22-24, in
 whole create_sphere(5) bulks; K5's free-space count adds the matrix-free
-frames of phases 22 and 23 to the capacity frame's; `tile_slots` is on no
+frames of phases 22-24 to the capacity frame's; `tile_slots` is on no
 path since the gather path takes `tile_nodes`: 0), its error against the
 plain version, both times and its bound, for K1, K3, K5 and `tile_nodes`
-the records of phase 22's new shapes (`higher_order_shapes`) and for K1, K3
-and K5 those of phase 23 (`walls_near_contact_shapes`); the last line is
+the records of phase 22's new shapes (`higher_order_shapes`), for K1, K3
+and K5 those of phase 23 (`walls_near_contact_shapes`) and for K1, K3 and
+`tile_nodes` those of phase 24 (`swimmer_gaits_shapes`); the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
 """
@@ -464,7 +499,7 @@ def clock_under_load(fn):
 
 
 #: launches of K1-K4 summed over every main path that reaches them (phases
-#: 5, 6, 9, 10, 14, 16-19 and 21-23), each path's counts read just after it ran with the
+#: 5, 6, 9, 10, 14, 16-19 and 21-24), each path's counts read just after it ran with the
 #: counters set to 0 just before it; and the interactions they swept, per
 #: (counter, "f32" or "f64")
 PATH_LAUNCHES = {"free_space": 0, "free_surface": 0, "no_slip": 0, "planes": 0}
@@ -2055,35 +2090,53 @@ def write_msh(path, vertices, cells):
         f.write("$EndElements\n")
 
 
+def write_translation_gait(folder, refinements):
+    """A gait of three gmsh files `gait_<k>.msh` in folder: create_sphere(
+    refinements) growing into a pear along x (the fore end by 4 % a frame);
+    returns the frame-0 mesh."""
+    import os
+
+    from bemstokes_tpu_torch.mesh import create_sphere
+
+    mesh = create_sphere(refinements=refinements)
+    for k in range(3):
+        scale = 1.0 + 0.04 * k * mesh.vertices[:, :1]
+        write_msh(os.path.join(folder, f"gait_{k}.msh"), mesh.vertices * scale, mesh.cells)
+    return mesh
+
+
+def translation_config(grids, **kw):
+    """The frame loop over write_translation_gait's files, rigid
+    displacements on every axis."""
+    from bemstokes_tpu_torch.config import ProblemConfig
+
+    return ProblemConfig(
+        grid_type="Real",
+        n_frames=3,
+        time_step=0.1,
+        input_grid_path=grids,
+        input_grid_base_name="gait_",
+        input_grid_format="msh",
+        consider_rigid_displacements=True,
+        rigid_displacement_axes=(True, True, True),
+        **kw,
+    )
+
+
 def phase_command_line():
     """`python3 -m bemstokes_tpu_torch run` as a subprocess on the card: a
     gait of three frame mesh files (create_sphere(5) growing into a pear
     along x), gather mode, frames 0 and 1."""
     import os
 
-    from bemstokes_tpu_torch.config import ProblemConfig
     from bemstokes_tpu_torch.config_io import save_config
-    from bemstokes_tpu_torch.mesh import create_sphere
     from bemstokes_tpu_torch.swimmer import SwimmerState
 
-    mesh = create_sphere(refinements=REFINEMENTS)
     with tempfile.TemporaryDirectory() as tmp:
         grids = os.path.join(tmp, "grids")
         os.makedirs(grids)
-        for k in range(3):
-            scale = 1.0 + 0.04 * k * mesh.vertices[:, :1]
-            write_msh(os.path.join(grids, f"gait_{k}.msh"), mesh.vertices * scale, mesh.cells)
-        cfg = ProblemConfig(
-            grid_type="Real",
-            n_frames=3,
-            time_step=0.1,
-            input_grid_path=grids + os.sep,
-            input_grid_base_name="gait_",
-            input_grid_format="msh",
-            consider_rigid_displacements=True,
-            rigid_displacement_axes=(True, True, True),
-            assembly_backend="gather",
-        )
+        mesh = write_translation_gait(grids, REFINEMENTS)
+        cfg = translation_config(grids + os.sep, assembly_backend="gather")
         params, out = os.path.join(tmp, "params.json"), os.path.join(tmp, "out")
         prof = os.path.join(tmp, "profile")
         save_config(cfg, params)
@@ -3443,10 +3496,11 @@ def ho_path(device, case, refinements, frames, kernels, calls, **changes):
     return prob, recs, launches
 
 
-def ho_sweep_check(node_kernel, counts, label, args, kernel="free_space"):
+def ho_sweep_check(node_kernel, counts, label, args, kernel="free_space", phase="higher order"):
     """K1 (or K3, wall at y = WALL_Y) at a new shape against its plain
     version on the first HO_PLAIN_ROWS rows; timed over all rows with the SM
-    clock read under load and the pipe floor beside it."""
+    clock read under load and the pipe floor beside it; `phase` names the
+    phase in the log and in a failure."""
     dtype = torch.float64
     xi, Yj, Nj, Wj = args
     kw = dict(kernel=kernel, wall_axis=1, wall_position=WALL_Y)
@@ -3473,14 +3527,14 @@ def ho_sweep_check(node_kernel, counts, label, args, kernel="free_space"):
         max_rel_err=err, sm_clock=clock,
     )
     log(
-        f"higher order {kernel} {label}: rows={nr} cols={n} m={m} ({100 * live / (n * m):.1f} % of the samples "
+        f"{phase} {kernel} {label}: rows={nr} cols={n} m={m} ({100 * live / (n * m):.1f} % of the samples "
         f"carry weight): rel err on {rows.shape[0]} rows {err:.3e} (tol {tol:.0e}), max abs err {abs_err:.3e}; "
         f"kernel {ms:.3f} ms ({rec['ps_per_interaction']:.3f} ps an interaction), plain {plain_ms:.3f} ms on "
         f"{rows.shape[0]} rows, bound {bound_ms:.3f} ms by {bound_by}, {instructions:.2f} FP64 instructions an "
         f"interaction, pipe floor {floor_ms:.3f} ms; SM clock, its maximum and power under this load: {clock}"
     )
     if not (finite and err <= tol):
-        raise AssertionError(f"higher order: {kernel} disagrees with its plain version at {label}")
+        raise AssertionError(f"{phase}: {kernel} disagrees with its plain version at {label}")
     return rec
 
 
@@ -3529,10 +3583,11 @@ def ho_matvec_check(matfree_node, label, prob):
     return rec
 
 
-def ho_nodes_check(slot_kernel, counts, label, prob):
+def ho_nodes_check(slot_kernel, counts, label, prob, phase="higher order"):
     """`tile_nodes` at a new shape (the gather frames' tables): against its
     plain version on the first HO_PLAIN_ROWS rows, timed over all rows in
-    the gather path's row blocks with the SM clock read under load."""
+    the gather path's row blocks with the SM clock read under load; `phase`
+    names the phase in the log and in a failure."""
     from bemstokes_tpu_torch.fem.geometry import support_points
     from bemstokes_tpu_torch.ops import assemble
 
@@ -3575,14 +3630,14 @@ def ho_nodes_check(slot_kernel, counts, label, prob):
         max_rel_err=err, shared_memory_bytes=smem, panels_evaluated_per_panel=groups.redundancy, sm_clock=clock,
     )
     log(
-        f"higher order tile_nodes {label}: rows={nt} panels={nc} nq={nq} nl={nl} nodes={n}, {len(blocks)} row "
+        f"{phase} tile_nodes {label}: rows={nt} panels={nc} nq={nq} nl={nl} nodes={n}, {len(blocks)} row "
         f"blocks of {T}, {groups.n_groups} groups, panels evaluated per panel {groups.redundancy:.4f}, {smem} B of "
         f"shared memory a block: rel err on {rows.shape[0]} rows {err:.3e} (tol {TOL_SLOTS[dtype]:.0e}), max abs "
         f"err {abs_err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms on {rows.shape[0]} rows, bound "
         f"{bound_ms:.3f} ms by {bound_by}{floor}; SM clock, its maximum and power under this load: {clock}"
     )
     if not (finite and err <= TOL_SLOTS[dtype]):
-        raise AssertionError(f"higher order: tile_nodes disagrees with its plain version at {label}")
+        raise AssertionError(f"{phase}: tile_nodes disagrees with its plain version at {label}")
     return rec
 
 
@@ -4405,6 +4460,597 @@ def wn_two_spheres(node_kernel, matfree_node, device, kernels, counts, k5, near,
     return sweep
 
 
+#: phase 24: the swimmer gaits.  (a) the bacterium: its head sphere before
+#: the remap of `spherical_head` (onto the ellipsoid (1.6, 0.8, 0.8) about
+#: (-1.6, 0, 0)), right of which (x > -0.1) every node is flagellum; the
+#: head's refinements and the tube's panels along and around at full width
+#: (1,538 + 6,160 nodes, 23,101 unknowns with the torque unknown) and in the
+#: small twin (26 + 102 nodes)
+GAIT_HEAD = ((-1.0, 0.0, 0.0), 0.8)
+GAIT_BACTERIUM = (REFINEMENTS - 1, (384, 16))
+GAIT_BACTERIUM_SMALL = (1, (16, 6))
+GAIT_FRAMES = 3  # frames of each loop
+#: the bacterium's gait: frames a turn of the flagellum (11.25 degrees a
+#: frame), and the gmsh files written, those the loops read (a Heun
+#: predictor reads one past the last frame).  On frame 0's LU at full width a
+#: turn of 11.25 / 22.5 / 45 / 90 degrees takes 56 / 115 / 300 / 1,058
+#: GMRES(100) iterations (scripts/torch_frame_stages.py --bacterium
+#: --turn-frames 32 / 16 / 8 / 4): four frames a turn leave frame 1
+#: unconverged at max_steps 1000
+GAIT_TURN = 32
+GAIT_FILES = GAIT_FRAMES + 1
+GAIT_WALL_Y = -3.0  # the no-slip wall of (a) and (c)
+GAIT_FREE_SURFACE_Y = -4.0  # (b): the image plane of the JAX package's bench, bench.py:867-889
+GAIT_SMALL_REFINEMENTS = 2  # (b) and (c)'s small twins: create_sphere(2)
+GAIT_SMALL_BLOCK = 64  # the small matrix-free twin's blocks (2 of 128 nodes)
+GAIT_JITTER = 1e-6  # the small bacterium's vertex jitter: its near-pair selections meet no exact tie
+GAIT_CPU_TOL = 1e-10  # each small twin: the card against the CPU
+GAIT_TORQUE_TOL = 1e-8  # the motor torque against -2, relative
+GAIT_F32_TOL = 1e-8  # the f32-LU frame against the f64 one (GMRES to 1e-12)
+GAIT_MODES_TOL = 1e-8  # the gather frame against the node frame
+GAIT_MATFREE_TOL = 1e-7  # the matrix-free loop against the materialized one
+GAIT_DIST_TOL = 1e-10  # the distributed loop against the single-card one
+GAIT_HEUN_DIFF = 1e-3  # Heun against Forward, at least
+SQUIRMER_B1 = (1.0, -0.5, 1.0)  # (c): B1 of each frame's slip B1 ((r.e) r - e), e = e_x
+SQUIRMER_TOL = 1e-3  # U.e against Blake's (2/3) B1, relative
+SQUIRMER_SIDE_TOL = 1e-6  # the other rigid velocities, absolute
+SQUIRMER_FROZEN_TOL = 1e-9  # a frozen frame against a re-assembled one
+
+
+def write_bacterium_gait(folder, head_refinements, tube, jitter=0.0, files=GAIT_FILES, turn=GAIT_TURN):
+    """The bacterium's gait as `files` gmsh files `bacterium_<k>.msh` in
+    folder: the head sphere GAIT_HEAD merged with the flagellum tube deformed
+    to the reference spiral (`flagella.reference_spiral_euler`) and turned
+    about x by 2 pi k / turn (`flagella.euler_at_theta`), every vertex moved
+    by the same seeded `jitter` in each file; returns the frame-0 mesh."""
+    import os
+
+    from bemstokes_tpu_torch import flagella
+    from bemstokes_tpu_torch.mesh import SurfaceMesh, create_sphere
+
+    centre, radius = GAIT_HEAD
+    head = create_sphere(center=centre, radius=radius, refinements=head_refinements)
+    fc = flagella.FlagellumConfig()
+    tube_mesh = flagella.create_initial_flagellum_mesh(fc, *tube)
+    mask = torch.ones(tube_mesh.n_vertices, dtype=torch.float64)
+    spiral = flagella.reference_spiral_euler(torch.as_tensor(tube_mesh.vertices), fc, mask)
+    meshes = []
+    for k in range(files):
+        turned = flagella.euler_at_theta(spiral, 2.0 * np.pi * k / turn, mask).numpy()
+        meshes.append(head.merged_with(SurfaceMesh(turned, tube_mesh.cells, tube_mesh.material_id)))
+    offsets = jitter * np.random.default_rng(24).standard_normal(meshes[0].vertices.shape)
+    for k, mesh in enumerate(meshes):
+        write_msh(os.path.join(folder, f"bacterium_{k}.msh"), mesh.vertices + offsets, mesh.cells)
+    return meshes[0]
+
+
+def bacterium_config(grids, kernel="free_space", turn=GAIT_TURN, **kw):
+    """The bacterium's loop (the JAX package's bench, bench.py:830-849) over
+    a gait of `turn` frames a turn: the flagellum's rate solved from the
+    motor-torque balance each frame,
+    the head remapped onto the ellipsoid, rigid displacements on every axis,
+    quadrature auto-promotion on; in free space or beside the no-slip wall."""
+    from bemstokes_tpu_torch.config import ProblemConfig, WallConfig
+
+    return ProblemConfig(
+        grid_type="Real",
+        force_pole="Origin",
+        n_frames=turn,
+        time_step=0.05,
+        input_grid_path=grids,
+        input_grid_base_name="bacterium_",
+        input_grid_format="msh",
+        solve_with_torque=True,
+        spherical_head=True,
+        consider_rigid_displacements=True,
+        rigid_displacement_axes=(True, True, True),
+        no_slip_kernel=kernel == "no_slip",
+        walls=(WallConfig(enabled=False, position=(0.0, GAIT_WALL_Y, 0.0), span=(10.0, 0.0, 10.0)),),
+        **kw,
+    )
+
+
+def heun_config(grids, **kw):
+    """(b): the translation gait under the free-surface image kernel (the
+    JAX package's bench, bench.py:867-889), Heun."""
+    from bemstokes_tpu_torch.config import WallConfig
+
+    return translation_config(
+        grids,
+        force_pole="Origin",
+        reflect_kernel=True,
+        walls=(WallConfig(enabled=False, position=(0.0, GAIT_FREE_SURFACE_Y, 0.0), span=(10.0, 0.0, 10.0)),),
+        time_integration="Heun",
+        **kw,
+    )
+
+
+def write_squirmer_gait(folder, refinements):
+    """(c): create_sphere(refinements) as the one frame mesh `squirmer_0.msh`
+    and each frame's slip B1 ((r.e) r - e) as a gait velocity file in folder:
+    frame 1 in deal.II block_write binary, the others .npy."""
+    import os
+
+    from bemstokes_tpu_torch.mesh import create_sphere
+    from bemstokes_tpu_torch.utils.dealii_io import block_write
+
+    mesh = create_sphere(refinements=refinements)
+    write_msh(os.path.join(folder, "squirmer_0.msh"), mesh.vertices, mesh.cells)
+    rhat = mesh.vertices / np.linalg.norm(mesh.vertices, axis=1, keepdims=True)
+    e = np.array([1.0, 0.0, 0.0])
+    for k, b1 in enumerate(SQUIRMER_B1):
+        slip = (b1 * ((rhat @ e)[:, None] * rhat - e)).T.reshape(-1)
+        stem = os.path.join(folder, f"squirming_velocity_3d_frame_{k}")
+        if k == 1:
+            block_write(stem + ".bin", slip)
+        else:
+            np.save(stem + ".npy", slip)
+
+
+def squirmer_config(folder, kernel="free_space", **kw):
+    """(c): Blake's squirmer on frozen geometry: frame 0 assembles and
+    factors, later frames rebuild only the rhs from the gait files."""
+    from bemstokes_tpu_torch.config import ProblemConfig, WallConfig
+
+    return ProblemConfig(
+        grid_type="Real",
+        force_pole="Origin",
+        n_frames=1,
+        input_grid_path=folder,
+        input_grid_base_name="squirmer_",
+        input_grid_format="msh",
+        input_velocity_path=folder,
+        velocity_type="Squirmer",
+        squirmer_change_geometry=False,
+        consider_rigid_displacements=False,
+        consider_rigid_rotations=False,
+        no_slip_kernel=kernel == "no_slip",
+        walls=(WallConfig(enabled=False, position=(0.0, GAIT_WALL_Y, 0.0), span=(10.0, 0.0, 10.0)),),
+        **kw,
+    )
+
+
+def launch_counts(kernels):
+    return {f"{name}:{k}": v for name, mod in kernels.items() for k, v in mod.launches.items()}
+
+
+def gait_run(cfg, device, frames, kernels, out):
+    """SwimmerSimulation(cfg, out).run(0, frames) on `device`, the launch
+    counters set to 0 just before it; every solve (a full one, a Heun
+    predictor, a frozen one) recorded with its ms (the card synchronised),
+    iterations, refactor flag, convergence, residual and launches.  Returns
+    (simulation, record) with the history, the solves, each frame's saved
+    forces, the motor torque and centre-of-mass series, the whole run's s,
+    the launches that were not 0 and the peak GiB."""
+    import os
+
+    from bemstokes_tpu_torch.swimmer import SwimmerSimulation
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts(*kernels.values())
+    sim = SwimmerSimulation(cfg, out, device=device)
+    solves = []
+
+    def recorded(fn, kind):
+        def solve(*args, **kwargs):
+            if cuda:
+                torch.cuda.synchronize()
+            before, t0 = launch_counts(kernels), time.perf_counter()
+            res = fn(*args, **kwargs)
+            if cuda:
+                torch.cuda.synchronize()
+            after = launch_counts(kernels)
+            solves.append(
+                dict(
+                    kind=kind,
+                    ms=(time.perf_counter() - t0) * 1e3,
+                    iterations=int(res["iterations"]),
+                    refactored=bool(res.get("refactored", False)),
+                    converged=bool(res.get("converged", True)),
+                    residual=float(res["residual"]),
+                    launches={k: after[k] - before[k] for k in after if after[k] != before[k]},
+                )
+            )
+            return res
+
+        return solve
+
+    sim._solve = recorded(sim._solve, "full")
+    sim._solve_frozen_distributed = recorded(sim._solve_frozen_distributed, "frozen")
+    sim.problem.solve_frame_frozen = recorded(sim.problem.solve_frame_frozen, "frozen")
+    t0 = time.perf_counter()
+    history = sim.run(0, frames)
+    seconds = time.perf_counter() - t0
+    forces = [np.load(os.path.join(out, f"result_{k}.npz"))["stokes_forces"] for k in range(frames)]
+    series = {
+        name: np.loadtxt(os.path.join(out, f"{name}.txt"), ndmin=1)
+        for name in ("motor_torque", "center_of_mass_position")
+        if os.path.exists(os.path.join(out, f"{name}.txt"))
+    }
+    rec = dict(
+        history=history,
+        solves=solves,
+        forces=forces,
+        series=series,
+        seconds=seconds,
+        launches={k: v for k, v in launch_counts(kernels).items() if v},
+        peak=torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0,
+        unknowns=3 * sim.problem.n + sim.problem.num_rigid + int(cfg.solve_with_torque),
+    )
+    return sim, rec
+
+
+def gait_diff(a, b):
+    """Largest relative difference of two runs over the frames of the
+    shorter: the rigid velocities, the flagellum rate and the forces, each
+    relative to its largest entry."""
+    worst = 0.0
+    for ha, hb, fa, fb in zip(a["history"], b["history"], a["forces"], b["forces"]):
+        pairs = [(ha["rigid_velocities"], hb["rigid_velocities"]), (fa, fb)]
+        if "flagellum_omega" in hb:
+            pairs.append(([ha["flagellum_omega"]], [hb["flagellum_omega"]]))
+        for x, y in pairs:
+            x, y = np.asarray(x), np.asarray(y)
+            worst = max(worst, float(np.abs(x - y).max() / np.abs(y).max()))
+    return worst
+
+
+def gait_log(name, sim, rec, extra=""):
+    """One line per path; fails the phase on a frame that did not converge
+    or is not finite."""
+    solves = "; ".join(
+        f"{s['kind']} {s['ms']:.1f} ms, {s['iterations']} it, refactored {s['refactored']}, residual "
+        f"{s['residual']:.3e}, launches {s['launches']}"
+        for s in rec["solves"]
+    )
+    U = [[float(f"{u:.10g}") for u in h["rigid_velocities"]] for h in rec["history"]]
+    omega = [h["flagellum_omega"] for h in rec["history"] if "flagellum_omega" in h]
+    log(
+        f"swimmer gaits {name}: {sim.problem.n} nodes, {rec['unknowns']} unknowns, promoted "
+        f"{sim.problem.quadrature_promoted}; solves: {solves}; U {U}"
+        + (f", flagellum rates {omega}" if omega else "")
+        + f"; {rec['seconds']:.3f} s for the run, peak {rec['peak']:.3f} GiB; launches {rec['launches']}{extra}"
+    )
+    ok = all(s["converged"] for s in rec["solves"]) and all(np.isfinite(f).all() for f in rec["forces"])
+    if not ok or not all(np.isfinite(h["rigid_velocities"]).all() for h in rec["history"]):
+        raise AssertionError(f"swimmer gaits {name}: a solve did not converge or is not finite")
+
+
+def solve_launches(rec, kind="full"):
+    return [s["launches"] for s in rec["solves"] if s["kind"] == kind]
+
+
+def check_torque(name, rec):
+    """(a)'s gates: the motor torque -2 every frame (history and file), the
+    body counter-rotating against the solved flagellum rate, swimming head
+    first (along -x), and the centre-of-mass series written."""
+    torque = rec["series"]["motor_torque"]
+    com = rec["series"]["center_of_mass_position"]
+    frames = len(rec["history"])
+    worst = max(abs(h["motor_torque"] + 2.0) / 2.0 for h in rec["history"])
+    log(
+        f"swimmer gaits {name}: motor torque off -2 by {worst:.3e} (tol {GAIT_TORQUE_TOL:g}), "
+        f"motor_torque.txt {torque.tolist()}, centre of mass {com.reshape(frames, -1)[:, 1:].tolist()}"
+    )
+    if worst > GAIT_TORQUE_TOL or torque.shape != (frames,) or np.abs(torque + 2.0).max() > GAIT_TORQUE_TOL * 2:
+        raise AssertionError(f"swimmer gaits {name}: the motor torque is not -2")
+    if com.reshape(frames, -1).shape != (frames, 4):
+        raise AssertionError(f"swimmer gaits {name}: center_of_mass_position.txt has not a row per frame")
+    for h in rec["history"]:
+        U, omega = np.asarray(h["rigid_velocities"]), h["flagellum_omega"]
+        if not (np.sign(U[3]) == -np.sign(omega) and abs(U[3]) < abs(omega) and U[0] < 0):
+            raise AssertionError(f"swimmer gaits {name}: U {U.tolist()} against the flagellum rate {omega}")
+
+
+def gait_small(device, folder, kernels):
+    """Each path's small twin, the card against the port on the CPU: the
+    bacterium of 128 nodes (promoted: the head-tube gap is below the head's
+    panel), the translation gait and the no-slip sphere on create_sphere(2)
+    under Heun, the squirmer on create_sphere(2); GAIT_CPU_TOL, equal
+    iterations (the f32 LU rounds otherwise on the card: one iteration more
+    or fewer to the same 1e-12, as phase 22's drag gate)."""
+    import os
+
+    from bemstokes_tpu_torch.config import SolverConfig
+
+    bac, trans, sq = (os.path.join(folder, k, "") for k in ("bacterium_small", "translation_small", "squirmer_small"))
+    for d in (bac, trans, sq):
+        os.makedirs(d)
+    head, tube = GAIT_BACTERIUM_SMALL
+    write_bacterium_gait(bac, head, tube, GAIT_JITTER)
+    write_translation_gait(trans, GAIT_SMALL_REFINEMENTS)
+    write_squirmer_gait(sq, GAIT_SMALL_REFINEMENTS)
+    cases = [
+        ("(a) bacterium", bacterium_config(bac), GAIT_FRAMES, 0),
+        ("(a) bacterium, no-slip wall", bacterium_config(bac, "no_slip"), GAIT_FRAMES, 0),
+        (
+            "(a) bacterium, f32 LU",
+            bacterium_config(bac, solver=SolverConfig(preconditioner_dtype="float32", tolerance=1e-12)),
+            1,
+            1,
+        ),
+        ("(a) bacterium, gather", bacterium_config(bac, assembly_backend="gather"), 1, 0),
+        (
+            "(a) bacterium, matrix-free",
+            bacterium_config(
+                bac, matrix_free=True, matfree_block_nodes=GAIT_SMALL_BLOCK, solver=SolverConfig(tolerance=1e-11)
+            ),
+            1,
+            0,
+        ),
+        ("(b) translation gait, free surface, Heun", heun_config(trans), 2, 0),
+        ("(b) no-slip sphere, Heun", wall_config("no_slip", GAIT_SMALL_REFINEMENTS, time_integration="Heun"), 2, 0),
+        ("(c) squirmer", squirmer_config(sq), GAIT_FRAMES, 0),
+        ("(c) squirmer, no-slip wall", squirmer_config(sq, "no_slip"), GAIT_FRAMES, 0),
+    ]
+    worst_all = 0.0
+    for name, cfg, frames, slack in cases:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as out:
+            sim_c, card = gait_run(cfg, device, frames, kernels, out)
+        t1 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as out:
+            sim_h, host = gait_run(cfg, "cpu", frames, kernels, out)
+        t2 = time.perf_counter()
+        worst = gait_diff(card, host)
+        iters = [(a["iterations"], b["iterations"]) for a, b in zip(card["solves"], host["solves"])]
+        log(
+            f"swimmer gaits, small twin {name}: {sim_c.problem.n} nodes, promoted {sim_c.problem.quadrature_promoted}; "
+            f"card vs CPU {worst:.3e} (tol {GAIT_CPU_TOL:g}), iterations {iters}; card {t1 - t0:.1f} s, CPU "
+            f"{t2 - t1:.1f} s"
+        )
+        if (
+            worst > GAIT_CPU_TOL
+            or len(card["solves"]) != len(host["solves"])
+            or any(abs(a - b) > slack for a, b in iters)
+            or sim_c.problem.quadrature_promoted != sim_h.problem.quadrature_promoted
+        ):
+            raise AssertionError(f"swimmer gaits {name}: the card disagrees with the CPU")
+        worst_all = max(worst_all, worst)
+        del sim_c, sim_h
+    return worst_all
+
+
+def phase_swimmer_gaits(node_kernel, matfree_node, slot_kernel, device, counts):
+    """Phase 24: the bacterium under the motor-torque balance, Heun time
+    stepping and the frozen-geometry squirmer through SwimmerSimulation.run
+    at full width; returns the new-shape records per kernel, K5's free-space
+    launches (in all and by shape) and `tile_nodes`' launches and (row,
+    panel) pairs on these paths."""
+    import torch.distributed as dist
+
+    from bemstokes_tpu_torch.la.direct import LUPreconditioner
+    from bemstokes_tpu_torch.ops import assemble
+
+    log(f"swimmer gaits: {card_line()}")
+    kernels = {"K1-K4": node_kernel, "K6": slot_kernel, "K5": matfree_node}
+    shapes = {"free_space": [], "no_slip": [], "tile_nodes": []}
+    k5 = {"total": 0, "by_shape": {}}
+    nodes = {"launches": 0, "pairs": {"f32": 0, "f64": 0}}
+    near = StageTimer(assemble, "_add_near_corrections")
+    lu = StageTimer(LUPreconditioner, "set_up")
+    try:
+        with tempfile.TemporaryDirectory() as folder:
+            t0 = time.perf_counter()
+            small = gait_small(device, folder, kernels)
+            log(f"swimmer gaits: small twins {time.perf_counter() - t0:.1f} s, worst {small:.3e}")
+            near.reset()
+            lu.reset()
+            gait_bacterium(node_kernel, matfree_node, slot_kernel, device, counts, folder, kernels, shapes, k5, nodes, near, lu)
+            gait_heun(node_kernel, device, folder, kernels)
+            gait_squirmer(node_kernel, device, folder, kernels)
+    finally:
+        near.restore()
+        lu.restore()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return shapes, (k5["total"], k5["by_shape"]), nodes["launches"], nodes["pairs"]
+
+
+def gait_bacterium(node_kernel, matfree_node, slot_kernel, device, counts, folder, kernels, shapes, k5, nodes, near, lu):
+    """(a) the bacterium at 23,101 unknowns: the loop in free space (K1) and
+    beside the no-slip wall (K3), frame 0 on an f32 LU, a gather frame
+    (`tile_nodes`), the matrix-free loop (K5 V alone, the torque unknown in
+    the Schur tail) and the distributed loop at world size 1."""
+    import os
+
+    from bemstokes_tpu_torch.config import SolverConfig
+    from bemstokes_tpu_torch.mesh.proximity import min_intercomponent_gap
+
+    grids = os.path.join(folder, "bacterium", "")
+    os.makedirs(grids)
+    head, tube = GAIT_BACTERIUM
+    mesh = write_bacterium_gait(grids, head, tube)
+    gap, diam = min_intercomponent_gap(mesh)
+    runs = {}
+
+    def path(name, cfg, frames, expect):
+        near.reset()
+        lu.reset()
+        with tempfile.TemporaryDirectory() as out:
+            sim, rec = gait_run(cfg, device, frames, kernels, out)
+        tally(node_kernel)
+        gait_log(
+            f"(a) {name}", sim, rec,
+            f"; head-tube gap {gap:.4f} against the local panel diameter {diam:.4f}; near delta {near.ms:.1f} ms in "
+            f"{near.calls} calls; LU {lu.ms:.1f} ms in {lu.calls} factors",
+        )
+        if sim.problem.quadrature_promoted != (gap < diam) or not expect(rec):
+            raise AssertionError(f"swimmer gaits (a) {name}: promotion or launches {rec['launches']}")
+        runs[name] = rec
+        return sim, rec
+
+    for kernel in ("free_space", "no_slip"):
+        name = f"bacterium, {kernel}"
+        sim, rec = path(
+            name, bacterium_config(grids, kernel), GAIT_FRAMES,
+            lambda r, k=kernel: r["launches"] == {f"K1-K4:{k}": GAIT_FRAMES},
+        )
+        check_torque(name, rec)
+        if rec["solves"][0]["refactored"] is not True:
+            raise AssertionError(f"swimmer gaits (a) {name}: frame 0 did not factor")
+        shapes[kernel].append(
+            ho_sweep_check(node_kernel, counts, f"bacterium, {sim.problem.n} nodes (24 (a))", sweep_args(sim.problem), kernel, "swimmer gaits")
+        )
+        del sim
+
+    # frame 0 on an f32 LU: the JAX package's bench warns that the
+    # monolithic motor-torque system overflows f32 under a plain f32 LU
+    # (bench.py:779-782); the small twin above holds it against the CPU
+    sim, rec = path(
+        "bacterium, f32 LU", bacterium_config(grids, solver=SolverConfig(preconditioner_dtype="float32", tolerance=1e-12)), 1,
+        lambda r: r["launches"] == {"K1-K4:free_space": 1},
+    )
+    diff = gait_diff(rec, runs["bacterium, free_space"])
+    log(f"swimmer gaits (a) f32 LU: frame 0 against the f64 LU's {diff:.3e} (tol {GAIT_F32_TOL:g}), {rec['solves'][0]['iterations']} iterations")
+    if diff > GAIT_F32_TOL:
+        raise AssertionError(f"swimmer gaits (a) f32 LU: {diff} from the f64 LU's frame")
+    del sim
+
+    sim, rec = path(
+        "bacterium, gather", bacterium_config(grids, assembly_backend="gather"), 1,
+        lambda r: set(r["launches"]) == {"K6:tile_nodes"},
+    )
+    nodes["launches"] += slot_kernel.launches["tile_nodes"]
+    nodes["pairs"]["f64"] += slot_kernel.pairs["f64"]
+    diff = gait_diff(rec, runs["bacterium, free_space"])
+    log(f"swimmer gaits (a) gather: frame 0 against the node frame {diff:.3e} (tol {GAIT_MODES_TOL:g})")
+    if diff > GAIT_MODES_TOL:
+        raise AssertionError(f"swimmer gaits (a) gather: {diff} from the node frame")
+    shapes["tile_nodes"].append(
+        ho_nodes_check(slot_kernel, counts, f"bacterium, head and tube, {sim.problem.n} nodes (24 (a))", sim.problem, "swimmer gaits")
+    )
+    del sim
+
+    cfg = bacterium_config(grids, matrix_free=True, matfree_block_nodes=1024, solver=SolverConfig(tolerance=1e-11))
+    sim, rec = path("bacterium, matrix-free", cfg, GAIT_FRAMES, lambda r: "K5:free_space" in r["launches"])
+    by_shape = shapes_of(matfree_node, "free_space")
+    k5["total"] += matfree_node.launches["free_space"]
+    for shape, count in by_shape.items():
+        k5["by_shape"][shape] = k5["by_shape"].get(shape, 0) + count
+    diff = gait_diff(rec, runs["bacterium, free_space"])
+    log(f"swimmer gaits (a) matrix-free: K5 by shape {by_shape}; against the materialized loop {diff:.3e} (tol {GAIT_MATFREE_TOL:g})")
+    check_torque("bacterium, matrix-free", rec)
+    check_one_sided("swimmer gaits (a)", "free_space", by_shape, sum(s["iterations"] for s in rec["solves"]))
+    if diff > GAIT_MATFREE_TOL:
+        raise AssertionError(f"swimmer gaits (a) matrix-free: {diff} from the materialized loop")
+    del sim
+
+    sim, rec = path(
+        "bacterium, distributed", bacterium_config(grids, distributed=True), GAIT_FRAMES,
+        lambda r: r["launches"] == {"K1-K4:free_space": GAIT_FRAMES},
+    )
+    single = runs["bacterium, free_space"]
+    diff = gait_diff(rec, single)
+    iters = [(a["iterations"], b["iterations"]) for a, b in zip(rec["solves"], single["solves"])]
+    log(f"swimmer gaits (a) distributed, world size 1: against the single-card loop {diff:.3e} (tol {GAIT_DIST_TOL:g}), iterations {iters}")
+    check_torque("bacterium, distributed", rec)
+    if diff > GAIT_DIST_TOL or any(a != b for a, b in iters):
+        raise AssertionError(f"swimmer gaits (a) distributed: {diff} from the single-card loop")
+    del sim
+
+
+def gait_heun(node_kernel, device, folder, kernels):
+    """(b) Heun: the translation gait of create_sphere(5) under the
+    free-surface image kernel (K2) and phase 5's sphere beside the no-slip
+    wall (K3), each against its Forward loop."""
+    import os
+
+    grids = os.path.join(folder, "translation", "")
+    os.makedirs(grids)
+    write_translation_gait(grids, REFINEMENTS)
+    cases = (
+        ("translation gait, free surface", heun_config(grids), "K1-K4:free_surface"),
+        ("no-slip sphere", wall_config("no_slip", REFINEMENTS, time_integration="Heun"), "K1-K4:no_slip"),
+    )
+    for name, cfg, key in cases:
+        with tempfile.TemporaryDirectory() as out:
+            sim, rec = gait_run(cfg, device, GAIT_FRAMES, kernels, out)
+        tally(node_kernel)
+        gait_log(f"(b) {name}, Heun", sim, rec)
+        del sim
+        per_frame = [solve_launches(rec)[2 * k : 2 * k + 2] for k in range(GAIT_FRAMES)]
+        if any(frame != [{key: 1}, {key: 1}] for frame in per_frame):
+            raise AssertionError(f"swimmer gaits (b) {name}: launches a frame {per_frame}")
+        with tempfile.TemporaryDirectory() as out:
+            sim, fwd = gait_run(dataclasses.replace(cfg, time_integration="Forward"), device, GAIT_FRAMES, kernels, out)
+        tally(node_kernel)
+        gait_log(f"(b) {name}, Forward", sim, fwd)
+        del sim
+        diff = gait_diff(rec, fwd)
+        U = [h["rigid_velocities"] for h in rec["history"]]
+        log(f"swimmer gaits (b) {name}: Heun against Forward {diff:.3e} (at least {GAIT_HEUN_DIFF:g})")
+        if diff < GAIT_HEUN_DIFF:
+            raise AssertionError(f"swimmer gaits (b) {name}: Heun equals Forward")
+        if key.endswith("no_slip") and not 0 < U[0][1] < U[1][1] < U[2][1]:
+            raise AssertionError(f"swimmer gaits (b) {name}: the sphere does not sediment away from the wall: {U}")
+
+
+def gait_squirmer(node_kernel, device, folder, kernels):
+    """(c) the frozen squirmer on create_sphere(5): in free space against
+    Blake's (2/3) B1 with no bulk launch after frame 0, a frozen frame
+    against a re-assembled one, beside the no-slip wall, and distributed at
+    world size 1."""
+    import os
+
+    grids = os.path.join(folder, "squirmer", "")
+    os.makedirs(grids)
+    write_squirmer_gait(grids, REFINEMENTS)
+    runs = {}
+    for kernel in ("free_space", "no_slip"):
+        with tempfile.TemporaryDirectory() as out:
+            sim, rec = gait_run(squirmer_config(grids, kernel), device, GAIT_FRAMES, kernels, out)
+            extra = ""
+            if kernel == "free_space":
+                # frame 1's frozen solve against the whole pipeline at the same
+                # geometry and gait velocity
+                sdot = sim.shape_velocities(1, None)
+                full = sim.problem.solve_frame(sim.euler_for_frame(1), sdot)
+                frozen = rec["history"][1]["rigid_velocities"]
+                forces = np.asarray(rec["forces"][1]).T.reshape(-1)
+                U_err = np.abs(np.asarray(full["rigid_velocities"]) - frozen).max() / np.abs(frozen).max()
+                f = full["stokes_forces"].cpu().numpy()
+                f_err = float(np.abs(f - forces).max() / np.abs(f).max())
+                extra = f"; frozen frame 1 against a re-assembled one: U {U_err:.3e}, forces {f_err:.3e} (tol {SQUIRMER_FROZEN_TOL:g})"
+                del full
+        # the loop's launches and the re-assembled frame's
+        tally(node_kernel)
+        gait_log(f"(c) squirmer, {kernel}", sim, rec, extra)
+        del sim
+        runs[kernel] = rec
+        key = f"K1-K4:{kernel}"
+        kinds = [s["kind"] for s in rec["solves"]]
+        if kinds != ["full", "frozen", "frozen"] or [s["refactored"] for s in rec["solves"]] != [True, False, False]:
+            raise AssertionError(f"swimmer gaits (c) {kernel}: solves {kinds}, refactor flags")
+        if solve_launches(rec) != [{key: 1}] or solve_launches(rec, "frozen") != [{}, {}]:
+            raise AssertionError(f"swimmer gaits (c) {kernel}: a frozen frame launched a bulk kernel")
+        if kernel == "free_space":
+            if max(U_err, f_err) > SQUIRMER_FROZEN_TOL:
+                raise AssertionError("swimmer gaits (c): the frozen frame differs from the re-assembled one")
+            for h, b1 in zip(rec["history"], SQUIRMER_B1):
+                U = np.asarray(h["rigid_velocities"])
+                err = abs(U[0] - 2.0 / 3.0 * b1) / abs(2.0 / 3.0 * b1)
+                log(f"swimmer gaits (c) frame {h['frame']}: U.e / ((2/3) B1) - 1 = {err:.3e} (tol {SQUIRMER_TOL:g}), other components {np.abs(U[1:]).max():.3e} (tol {SQUIRMER_SIDE_TOL:g})")
+                if err > SQUIRMER_TOL or np.abs(U[1:]).max() > SQUIRMER_SIDE_TOL:
+                    raise AssertionError(f"swimmer gaits (c): U {U.tolist()} against Blake's (2/3) B1 = {2 / 3 * b1}")
+    with tempfile.TemporaryDirectory() as out:
+        sim, rec = gait_run(squirmer_config(grids, distributed=True), device, GAIT_FRAMES, kernels, out)
+    tally(node_kernel)
+    frozen_step = getattr(sim._dist_step, "frozen", None) is not None
+    gait_log("(c) squirmer, distributed", sim, rec)
+    del sim
+    diff = gait_diff(rec, runs["free_space"])
+    log(f"swimmer gaits (c) distributed, world size 1: frozen step {frozen_step}; against the single-card loop {diff:.3e} (tol {GAIT_DIST_TOL:g})")
+    if not frozen_step or [s["kind"] for s in rec["solves"]] != ["full", "frozen", "frozen"] or diff > GAIT_DIST_TOL:
+        raise AssertionError("swimmer gaits (c) distributed: no frozen step or a different loop")
+    if solve_launches(rec, "frozen") != [{}, {}]:
+        raise AssertionError("swimmer gaits (c) distributed: a frozen frame launched a bulk kernel")
+
+
 def node_sweep_entry(key, kernel, record):
     """The kernels-line entry of a node sweep: its launches over the main
     paths, what they were worth in sweeps of the timed shape (create_sphere(5)
@@ -4521,6 +5167,17 @@ def smoke(folder, cpu_study):
     )
     nodes_launches += wn_nodes
     nodes_pairs = {k: nodes_pairs[k] + wn_pairs[k] for k in nodes_pairs}
+    sg_shapes, sg_matvec, sg_nodes, sg_pairs = phase(
+        phase_swimmer_gaits, node_kernel, matfree_node, slot_kernel, device, counts
+    )
+    # phase 24's likewise
+    total, by_shape = matvec_launches["free_space"]
+    matvec_launches["free_space"] = (
+        total + sg_matvec[0],
+        {k: by_shape.get(k, 0) + sg_matvec[1].get(k, 0) for k in {*by_shape, *sg_matvec[1]}},
+    )
+    nodes_launches += sg_nodes
+    nodes_pairs = {k: nodes_pairs[k] + sg_pairs[k] for k in nodes_pairs}
     new_shapes = {
         "free_space": ho_shapes["free_space"],
         "no_slip": ho_shapes["no_slip"],
@@ -4554,6 +5211,8 @@ def smoke(folder, cpu_study):
             entry["higher_order_shapes"] = new_shapes[key]
         if key in wall_shapes:
             entry["walls_near_contact_shapes"] = wall_shapes[key]
+        if sg_shapes.get(key):
+            entry["swimmer_gaits_shapes"] = sg_shapes[key]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -7,6 +7,8 @@
                                           [--column-mode node|gather|scatter|node_planes]
                                           [--dtype float64|float32] [--drag-gate]
                                           [--near-contact H [--near-chunk RC] | --meshed-wall]
+                                          [--bacterium [--turn-frames 32]] [--heun]
+                                          [--lu same|float32]
 
 Runs `SwimmerSimulation(...).run(0, frames)` of bemstokes_tpu_torch for the
 unit sphere 2 radii above the image plane (chip_smoke.py's configuration) on
@@ -39,8 +41,16 @@ whose rows go in chunks of `--near-chunk` (default: `_near_coo`'s); with
 `--meshed-wall` the image plane gives way to phase 23's meshed no-slip plate
 (span 12, refined near the body to threshold 0.5 within 7, per-component
 solid angle; free-space kernel), whose hanging-node rows are their own
-stage (`--refinements 4` is phase 23's 18,279-unknown size).  Prints the
-card's name and power limit first.
+stage (`--refinements 4` is phase 23's 18,279-unknown size).  With
+`--bacterium` the frames are chip_smoke.py phase 24's bacterium instead of
+the sphere: the ellipsoidal head and the 384 x 16 flagellum (23,101
+unknowns), its rate solved from the motor-torque balance each frame, on a
+gait of `--turn-frames` frames a turn (gmsh files of the frames it runs,
+which the script writes; `--kernel free_space` or `no_slip`); the
+flagellum's torque mode is a stage.  `--heun` steps any configuration by
+Heun's predictor-corrector: each frame solves twice, and the stages sum
+both solves.  `--lu float32` factors the Direct preconditioner's LU in f32.
+Prints the card's name and power limit first.
 """
 
 import argparse
@@ -103,6 +113,10 @@ def main():
     place.add_argument("--near-contact", type=float, metavar="H")
     place.add_argument("--meshed-wall", action="store_true")
     ap.add_argument("--near-chunk", type=int, metavar="RC")
+    ap.add_argument("--bacterium", action="store_true")
+    ap.add_argument("--turn-frames", type=int, default=32)
+    ap.add_argument("--heun", action="store_true")
+    ap.add_argument("--lu", default="same", choices=["same", "float32"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_frame_stages: no CUDA device; nothing was run", file=sys.stderr)
@@ -154,9 +168,25 @@ def main():
             walls=(WallConfig(enabled=True, wall_type="no_slip", position=(0.0, -2.0, 0.0), span=(12.0, 0.0, 12.0)),),
             wall_refinement=WallRefinementConfig(enabled=True, threshold=0.5, distance_from_center=7.0),
         )
+    small = dataclasses.replace(cfg, internal_sphere_refinements=2)
+    if args.bacterium:
+        import chip_smoke
+
+        gaits = tempfile.TemporaryDirectory()
+
+        def bacterium(name, shape):
+            folder = Path(gaits.name, name)
+            folder.mkdir()
+            chip_smoke.write_bacterium_gait(folder, *shape, files=max(args.frames, 2) + 1, turn=args.turn_frames)
+            return chip_smoke.bacterium_config(f"{folder}/", args.kernel, args.turn_frames)
+
+        cfg, small = bacterium("full", chip_smoke.GAIT_BACTERIUM), bacterium("small", chip_smoke.GAIT_BACTERIUM_SMALL)
+    if args.heun:
+        cfg, small = (dataclasses.replace(c, time_integration="Heun") for c in (cfg, small))
+    if args.lu == "float32":
+        cfg = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, preconditioner_dtype="float32"))
     if not args.no_warmup:
         with tempfile.TemporaryDirectory() as out:
-            small = dataclasses.replace(cfg, internal_sphere_refinements=2)
             swimmer.SwimmerSimulation(small, out).run(0, 2)
     stages = {}
     # stages that run inside another named stage: left out of the sum
@@ -198,6 +228,7 @@ def main():
     problem.build_monolithic_system = timed(stages, "system build", problem.build_monolithic_system)
     LUPreconditioner.set_up = timed(stages, "LU factor", LUPreconditioner.set_up)
     cls = problem.StokesBEMProblem
+    cls.flagellum_torque_mode = timed(stages, "torque mode", cls.flagellum_torque_mode)
     cls._gmres_direct = timed(stages, "GMRES (with LU applies)", cls._gmres_direct)
     cls._finish = timed(stages, "finish (residual, packing)", cls._finish)
     cls.solve_frame = timed(stages, "solve_frame, whole", cls.solve_frame)
@@ -208,8 +239,9 @@ def main():
     with tempfile.TemporaryDirectory() as out:
         sim = swimmer.SwimmerSimulation(cfg, out)
         print(
-            f"kernel {sim.problem.asm_cfg.kernel}, {3 * sim.problem.n + 6} unknowns, {cfg.dtype}, "
-            f"column mode {args.column_mode}, map degree {cfg.map_degree}, quadrature "
+            f"kernel {sim.problem.asm_cfg.kernel}, {3 * sim.problem.n + 6 + int(cfg.solve_with_torque)} unknowns, "
+            f"{cfg.dtype}, LU {args.lu}, {cfg.time_integration}, column mode {args.column_mode}, map degree "
+            f"{cfg.map_degree}, quadrature "
             f"{cfg.quadrature.order} / {cfg.quadrature.singular_order}, promoted "
             f"{sim.problem.quadrature_promoted}, {sim.problem.hanging.n} hanging nodes"
         )
