@@ -23,7 +23,8 @@ without that option the command fails.  The JAX command line's `--platform`
 is this `--device`; its persistent compilation cache has no counterpart
 here (torch runs eagerly).  `run --profile DIR` traces the frame loop with
 `torch.profiler` (the JAX command line's `jax.profiler` trace) into a Chrome
-trace in DIR; the per-phase timers still print at the end of a run.
+trace in DIR, with the program's spans (`utils/timers.py`) as annotations in
+it; the per-phase timers still print at the end of a run.
 
 Several processes, one per device, run the distributed frame loop
 (`"distributed": true` in the parameters):
@@ -70,8 +71,9 @@ def _build_parser():
         help="trace the frame loop with torch.profiler (host activity, and the "
         "card's kernels and copies when the run is on the card) and write it "
         "as a Chrome trace, DIR/trace.json (DIR/trace_rank<r>.json for each "
-        "process of a distributed run; open it in Perfetto or chrome://tracing); "
-        "the per-phase timers still print at the end of the run",
+        "process of a distributed run; open it in Perfetto or chrome://tracing), "
+        "the program's spans annotated in it; the per-phase timers still print "
+        "at the end of the run",
     )
 
     comp = sub.add_parser("compose", help="offline composition of saved frames")

@@ -19,6 +19,7 @@ import torch
 
 from .reference_element import reference_element
 from ..mesh.dofs import ScalarSpace
+from ..utils import timers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,14 +92,17 @@ def support_points(
     agree, so a scatter-mean is exact."""
     me = reference_element(map_space.cell_dim, map_space.degree)
     dt, dev = euler.dtype, euler.device
-    phi = torch.as_tensor(
-        me.shape_values(fe_space.unit_support_points), dtype=dt, device=dev
-    )  # [nl_fe, nl_map]
-    cells_map = torch.as_tensor(map_space.cells_nodes, dtype=torch.long, device=dev)
+    with timers.host_sync():
+        phi = torch.as_tensor(
+            me.shape_values(fe_space.unit_support_points), dtype=dt, device=dev
+        )  # [nl_fe, nl_map]
+    with timers.host_sync():
+        cells_map = torch.as_tensor(map_space.cells_nodes, dtype=torch.long, device=dev)
     cell_pos = torch.einsum("lm,cmd->cld", phi, euler[cells_map])  # [Nc, nl_fe, dim]
     dim = euler.shape[1]
     n = fe_space.n_nodes
-    idx = torch.as_tensor(fe_space.cells_nodes.ravel(), dtype=torch.long, device=dev)
+    with timers.host_sync():
+        idx = torch.as_tensor(fe_space.cells_nodes.ravel(), dtype=torch.long, device=dev)
     pos = torch.zeros((n, dim), dtype=dt, device=dev).index_add_(
         0, idx, cell_pos.reshape(-1, dim)
     )

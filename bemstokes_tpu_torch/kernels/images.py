@@ -26,6 +26,7 @@ import math
 
 import torch
 
+from ..utils import timers
 from .stokeslet import _eye, _ipow, _norm, stokeslet_G_Wn, stresslet_W
 
 
@@ -52,14 +53,16 @@ def _unnormalized_W3(p, eps, dim_power_extra=0):
 
 def _unit(dim, axis, like):
     e = torch.zeros((dim,), dtype=like.dtype, device=like.device)
-    e[axis] = 1.0
+    with timers.host_sync():  # a scalar copied in from the host
+        e[axis] = 1.0
     return e
 
 
 def _row_sign(dim, wall_axis, like):
     """s_i = -1 on the wall-normal row, +1 elsewhere."""
     s = torch.ones((dim,), dtype=like.dtype, device=like.device)
-    s[wall_axis] = -1.0
+    with timers.host_sync():
+        s[wall_axis] = -1.0
     return s
 
 

@@ -19,10 +19,15 @@ import dataclasses
 
 import torch
 
+from ..utils import timers
+
 
 def lu_factor_dense(A: torch.Tensor):
-    """LU factors (LU, pivots) of a dense square matrix."""
-    return torch.linalg.lu_factor(A)
+    """LU factors (LU, pivots) of a dense square matrix (or a batch of them).
+    `torch.linalg.lu_factor` reads the factor's status back to raise on a
+    singular matrix, so the host waits here for the factor: a host sync."""
+    with timers.host_sync():
+        return torch.linalg.lu_factor(A)
 
 
 def lu_solve_dense(factors, b: torch.Tensor) -> torch.Tensor:

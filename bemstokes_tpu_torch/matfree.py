@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from .fem.geometry import support_points
+from .la.direct import lu_factor_dense
 from .la.gmres import gmres
 from .ops.assemble import _near_coo, _singular_coo, assemble_rows
 from .ops.corrections import tangential_projector
@@ -80,7 +81,8 @@ def _kept_coo(coos, out_len):
     coos = [c for c in coos if c is not None]
     ri, ci, dV, dK = (torch.cat([c[k] for c in coos]) for k in range(4))
     keep = ri < out_len
-    return (ri[keep], ci[keep]), dV[keep], dK[keep]
+    with timers.host_sync():  # the mask's selections read their counts back
+        return (ri[keep], ci[keep]), dV[keep], dK[keep]
 
 
 class MatfreeSolver:
@@ -162,9 +164,10 @@ class MatfreeSolver:
                     e = np.zeros((d * n,))
                     e[b * n : (b + 1) * n] = (lab == L).astype(float)
                     cols.append(e)
-        return torch.as_tensor(
-            np.stack(cols, axis=1), dtype=self.dt, device=self.p.device
-        )  # [dn, BKv]
+        with timers.host_sync():
+            return torch.as_tensor(
+                np.stack(cols, axis=1), dtype=self.dt, device=self.p.device
+            )  # [dn, BKv]
 
     def _solid_angle_vals(self, C):
         """[d, d, n] diagonal-block replacement values from the versor row
@@ -295,7 +298,8 @@ class MatfreeSolver:
         # which operators the matvec needs: every column single-layer (bodies,
         # no-slip and Dirichlet walls: every all-body mesh), every column
         # double-layer, or both.  One host read a frame, none a matvec.
-        n_sel = int(sel_V.sum())
+        with timers.host_sync():
+            n_sel = int(sel_V.sum())
         side = "V" if n_sel == dn else "K" if n_sel == 0 else "both"
 
         # ---- rhs (mirrors ops.monolithic.build_monolithic_system) ----
@@ -441,7 +445,8 @@ class MatfreeSolver:
         sa_blk = sys["sa_vals"][:, :, b0:b1]  # [a, b, i]
         ii = torch.arange(nb, device=dev)
         A4[:, ii, :, ii] -= (sa_blk * (~sel_blk)[None, :, :]).permute(2, 0, 1)
-        keep = ~torch.as_tensor(slave_scalar[b0:b1], device=dev)
+        with timers.host_sync():
+            keep = ~torch.as_tensor(slave_scalar[b0:b1], device=dev)
         eye4 = torch.eye(d * nb, dtype=A4.dtype, device=dev).reshape(d, nb, d, nb)
         A4 = torch.where(keep[None, :, None, None], A4, eye4)
         A_blk = torch.eye(d * bn, dtype=self.factor_dt, device=dev).reshape(d, bn, d, bn)
@@ -457,7 +462,7 @@ class MatfreeSolver:
         lus, pivs = [], []
         for k in range(self.nblk):
             b0 = k * self.bn
-            lu, piv = torch.linalg.lu_factor(
+            lu, piv = lu_factor_dense(
                 self._block(sys, b0, min(b0 + self.bn, self.n), slave_scalar)
             )
             lus.append(lu)
@@ -508,7 +513,7 @@ class MatfreeSolver:
             D = torch.nn.functional.pad(D, (0, 1, 0, 1))
         B = torch.cat(B_rows, dim=0)  # [RT, dn]
         MsC = ms_inv(C)  # [dn, RT]
-        S_lu, S_piv = torch.linalg.lu_factor(D - B @ MsC)
+        S_lu, S_piv = lu_factor_dense(D - B @ MsC)
         return dict(B=B, MsC=MsC, S_lu=S_lu, S_piv=S_piv)
 
     def _precond(self, pre, ms_inv):
@@ -552,5 +557,6 @@ class MatfreeSolver:
             forces, wall, packed_dev = p._finish(
                 self._matvec(sys), sys["rhs"], ops, diag, x, info["iterations"], info["residual"]
             )
-            packed = packed_dev.cpu().numpy()
+            with timers.host_sync():
+                packed = packed_dev.cpu().numpy()
         return p._unpack_result(None, sys["rhs"], ops, forces, wall, packed, False)

@@ -71,6 +71,7 @@ from ..fem.quadrature import (
 from ..fem.reference_element import reference_element
 from ..kernels.images import image_point
 from ..mesh.dofs import ScalarSpace
+from ..utils import timers
 from .node_kernel import (
     KERNEL_FREE_SPACE,
     KERNEL_FREE_SURFACE,
@@ -282,10 +283,11 @@ def build_assembly_tables(
 
 def _t(arr, like: torch.Tensor, dtype=None):
     """A host table as a tensor on `like`'s device (in `like`'s dtype unless
-    an integer `dtype` is given)."""
-    return torch.as_tensor(
-        np.asarray(arr), dtype=dtype or like.dtype, device=like.device
-    )
+    an integer `dtype` is given): a host sync."""
+    with timers.host_sync():
+        return torch.as_tensor(
+            np.asarray(arr), dtype=dtype or like.dtype, device=like.device
+        )
 
 
 def _check_slice(cfg: AssemblyConfig):
@@ -314,9 +316,11 @@ def scatter_coo(M: torch.Tensor, ri, ci, vals) -> torch.Tensor:
     block carry a sentinel index, ops/assemble.py:1067); torch's
     `index_put_(accumulate=True)` has no drop mode, so the triplets are
     filtered here.  On CUDA the accumulation is atomic and its order changes
-    between runs: results agree to rounding, not bitwise."""
+    between runs: results agree to rounding, not bitwise.  The mask's
+    selection reads its count back: a host sync."""
     keep = (ri < M.shape[0]) & (ci < M.shape[1])
-    M.index_put_((ri[keep], ci[keep]), vals[keep], accumulate=True)
+    with timers.host_sync():
+        M.index_put_((ri[keep], ci[keep]), vals[keep], accumulate=True)
     return M
 
 

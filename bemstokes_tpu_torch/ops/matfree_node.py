@@ -35,6 +35,7 @@ import dataclasses
 import torch
 
 from ..kernels.images import image_point
+from ..utils import timers
 from . import cuda_build
 from .assemble import AssemblyTables, node_column_samples
 from .node_kernel import (
@@ -186,7 +187,8 @@ def sweep_matvec(st: SweepStatic, arrs, XV, XK):
     all: (1, 0) and (0, 1) launch the kernel's one-sided instantiations.
 
     CUDA tensors launch the kernel K5 (float32 or float64) or raise; CPU
-    tensors run `sweep_matvec_reference`."""
+    tensors run `sweep_matvec_reference`.  The call is the span "Sweep
+    matvec"."""
     squeeze_v = XV.ndim == 1
     squeeze_k = XK.ndim == 1
     if squeeze_v:
@@ -195,12 +197,13 @@ def sweep_matvec(st: SweepStatic, arrs, XV, XK):
         XK = XK[:, None]
     _check(st, arrs, XV, XK)
     device = arrs["xi"].device
-    if device.type == "cpu":
-        VX, KX = sweep_matvec_reference(st, arrs, XV, XK)
-    elif device.type == "cuda":
-        VX, KX = _sweep_matvec_cuda(st, arrs, XV, XK)
-    else:
-        raise ValueError(f"sweep_matvec: no kernel for device {device}")
+    with timers.span("Sweep matvec"):
+        if device.type == "cpu":
+            VX, KX = sweep_matvec_reference(st, arrs, XV, XK)
+        elif device.type == "cuda":
+            VX, KX = _sweep_matvec_cuda(st, arrs, XV, XK)
+        else:
+            raise ValueError(f"sweep_matvec: no kernel for device {device}")
     if squeeze_v:
         VX = VX[:, 0]
     if squeeze_k:

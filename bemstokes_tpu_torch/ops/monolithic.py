@@ -25,6 +25,7 @@ from ..mesh.surface_mesh import (
     MATERIAL_WALL_DO_NOTHING,
     MATERIAL_WALL_DIRICHLET,
 )
+from ..utils import timers
 
 GRID_REAL = "Real"
 GRID_IMPOSED_FORCE = "ImposedForce"
@@ -79,7 +80,8 @@ def imposed_tail_vector(
         tail[:dim] = e
     else:
         tail[dim:num_rigid] = e[: num_rigid - dim]
-    return torch.as_tensor(tail, dtype=dtype, device=device)
+    with timers.host_sync():
+        return torch.as_tensor(tail, dtype=dtype, device=device)
 
 
 def build_monolithic_system(
@@ -116,7 +118,8 @@ def build_monolithic_system(
     # dense -K temporary)
     top = A[:dn, :dn]
     torch.where(sel_V[None, :], V, K, out=top)
-    top[:, ~sel_V] = -top[:, ~sel_V]
+    with timers.host_sync():  # the masks' selections read their counts back
+        top[:, ~sel_V] = -top[:, ~sel_V]
     A[:dn, dn : dn + R] = -assemble_scaling * tmp_N.T  # [dn, R]
 
     rigid = slice(dn, dn + R)

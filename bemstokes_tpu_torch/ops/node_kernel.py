@@ -33,6 +33,7 @@ import torch
 
 from ..kernels.images import free_surface_G_Wn, image_point, no_slip_wall_G, no_slip_wall_Wn
 from ..kernels.stokeslet import stokeslet_G_Wn
+from ..utils import timers
 from . import cuda_build
 
 KERNEL_FREE_SPACE = "free_space"
@@ -153,20 +154,26 @@ def node_sweep(
     the dense form).
 
     A CUDA tensor launches the kernel K1, K2, K3 or K4 (float32 or float64,
-    contiguous inputs) or raises; a CPU tensor runs `node_sweep_reference`."""
+    contiguous inputs) or raises; a CPU tensor runs `node_sweep_reference`.
+    The call is the span "Node sweep"."""
     nr, n, m = _check_inputs(xi, Yj, Nj, Wj)
     _check_kernel(kernel, wall_axis, layout)
-    if xi.device.type == "cpu":
-        return node_sweep_reference(
-            xi,
-            Yj,
-            Nj,
-            Wj,
-            kernel=kernel,
-            wall_axis=wall_axis,
-            wall_position=wall_position,
-            layout=layout,
-        )
+    with timers.span("Node sweep"):
+        if xi.device.type == "cpu":
+            return node_sweep_reference(
+                xi,
+                Yj,
+                Nj,
+                Wj,
+                kernel=kernel,
+                wall_axis=wall_axis,
+                wall_position=wall_position,
+                layout=layout,
+            )
+        return _node_sweep_cuda(xi, Yj, Nj, Wj, kernel, wall_axis, wall_position, layout, nr, n, m)
+
+
+def _node_sweep_cuda(xi, Yj, Nj, Wj, kernel, wall_axis, wall_position, layout, nr, n, m):
     if xi.device.type != "cuda":
         raise ValueError(f"node_sweep: no kernel for device {xi.device}")
     if xi.dtype not in (torch.float32, torch.float64):

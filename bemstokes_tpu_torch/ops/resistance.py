@@ -70,9 +70,9 @@ def solve_resistance_system(
     """Non-monolithic solve.  Returns (rigid_velocities [R], stokes_forces
     [d*n], resistance_matrix [R, R])."""
     R = N_flat.shape[0]
-    with timers.scope("Resistance V factor", sync=V):
+    with timers.scope("Resistance V factor"):
         V_lu = lu_factor_dense(V)
-    with timers.scope("Resistance D2N", sync=V):
+    with timers.scope("Resistance D2N"):
         DN = dirichlet_to_neumann(
             V,
             K,

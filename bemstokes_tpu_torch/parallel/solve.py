@@ -509,7 +509,7 @@ def make_sharded_frame_step(
         rows, the preconditioner is the EXACT monolithic inverse
         [[As, B], [T, D]]^-1 through Z = As^-1 B and S = D - T Z (one
         distributed LU solve per application)."""
-        with timers.scope("DirectPreconditioner Refactorisation", sync=sysd["rhs"]):
+        with timers.scope("DirectPreconditioner Refactorisation"):
             A2 = slab_reorder_columns(sysd["A_slab"], n, d, dmesh).to(fdt)
             lu, perm = slab_lu_factor(A2, dmesh)
             del A2
@@ -713,7 +713,7 @@ def make_sharded_resistance_step(problem, dmesh: RowMesh, return_fields: bool = 
         def P_t(v):
             return tangential_projector(v, n_pure_f, Mn_pure_f, l2g_pure)
 
-        with timers.scope("Resistance V factor", sync=V_loc):
+        with timers.scope("Resistance V factor"):
             lu, perm = slab_lu_factor(slab_reorder_columns(V_loc, n, d, dmesh), dmesh)
 
         def V_precond(x):
@@ -734,7 +734,7 @@ def make_sharded_resistance_step(problem, dmesh: RowMesh, return_fields: bool = 
 
         N_flat = flatten(ops["N"])  # [R, dn]
         N_dual_flat = flatten(ops["N_dual"])
-        with timers.scope("Resistance D2N", sync=V_loc):
+        with timers.scope("Resistance D2N"):
             f_s, info_s = d2n(problem._as_device(sdot_flat))
             DN_rows, iters, res = [], info_s["iterations"], info_s["residual"]
             for r in range(R):

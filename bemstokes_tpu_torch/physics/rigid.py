@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..fem.geometry import panel_geometry
+from ..utils import timers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,7 +29,12 @@ class MassOperator:
     jxw: torch.Tensor  # [Nc, nq] (depends on euler; rebuilt per frame)
 
     def _cells(self):
-        return torch.as_tensor(self.cells_nodes, dtype=torch.long, device=self.jxw.device)
+        with timers.host_sync():
+            return torch.as_tensor(self.cells_nodes, dtype=torch.long, device=self.jxw.device)
+
+    def _phi(self, like):
+        with timers.host_sync():
+            return torch.as_tensor(self.phi, dtype=like.dtype, device=like.device)
 
     def matvec(self, v: torch.Tensor) -> torch.Tensor:
         """v [n, d] or [n] (or a batch [B, n, d]) -> M v, componentwise."""
@@ -39,7 +45,7 @@ class MassOperator:
         if squeeze:
             v = v[:, None]
         cells = self._cells()
-        phi = torch.as_tensor(self.phi, dtype=v.dtype, device=v.device)
+        phi = self._phi(v)
         vq = torch.einsum("ql,clD->cqD", phi, v[cells])
         rc = torch.einsum("ql,cqD,cq->clD", phi, vq, self.jxw)
         out = torch.zeros_like(v).index_add_(
@@ -50,7 +56,7 @@ class MassOperator:
     def lumped(self) -> torch.Tensor:
         """Row-sum lumped mass [n]."""
         cells = self._cells()
-        phi = torch.as_tensor(self.phi, dtype=self.jxw.dtype, device=self.jxw.device)
+        phi = self._phi(self.jxw)
         rl = torch.einsum("ql,cq->cl", phi, self.jxw)
         return torch.zeros(
             (self.n_nodes,), dtype=rl.dtype, device=rl.device
@@ -63,10 +69,11 @@ def build_mass_operator(euler, tables) -> tuple[MassOperator, tuple]:
     cfg = tables.cfg
     dt, dev = cfg.dtype, euler.device
 
-    def t(a):
-        return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+    def t(a, dtype=dt):
+        with timers.host_sync():
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
-    cells_map = torch.as_tensor(tables.cells_nodes_map, dtype=torch.long, device=dev)
+    cells_map = t(tables.cells_nodes_map, torch.long)
     xq, normals, jxw = panel_geometry(
         euler[cells_map].to(dt),
         t(tables.phi_map),
@@ -125,7 +132,11 @@ def _cg(matvec, b, x0, tol=1e-12, maxiter=500, precond=None):
     p = z
     rz = torch.dot(r, z)
     k = 0
-    while k < maxiter and float(torch.linalg.vector_norm(r)) > tol:
+    while k < maxiter:
+        with timers.host_sync():
+            go_on = float(torch.linalg.vector_norm(r)) > tol
+        if not go_on:
+            break
         Ap = matvec(p)
         alpha = rz / torch.dot(p, Ap)
         x = x + alpha * p
@@ -147,7 +158,7 @@ def normal_vector_l2(mass_op: MassOperator, normals_q, jxw, body_node_mask):
     M_normal_pure, l2_gamma, l2_gamma_pure.
     """
     cells = mass_op._cells()
-    phi = torch.as_tensor(mass_op.phi, dtype=jxw.dtype, device=jxw.device)
+    phi = mass_op._phi(jxw)
     n, d = mass_op.n_nodes, normals_q.shape[-1]
     rhs_c = torch.einsum("ql,cqd,cq->cld", phi, normals_q, jxw)
     rhs = torch.zeros((n, d), dtype=jxw.dtype, device=jxw.device).index_add_(

@@ -363,17 +363,16 @@ class StokesBEMProblem:
         cfg = self.cfg
         restart, max_restarts = self._gmres_solver_params()
         bw = cfg.solver.bandwith if cfg.solver.bandwith_preconditioner else None
-        with timers.scope("Preconditioner Set Up", sync=A):
+        with timers.scope("Preconditioner Set Up"):
             precond = build_preconditioner(A, cfg.solver.preconditioner_type, bandwith=bw)
-        with timers.scope("GMRES", sync=rhs):
-            return gmres(
-                lambda v: A @ v,
-                rhs,
-                precond=precond.apply,
-                restart=restart,
-                tol=cfg.solver.tolerance,
-                max_restarts=max_restarts,
-            )
+        return gmres(
+            lambda v: A @ v,
+            rhs,
+            precond=precond.apply,
+            restart=restart,
+            tol=cfg.solver.tolerance,
+            max_restarts=max_restarts,
+        )
 
     def _finish(self, A, rhs, ops, diag, x, solver_iters, solver_res):
         """Post-solve bookkeeping (the JAX `_finish_impl`) with ONE packed
@@ -394,6 +393,8 @@ class StokesBEMProblem:
         F = flatten(ops["N_dual"]) @ forces
         F_c = flatten(ops["N_dual_complete"]) @ forces
         Ax = A(x) if callable(A) else A @ x
+        with timers.host_sync():
+            iters = torch.as_tensor(float(solver_iters), dtype=x.dtype, device=x.device)
         parts = [
             torch.linalg.vector_norm(Ax - rhs)[None],
             torch.linalg.vector_norm(rhs)[None],
@@ -404,7 +405,7 @@ class StokesBEMProblem:
             diag["k_solid_angle_check"],
             F,
             F_c,
-            torch.as_tensor(float(solver_iters), dtype=x.dtype, device=x.device)[None],
+            iters[None],
             torch.as_tensor(solver_res, dtype=x.dtype, device=x.device).reshape(1),
         ]
         if cfg.solve_with_torque:
@@ -436,9 +437,12 @@ class StokesBEMProblem:
     def _as_device(self, a) -> torch.Tensor:
         """A numpy array (copied: it may be read-only) or tensor as a tensor
         of the problem's dtype on its device."""
+        if isinstance(a, torch.Tensor) and a.device.type != "cpu":
+            return a.to(device=self.device, dtype=self.asm_cfg.dtype)
         if not isinstance(a, torch.Tensor):
             a = torch.from_numpy(np.array(a))
-        return a.to(device=self.device, dtype=self.asm_cfg.dtype)
+        with timers.host_sync():  # a copy from host memory
+            return a.to(device=self.device, dtype=self.asm_cfg.dtype)
 
     # ------------------------------------------------------------------
     def flagellum_torque_mode(self, euler, rotation=None):
@@ -460,7 +464,8 @@ class StokesBEMProblem:
         pole = self.force_pole_point(torch.zeros((3,), dtype=dt, device=dev))
         body = sp @ R - pole[None, :]  # R^T x (row-vector convention)
         ex = torch.zeros((3,), dtype=dt, device=dev)
-        ex[0] = 1.0
+        with timers.host_sync():  # a scalar copied in from the host
+            ex[0] = 1.0
         mode_body = torch.linalg.cross(ex.expand(body.shape), body, dim=-1)
         mode = mode_body @ R.T
         return mode * self._flagellum_node_mask_t[:, None]
@@ -699,16 +704,18 @@ class StokesBEMProblem:
                 # the previous solve stayed within the trigger (reference
                 # refactor-on-trigger `source/bem_stokes.cc:4336-4339,
                 # 5768-5779`)
-                with timers.scope("DirectPreconditioner Refactorisation"):
+                with timers.scope("DirectPreconditioner Refactorisation") as span:
                     refactored = self.preconditioner.maybe_refactor(
                         A, self._last_direct_iterations
                     )
+                    span.set(refactored=refactored)
                 x, info = self._gmres_direct(A, rhs)
                 iters, res = info["iterations"], info["residual"]
             forces, wall_vel, packed_dev = self._finish(
                 A, rhs, ops, diag, x, iters, res
             )
-            packed = packed_dev.cpu().numpy()
+            with timers.host_sync():
+                packed = packed_dev.cpu().numpy()
         return self._unpack_result(A, rhs, ops, forces, wall_vel, packed, refactored)
 
     def _unpack_result(self, A, rhs, ops, forces, wall_vel, packed, refactored):
@@ -859,9 +866,10 @@ def load_frame_mesh(cfg: ProblemConfig, frame: int) -> SurfaceMesh:
 def result_to_numpy(res):
     """A `solve_frame` result with every tensor (nested dicts included)
     turned into a numpy array, so results of the two packages compare like
-    with like."""
+    with like.  Each tensor's copy is a host sync."""
     if isinstance(res, torch.Tensor):
-        return res.detach().cpu().numpy()
+        with timers.host_sync():
+            return res.detach().cpu().numpy()
     if isinstance(res, dict):
         return {k: result_to_numpy(v) for k, v in res.items()}
     return res

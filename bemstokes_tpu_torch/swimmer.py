@@ -426,76 +426,83 @@ class SwimmerSimulation:
         with timers.scope("Run"):
             prev_res = None
             for frame in range(start_frame, end_frame, cfg.delta_frame):
-                with timers.scope("BEM Reinitialisation"):
-                    euler = self.euler_for_frame(frame)
-                    sdot = self.shape_velocities(frame, euler)
-                # squirmer frozen-geometry fast path: reuse the operators,
-                # only rebuild the rhs (reference
-                # `source/bem_stokes.cc:5734-5759`); on the distributed path
-                # the operators and LU factors stay in the step's state
-                frozen = (
-                    cfg.velocity_type == "Squirmer"
-                    and not cfg.squirmer_change_geometry
-                    and cfg.monolithic
-                    and prev_res is not None
-                )
-                if frozen and cfg.distributed:
-                    frozen = getattr(self._dist_step, "frozen", None) is not None
-                with timers.scope("Assemble + LAC Solve"):
-                    if frozen and cfg.distributed:
-                        res = self._solve_frozen_distributed(sdot)
-                    elif frozen:
-                        res = self.problem.solve_frame_frozen(prev_res, sdot)
-                    else:
-                        res = self._solve(euler, sdot)
-                prev_res = res
-                # the per-frame output fields, pulled to the host once
-                ops_r = res["operators"]
-                N_host = result_to_numpy(ops_r["N"])
-                U = res["rigid_velocities"]
-                if cfg.solve_with_torque:
-                    # the solved motor balance defines the gait velocity
-                    # (reference `:4407-4410`)
-                    sdot = res["shape_velocities"]
-
-                if cfg.time_integration == "Heun":
-                    # predictor: advance a copy of the state, re-solve at the
-                    # midpoint geometry, average velocities (reference
-                    # `:5787-5835` + update_system_state Heun branch)
-                    saved = SwimmerState(
-                        self.state.rotation.copy(),
-                        self.state.displacements.copy(),
-                        frame,
-                    )
-                    self._advance_state(U, N_host)
-                    euler_pred = self.euler_for_frame(frame + cfg.delta_frame)
-                    sdot_pred = self.shape_velocities(frame + cfg.delta_frame, euler_pred)
-                    res_pred = self._solve(euler_pred, sdot_pred)
-                    self.state = saved
-                    U = 0.5 * (U + res_pred["rigid_velocities"])
-
-                v_full = self._advance_state(U, N_host)
-                d = self.problem.dim
-                sdot_host = result_to_numpy(sdot)
-                total_vel = sdot_host.reshape(d, -1).T + v_full
-                self._print_frame_checks(frame, res)
-                if is_coordinator():
-                    # rank 0 alone writes (the reference's `this_mpi_process
-                    # == 0` guards); the port runs one process per device
-                    self._save_frame(frame, euler, res, total_vel, U, sdot_host, N_host)
-                entry = dict(
-                    frame=frame,
-                    rigid_velocities=U.tolist(),
-                    iterations=res["iterations"],
-                    refactored=bool(res.get("refactored", False)),
-                )
-                if "flagellum_omega" in res:
-                    entry["flagellum_omega"] = res["flagellum_omega"]
-                    entry["motor_torque"] = res["motor_torque"]
-                self.history.append(entry)
+                with timers.scope("Frame", frame=frame):
+                    prev_res = self._frame(frame, prev_res)
         # end-of-run timer summary (reference TimeMonitor::summarize `:5882`)
         print(timers.summary())
         return self.history
+
+    def _frame(self, frame, prev_res):
+        """One frame of the loop: geometry, solve, state update, files.
+        Returns the frame's solve result."""
+        cfg = self.cfg
+        with timers.scope("BEM Reinitialisation"):
+            euler = self.euler_for_frame(frame)
+            sdot = self.shape_velocities(frame, euler)
+        # squirmer frozen-geometry fast path: reuse the operators, only
+        # rebuild the rhs (reference `source/bem_stokes.cc:5734-5759`); on the
+        # distributed path the operators and LU factors stay in the step's
+        # state
+        frozen = (
+            cfg.velocity_type == "Squirmer"
+            and not cfg.squirmer_change_geometry
+            and cfg.monolithic
+            and prev_res is not None
+        )
+        if frozen and cfg.distributed:
+            frozen = getattr(self._dist_step, "frozen", None) is not None
+        with timers.scope("Assemble + LAC Solve"):
+            if frozen and cfg.distributed:
+                res = self._solve_frozen_distributed(sdot)
+            elif frozen:
+                res = self.problem.solve_frame_frozen(prev_res, sdot)
+            else:
+                res = self._solve(euler, sdot)
+        # the per-frame output fields, pulled to the host once
+        ops_r = res["operators"]
+        N_host = result_to_numpy(ops_r["N"])
+        U = res["rigid_velocities"]
+        if cfg.solve_with_torque:
+            # the solved motor balance defines the gait velocity
+            # (reference `:4407-4410`)
+            sdot = res["shape_velocities"]
+
+        if cfg.time_integration == "Heun":
+            # predictor: advance a copy of the state, re-solve at the midpoint
+            # geometry, average velocities (reference `:5787-5835` +
+            # update_system_state Heun branch)
+            saved = SwimmerState(
+                self.state.rotation.copy(),
+                self.state.displacements.copy(),
+                frame,
+            )
+            self._advance_state(U, N_host)
+            euler_pred = self.euler_for_frame(frame + cfg.delta_frame)
+            sdot_pred = self.shape_velocities(frame + cfg.delta_frame, euler_pred)
+            res_pred = self._solve(euler_pred, sdot_pred)
+            self.state = saved
+            U = 0.5 * (U + res_pred["rigid_velocities"])
+
+        v_full = self._advance_state(U, N_host)
+        d = self.problem.dim
+        sdot_host = result_to_numpy(sdot)
+        total_vel = sdot_host.reshape(d, -1).T + v_full
+        self._print_frame_checks(frame, res)
+        if is_coordinator():
+            # rank 0 alone writes (the reference's `this_mpi_process == 0`
+            # guards); the port runs one process per device
+            self._save_frame(frame, euler, res, total_vel, U, sdot_host, N_host)
+        entry = dict(
+            frame=frame,
+            rigid_velocities=U.tolist(),
+            iterations=res["iterations"],
+            refactored=bool(res.get("refactored", False)),
+        )
+        if "flagellum_omega" in res:
+            entry["flagellum_omega"] = res["flagellum_omega"]
+            entry["motor_torque"] = res["motor_torque"]
+        self.history.append(entry)
+        return res
 
     # ------------------------------------------------------------------
     def _print_frame_checks(self, frame, res):
@@ -547,24 +554,51 @@ class SwimmerSimulation:
 
     def _save_frame(self, frame, euler, res, total_vel, U, sdot, N_modes):
         """Write the frame's result and state files, the txt time series and
-        the VTU.  `sdot` [d*n] and `N_modes` [R, n, d] are host arrays."""
+        the VTU.  `sdot` [d*n] and `N_modes` [R, n, d] are host arrays.  The
+        call is the scope "Frame output", each of the four its child; the
+        counter "output bytes" adds what each wrote."""
+        with timers.scope("Frame output"):
+            with timers.scope("Result file"):
+                forces = self._write_result(frame, euler, res, total_vel, U)
+            with timers.scope("State file"):
+                self.state.frame = frame
+                path = os.path.join(self.out, f"state_{frame}.npz")
+                self.state.save(path)
+                timers.count("output bytes", os.path.getsize(path))
+            with timers.scope("Time series"):
+                self._append_series(frame, res, U, forces)
+            if frame % max(1, self.cfg.delta_frame) == 0:
+                with timers.scope("VTU"):
+                    self._write_frame_vtu(frame, euler, res, total_vel, sdot, N_modes, forces)
+
+    def _write_result(self, frame, euler, res, total_vel, U):
+        """result_<frame>.npz; returns the forces [n, d] on the host."""
         d = self.problem.dim
         forces_flat = result_to_numpy(res["stokes_forces"])  # one device pull
         forces = forces_flat.reshape(d, -1).T
+        path = os.path.join(self.out, f"result_{frame}.npz")
         np.savez(
-            os.path.join(self.out, f"result_{frame}.npz"),
+            path,
             stokes_forces=forces,
             rigid_velocities=np.asarray(U),
             total_velocities=total_vel,
             euler=np.asarray(euler),
         )
-        self.state.frame = frame
-        self.state.save(os.path.join(self.out, f"state_{frame}.npz"))
-        # txt time series, matching the reference's appenders:
-        # point_velocities.txt rows "F_r U_r F_complete_r" (`:4466-4476`),
-        # origin_velocities.txt rows "F_r U_origin_r" (`:4496-4506`),
-        # center_of_mass_position.txt "frame com" (`:2777-2784`),
-        # motor_torque.txt (`:4375-4384`)
+        timers.count("output bytes", os.path.getsize(path))
+        return forces
+
+    def _append(self, name, text):
+        """Append `text` (ASCII: a byte a character) to the series `name`."""
+        with open(os.path.join(self.out, name), "a") as f:
+            f.write(text)
+        timers.count("output bytes", len(text))
+
+    def _append_series(self, frame, res, U, forces):
+        """The txt time series, matching the reference's appenders:
+        point_velocities.txt rows "F_r U_r F_complete_r" (`:4466-4476`),
+        origin_velocities.txt rows "F_r U_origin_r" (`:4496-4506`),
+        center_of_mass_position.txt "frame com" (`:2777-2784`),
+        motor_torque.txt (`:4375-4384`)."""
         if "rigid_forces_pole" in res:
             F = np.asarray(res["rigid_forces_pole"])
             F_c = np.asarray(res["rigid_forces_complete"])
@@ -575,56 +609,53 @@ class SwimmerSimulation:
             F = np.einsum("rnd,nd->r", N_dual, forces)
             F_c = np.einsum("rnd,nd->r", N_dual_c, forces)
         U_origin = self._origin_velocities(U, res)
-        with open(os.path.join(self.out, "point_velocities.txt"), "a") as f:
-            for r in range(self.problem.num_rigid):
-                f.write(f"{F[r]:.16e} {U[r]:.16e} {F_c[r]:.16e}\n")
-        with open(os.path.join(self.out, "origin_velocities.txt"), "a") as f:
-            for r in range(self.problem.num_rigid):
-                f.write(f"{F[r]:.16e} {U_origin[r]:.16e}\n")
+        R = range(self.problem.num_rigid)
+        self._append("point_velocities.txt", "".join(f"{F[r]:.16e} {U[r]:.16e} {F_c[r]:.16e}\n" for r in R))
+        self._append("origin_velocities.txt", "".join(f"{F[r]:.16e} {U_origin[r]:.16e}\n" for r in R))
         com = np.asarray(res["diagnostics"]["com_body"])
-        with open(os.path.join(self.out, "center_of_mass_position.txt"), "a") as f:
-            f.write(f"{frame} " + " ".join(f"{c:.16e}" for c in com) + "\n")
+        self._append("center_of_mass_position.txt", f"{frame} " + " ".join(f"{c:.16e}" for c in com) + "\n")
         if "motor_torque" in res:
-            with open(os.path.join(self.out, "motor_torque.txt"), "a") as f:
-                f.write(f"{res['motor_torque']:.16e}\n")
-        if frame % max(1, self.cfg.delta_frame) == 0:
-            from .mesh.dofs import subcell_connectivity
+            self._append("motor_torque.txt", f"{res['motor_torque']:.16e}\n")
 
-            if self.cfg.fe_degree == self.cfg.map_degree:
-                # equal spaces: the FE support points ARE the euler nodes
-                sp = np.asarray(euler)
-            else:
-                sp = support_points(
-                    torch.as_tensor(np.asarray(euler)),
-                    self.problem.map_space,
-                    self.problem.fe_space,
-                ).numpy()
-            # degree-correct sub-celled output + the reference's field set:
-            # forces, shape/total velocities, normals, rigid modes
-            # (`source/bem_stokes.cc:5164-5262`)
-            cells, parent = subcell_connectivity(self.problem.fe_space)
-            ops = res["operators"]
-            point_data = dict(
-                forces=forces,
-                total_velocities=total_vel,
-                shape_velocities=sdot.reshape(d, -1).T,
-                normals=result_to_numpy(ops["normal"]["normal"]),
+    def _write_frame_vtu(self, frame, euler, res, total_vel, sdot, N_modes, forces):
+        """stokes_<frame>.vtu: degree-correct sub-celled output with the
+        reference's field set: forces, shape/total velocities, normals, rigid
+        modes (`source/bem_stokes.cc:5164-5262`)."""
+        from .mesh.dofs import subcell_connectivity
+
+        d = self.problem.dim
+        if self.cfg.fe_degree == self.cfg.map_degree:
+            # equal spaces: the FE support points ARE the euler nodes
+            sp = np.asarray(euler)
+        else:
+            sp = support_points(
+                torch.as_tensor(np.asarray(euler)),
+                self.problem.map_space,
+                self.problem.fe_space,
+            ).numpy()
+        cells, parent = subcell_connectivity(self.problem.fe_space)
+        ops = res["operators"]
+        point_data = dict(
+            forces=forces,
+            total_velocities=total_vel,
+            shape_velocities=sdot.reshape(d, -1).T,
+            normals=result_to_numpy(ops["normal"]["normal"]),
+        )
+        for r in range(N_modes.shape[0]):
+            point_data[f"rigid_mode_{r}"] = N_modes[r]
+        if "N_flagellum_torque" in ops:
+            point_data["rigid_flagellum"] = (
+                result_to_numpy(ops["N_flagellum_torque"]).reshape(d, -1).T
             )
-            for r in range(N_modes.shape[0]):
-                point_data[f"rigid_mode_{r}"] = N_modes[r]
-            if "N_flagellum_torque" in ops:
-                point_data["rigid_flagellum"] = (
-                    result_to_numpy(ops["N_flagellum_torque"]).reshape(d, -1).T
-                )
-            write_vtu(
-                os.path.join(self.out, f"stokes_{frame}.vtu"),
-                sp,
-                cells,
-                point_data=point_data,
-                cell_data=dict(
-                    material=self.mesh.material_id.astype(np.float64)[parent]
-                ),
-            )
+        path = os.path.join(self.out, f"stokes_{frame}.vtu")
+        write_vtu(
+            path,
+            sp,
+            cells,
+            point_data=point_data,
+            cell_data=dict(material=self.mesh.material_id.astype(np.float64)[parent]),
+        )
+        timers.count("output bytes", os.path.getsize(path))
 
     # ------------------------------------------------------------------
     def compose(self, start_frame: int, end_frame: int):

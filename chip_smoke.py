@@ -2216,7 +2216,9 @@ RESISTANCE_TOL = dict(mobility=2.5e-4, translation=2.5e-4, rotation=1e-3, off_di
 
 def frame_timed(prob, euler, sdot):
     """One `solve_frame` with the timers reset before it: the result, its
-    host-clock ms (device synchronised) and the timers' totals in ms."""
+    host-clock ms (device synchronised) and the timers' totals in ms.  The
+    timers do not synchronise: a timer's ms is the host's, the card's work
+    inside it only where the host blocks on it."""
     from bemstokes_tpu_torch.utils import timers
 
     timers.reset()
@@ -2258,8 +2260,8 @@ def phase_preconditioners(node_kernel, device, direct):
         dF = max_rel(res["rigid_forces_pole"], ref["rigid_forces_pole"])
         dT = max_rel(res["stokes_forces"].cpu().numpy(), ref["stokes_forces"])
         log(
-            f"preconditioner {name}: iterations {res['iterations']}, set-up "
-            f"{spent['Preconditioner Set Up']:.1f} ms, GMRES {spent['GMRES']:.1f} ms, frame "
+            f"preconditioner {name}: iterations {res['iterations']}, host time of the set-up "
+            f"{spent['Preconditioner Set Up']:.1f} ms and of GMRES {spent['GMRES']:.1f} ms, frame "
             f"{frame_ms:.1f} ms; true residual / |b| {res['residual'] / b_norm:.3e} (tol "
             f"{cfg.solver.tolerance:g}); against the Direct frame 0: rigid velocities {dU:.3e}, "
             f"rigid forces {dF:.3e} (tol {TOL_AGAINST_DIRECT:g}), tractions {dT:.3e}; K1 launches "
@@ -2338,7 +2340,7 @@ def phase_resistance(node_kernel, device, direct):
         f"{tol['mobility']:g}); resistance diagonal / (6 pi, 8 pi) "
         f"{(d / np.repeat([6 * np.pi, 8 * np.pi], 3)).tolist()}: translation {trans:.3e} (tol "
         f"{tol['translation']:g}), rotation {rot:.3e} (tol {tol['rotation']:g}), off-diagonal / 6 pi "
-        f"{off:.3e} (tol {tol['off_diagonal']:g}); V LU {spent['Resistance V factor']:.1f} ms, D2N {spent['Resistance D2N']:.1f} "
+        f"{off:.3e} (tol {tol['off_diagonal']:g}); host time of the V LU {spent['Resistance V factor']:.1f} ms and of the D2N {spent['Resistance D2N']:.1f} "
         f"ms, frame {frame_ms:.1f} ms; K1 launches {launches['free_space']}"
     )
     if not (
@@ -2397,7 +2399,7 @@ def phase_resistance(node_kernel, device, direct):
     log(
         f"resistance, no-slip wall, SwimmerSimulation.run(0, 2): 6 pi U_y = {mobility}, Brenner "
         f"{exact:.6f}, frame 0 off by {abs(mobility[0] - exact):.3e} (tol {tol['brenner']:g}); frames "
-        f"{[round(r['seconds'], 3) for r in records]} s; V LU {spent['Resistance V factor']:.1f} ms and D2N "
+        f"{[round(r['seconds'], 3) for r in records]} s; host time of the V LU {spent['Resistance V factor']:.1f} ms and of the D2N "
         f"{spent['Resistance D2N']:.1f} ms over both frames; state and output files finite: {ok}; "
         f"K3 launches {launches['no_slip']}"
     )
@@ -2906,7 +2908,7 @@ def phase_2d(node_kernel, matfree_node, slot_kernel, device):
     res, ms, spent = circle_frame(prob, prob.initial_euler())
     Rm = res["resistance_matrix"]
     diff = max_rel(Rm[:, 2], F0)
-    out["resistance"] = dict(ms=ms, v_lu_ms=spent["Resistance V factor"], d2n_ms=spent["Resistance D2N"],
+    out["resistance"] = dict(ms=ms, v_lu_host_ms=spent["Resistance V factor"], d2n_host_ms=spent["Resistance D2N"],
                              torque_rel_err=float(Rm[2, 2] / (4 * np.pi) - 1), against_monolithic=diff)
     log("2D resistance: " + json.dumps(out["resistance"]) + f" (tol {tol['resistance']:g}); R = {Rm.tolist()}")
     if not diff <= tol["resistance"]:
@@ -3032,8 +3034,8 @@ FIELD_DIST_TOL = 1e-12
 
 def dist_frame(step, euler, sdot):
     """One distributed step with the timers reset before it: its outputs,
-    host-clock ms (device synchronised), the LU timer's ms and the peak
-    memory (GiB) since the step began."""
+    host-clock ms (device synchronised), the LU timer's host ms (the timers
+    do not synchronise) and the peak memory (GiB) since the step began."""
     from bemstokes_tpu_torch.utils import timers
 
     gc.collect()
@@ -3161,8 +3163,8 @@ def phase_distributed(node_kernel, device):
     drags = [abs(abs(r["F"][0]) - 6 * np.pi) / (6 * np.pi) for r in dist_recs]
     log(
         f"distributed Direct at {3 * prob.n + prob.num_rigid} unknowns: frames {[round(r['ms'], 1) for r in dist_recs]} ms "
-        f"(single {[round(r['ms'], 1) for r in single]}), slab LU {dist_recs[0]['lu_ms']:.1f} ms against solve_frame's "
-        f"LU {single[0]['lu_ms']:.1f} ms, peak {[round(r['peak'], 2) for r in dist_recs]} GiB (single "
+        f"(single {[round(r['ms'], 1) for r in single]}), host time of the slab LU {dist_recs[0]['lu_ms']:.1f} ms "
+        f"against solve_frame's LU {single[0]['lu_ms']:.1f} ms, peak {[round(r['peak'], 2) for r in dist_recs]} GiB (single "
         f"{[round(r['peak'], 2) for r in single]}), drag error {drags}, K1 launches {launches['free_space']}"
     )
     if [r["refactored"] for r in dist_recs] != [True, False] or [r["refactored"] for r in single] != [True, False]:
