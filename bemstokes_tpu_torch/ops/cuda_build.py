@@ -1,8 +1,9 @@
-"""Build and load the CUDA kernel libraries of `csrc/`.
+"""Build and load the native libraries of `csrc/`: the CUDA kernels
+(`*.cu`, nvcc) and the host code (`*.cpp`, g++).
 
-Every `csrc/*.cu` has a plain C interface.  A source is compiled with nvcc
-at first use into `bemstokes_tpu_torch/_build/`, keyed by a hash of the
-source, the shared header and the flags, and loaded with ctypes; a kernel
+Every source has a plain C interface.  A source is compiled at first use
+into `bemstokes_tpu_torch/_build/`, keyed by a hash of the source, the
+kernels' shared header (`.cu` only) and the flags, and loaded with ctypes; a
 wrapper names its source and declares its argument types (`library`).
 Nothing is built or loaded when a module is imported.
 """
@@ -27,6 +28,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
 _libs: dict[Path, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
@@ -47,18 +49,21 @@ def sources() -> list[Path]:
 
 
 def _start_build(source: Path):
-    """(library path, running nvcc or None, temporary output path) for one
-    source; nvcc is started only if no build of this source exists yet."""
-    key = hashlib.sha256(
-        source.read_bytes() + HEADER.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    """(library path, running compiler or None, temporary output path) for
+    one source; the compiler is started only if no build of this source
+    exists yet."""
+    if source.suffix == ".cu":
+        compiler, flags, deps = nvcc_path(), NVCC_FLAGS, source.read_bytes() + HEADER.read_bytes()
+    else:
+        compiler, flags, deps = "g++", GXX_FLAGS, source.read_bytes()
+    key = hashlib.sha256(deps + " ".join(flags).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"{source.stem}_{key}.so"
     if lib_path.exists():
         return lib_path, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f".{source.stem}_{key}.{os.getpid()}.so"
     proc = subprocess.Popen(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+        [compiler, *flags, "-o", str(tmp), str(source)],
         stdout=subprocess.PIPE,
         stderr=subprocess.PIPE,
         text=True,
@@ -67,20 +72,21 @@ def _start_build(source: Path):
 
 
 def _finish_build(source: Path, lib_path: Path, proc, tmp) -> str:
-    """Wait for a build started by `_start_build`; returns nvcc's output."""
+    """Wait for a build started by `_start_build`; returns the compiler's
+    output."""
     if proc is None:
         return ""
     out, err = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed to build {source.name} (rc {proc.returncode}):\n{out}\n{err}"
+            f"{Path(proc.args[0]).name} failed to build {source.name} (rc {proc.returncode}):\n{out}\n{err}"
         )
     os.replace(tmp, lib_path)
     return out + err
 
 
 def build(source: Path) -> Path:
-    """Compile one kernel library if no build of this source exists yet and
+    """Compile one library if no build of this source exists yet and
     return its path."""
     lib_path, proc, tmp = _start_build(source)
     _finish_build(source, lib_path, proc, tmp)

@@ -171,23 +171,121 @@ def test_refined_wall_has_hanging_nodes():
     assert con_t.hanging_node_constraints(mt).n > 0
 
 
-@pytest.mark.parametrize("kind", ["quads", "lines"])
-def test_vtu_writer_identical(tmp_path, kind):
-    """`mesh/io_vtu.py:write_vtu` writes the same file, byte for byte."""
+# one field of values where %.12g formatting has its corners: signed zeros,
+# the switch between fixed and exponent notation, ties of the 12th digit
+# (999999999999.5, 2^-18, 12345678901.25), the ends of the double range,
+# non-finite values and exact integers
+EDGE_VALUES = [
+    -0.0, 0.0, 1e-5, 9.99999999999e-5, 1e-4, 1e12, 999999999999.5, 1e16, 5e-324,
+    1.7976931348623157e308, -1e-300, 2.0**-18, 12345678901.25, 0.1, -2.5, 1e11,
+    123456789012.0, 9.999999999995, float("inf"), -float("inf"), float("nan"), -float("nan"),
+    7.0, -3.0, 42.0, 1e5, 2.0**53 + 2, -(2.0**40),
+]
+
+
+def _vtu_case(kind):
+    """(points, cells, point_data, cell_data) of a writer case."""
     rng = np.random.default_rng(0)
-    if kind == "quads":
-        mesh = fac_t.create_sphere(refinements=1)
-        points, cells = mesh.vertices, mesh.cells
-    else:
+    if kind == "lines":
         points = rng.normal(size=(6, 2))
         cells = np.array([[0, 1], [1, 2], [2, 3], [3, 4], [4, 5], [5, 0]])
-    point_data = dict(forces=rng.normal(size=(len(points), 3)), scalar=rng.normal(size=len(points)))
+    else:
+        mesh = fac_t.create_sphere(refinements=5 if kind == "sphere_wall" else 1)
+        points, cells = mesh.vertices, mesh.cells
+    n = len(points)
+    point_data = dict(forces=rng.normal(size=(n, 3)), scalar=rng.normal(size=n))
+    if kind == "sphere_wall":  # the frame loop's field set beside a wall
+        point_data = dict(
+            forces=rng.normal(size=(n, 3)),
+            total_velocities=rng.normal(size=(n, 3)) * 1e-3,
+            shape_velocities=np.zeros(3 * n).reshape(3, -1).T,
+            normals=rng.normal(size=(n, 3)),
+        )
+        modes = rng.normal(size=(6, n, 3))
+        for r in range(6):
+            point_data[f"rigid_mode_{r}"] = modes[r]
+    elif kind == "edge_values":
+        point_data["edges"] = np.resize(np.array(EDGE_VALUES), (n, 3))
+    elif kind == "float32":
+        point_data = {k: v.astype(np.float32) for k, v in point_data.items()}
+    elif kind == "integer":
+        point_data["ids"] = rng.integers(-(10**13), 10**13, size=(n, 3))
+        point_data["small"] = np.arange(n, dtype=np.int32)
+    elif kind == "transposed":
+        point_data["shape_velocities"] = rng.normal(size=(3, n)).T
+        point_data["every_other"] = rng.normal(size=(2 * n, 3))[::2]
     cell_data = dict(material=np.arange(len(cells), dtype=np.float64))
-    for mod, name in ((vtu_j, "j.vtu"), (vtu_t, "t.vtu")):
-        mod.write_vtu(str(tmp_path / name), points, cells, point_data=point_data, cell_data=cell_data)
-    written = (tmp_path / "t.vtu").read_bytes()
-    assert written == (tmp_path / "j.vtu").read_bytes()
+    return points, cells, point_data, cell_data
+
+
+def _vtu_bytes(mod, path, kind):
+    points, cells, point_data, cell_data = _vtu_case(kind)
+    mod.write_vtu(str(path), points, cells, point_data=point_data, cell_data=cell_data)
+    return path.read_bytes()
+
+
+VTU_KINDS = ["quads", "lines", "sphere_wall", "edge_values", "float32", "integer", "transposed"]
+
+
+@pytest.mark.parametrize("kind", VTU_KINDS)
+def test_vtu_writer_identical(tmp_path, kind):
+    """`mesh/io_vtu.py:write_vtu` writes the same file, byte for byte."""
+    written = _vtu_bytes(vtu_t, tmp_path / "t.vtu", kind)
+    assert written == _vtu_bytes(vtu_j, tmp_path / "j.vtu", kind)
     assert b"<PointData>" in written and b"<CellData>" in written
+
+
+def test_vtu_writer_without_native_library(tmp_path, monkeypatch):
+    """Where the native formatter cannot be loaded, Python formats every
+    value, to the same bytes."""
+    monkeypatch.setattr(vtu_t, "native_lib", lambda: None)
+    before = dict(vtu_t.timers.counts)
+    written = _vtu_bytes(vtu_t, tmp_path / "t.vtu", "edge_values")
+    assert written == _vtu_bytes(vtu_j, tmp_path / "j.vtu", "edge_values")
+    assert vtu_t.timers.counts.get("VTU values native", 0) == before.get("VTU values native", 0)
+    assert vtu_t.timers.counts["VTU values python"] > before.get("VTU values python", 0)
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_vtu_counter_splits_values(tmp_path, monkeypatch, native):
+    """One write counts each value it wrote once, as native or python."""
+    if not native:
+        monkeypatch.setattr(vtu_t, "native_lib", lambda: None)
+    elif vtu_t.native_lib() is None:
+        pytest.fail("the native VTU formatter did not build (g++ -std=c++17)")
+    points, cells, point_data, cell_data = _vtu_case("quads")
+    values = 3 * len(points) + sum(np.size(v) for v in (*point_data.values(), *cell_data.values()))
+    values += cells.size + 2 * len(cells)  # connectivity, offsets, types
+    counts = vtu_t.timers.counts
+    before = {k: counts.get(k, 0) for k in ("VTU values native", "VTU values python")}
+    vtu_t.write_vtu(str(tmp_path / "t.vtu"), points, cells, point_data=point_data, cell_data=cell_data)
+    added = {k: counts.get(k, 0) - v for k, v in before.items()}
+    assert added["VTU values native"] + added["VTU values python"] == values
+    assert added["VTU values native" if native else "VTU values python"] == values
+
+
+def test_vtu_native_formatter_matches_python():
+    """The native formatter (its integer route and std::to_chars) gives
+    Python's `%.12g` on values over the whole double range, on ties of the
+    12th digit and on integers."""
+    if vtu_t.native_lib() is None:
+        pytest.fail("the native VTU formatter did not build (g++ -std=c++17)")
+    rng = np.random.default_rng(7)
+    bits = rng.integers(0, 2**63, size=20000, dtype=np.int64).view(np.float64)
+    logs = rng.normal(size=40000) * 10.0 ** rng.uniform(-14, 14, size=40000)
+    # q / 2^t = q 5^t / 10^t with q odd and q 5^t of 13 digits: an exact tie
+    ties = []
+    for t in range(1, 18):
+        lo, hi = -(-(10**12) // 5**t), (10**13 - 1) // 5**t
+        q = rng.integers(lo, hi + 1, size=400) | 1
+        ties.append(np.ldexp(q[q <= hi].astype(np.float64), -t))
+    ties = np.concatenate(ties)
+    assert all(float(f"{v:.12e}") == v and f"{v:.12e}".split("e")[0][-1] == "5" for v in ties)
+    values = np.concatenate([bits, logs, -logs[:1000], ties, np.array(EDGE_VALUES)])
+    expect = vtu_t.text_python(values)
+    assert bytes(vtu_t.text_native(values)) == expect
+    ints = np.concatenate([rng.integers(-(2**62), 2**62, size=5000), np.arange(-5, 300)])
+    assert bytes(vtu_t.text_native(ints, integer=True)) == vtu_t.text_python(ints, integer=True)
 
 
 def test_dealii_block_io_identical(tmp_path):
