@@ -44,7 +44,7 @@ import torch
 from .fem.geometry import support_points
 from .la.direct import lu_factor_dense
 from .la.gmres import gmres
-from .ops.assemble import _near_coo, _singular_coo, assemble_rows
+from .ops.assemble import _near_coo, _singular_coo, assemble_rows, near_delta_span
 from .ops.corrections import tangential_projector
 from .ops.matfree_node import build_sweep_arrays, sweep_matvec, sweep_matvec_2d, sweep_static
 from .ops.monolithic import (
@@ -224,15 +224,11 @@ class MatfreeSolver:
         l2g = nv["l2_gamma_pure"]
 
         arrs = build_sweep_arrays(self.st, p.tables, sp, xq, normals_q, jxw)
-        coo, dV, dK = _kept_coo(
-            [
-                _singular_coo(euler, sp, p.tables, 0, n, subtract_smooth=True),
-                _near_coo(
-                    euler, sp, sp, torch.arange(n, dtype=torch.long, device=dev), p.tables, n
-                ),
-            ],
-            dn,
-        )
+        near = None
+        if p.tables.hq_weights is not None:
+            with near_delta_span(p.tables, n):
+                near = _near_coo(euler, sp, sp, torch.arange(n, dtype=torch.long, device=dev), p.tables, n)
+        coo, dV, dK = _kept_coo([_singular_coo(euler, sp, p.tables, 0, n, subtract_smooth=True), near], dn)
 
         def Pt(v):  # v [dn] or rows [B, dn]
             return tangential_projector(v, n_pure_f, Mn_pure_f, l2g)

@@ -54,6 +54,7 @@ here with the 2D normal.  The image kernels are 3D only (ValueError).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -568,16 +569,39 @@ def _add_near_corrections(V, K, euler, support_pts, xi, node_ids, tables, nr):
     """Upgrade each block row's `near_panels` nearest panels from the dense
     far rule to the full `quad_order` rule: scatter-add (hi - lo) local
     blocks.  No-op unless adaptive quadrature is enabled."""
-    coo = _near_coo(euler, support_pts, xi, node_ids, tables, nr)
-    if coo is None:
+    if tables.hq_weights is None:
         return V, K
-    ri, ci, dV, dK = coo
-    return scatter_coo(V, ri, ci, dV), scatter_coo(K, ri, ci, dK)
+    with near_delta_span(tables, xi.shape[0]):
+        ri, ci, dV, dK = _near_coo(euler, support_pts, xi, node_ids, tables, nr)
+        return scatter_coo(V, ri, ci, dV), scatter_coo(K, ri, ci, dK)
 
 
-def _near_coo(euler, support_pts, xi, node_ids, tables, nr, RC: int = 4096):
+#: rows of the near-pair upgrade's local blocks evaluated at once
+NEAR_ROW_CHUNK = 4096
+
+
+@contextlib.contextmanager
+def near_delta_span(tables, rows, RC: int = NEAR_ROW_CHUNK):
+    """The span "Near delta" of one near-pair upgrade of `rows` rows
+    (`_near_coo` and whatever applies its triplets), with its sizes as
+    attributes; counts its (row, panel) pairs as "near pairs" (on the host:
+    rows x near panels, the masked own-cell pairs among them)."""
+    Kn = min(tables.cfg.near_panels, tables.cells_nodes_fe.shape[0])
+    with timers.span(
+        "Near delta",
+        rows=rows,
+        near_panels=Kn,
+        chunks=-(-rows // RC),
+        far_points=len(tables.q_weights),
+        near_points=len(tables.hq_weights),
+    ):
+        timers.count("near pairs", rows * Kn)
+        yield
+
+
+def _near_coo(euler, support_pts, xi, node_ids, tables, nr, RC: int = NEAR_ROW_CHUNK):
     """COO triplets (ri, ci, dV, dK) of the near-pair quadrature upgrade, in
-    row chunks of RC.  Returns None unless adaptive quadrature is enabled.
+    row chunks of RC.  Only under adaptive quadrature (`tables.hq_weights`).
     (The local blocks are chains of small elementwise ops: in chunks of 256
     rows a promoted create_sphere(5) frame's delta paid for its launches,
     in chunks of 4,096 it is half the time, PERF.md §5.)
@@ -586,8 +610,6 @@ def _near_coo(euler, support_pts, xi, node_ids, tables, nr, RC: int = 4096):
     distances, ties broken towards the lower panel index (a stable sort;
     `jax.lax.top_k` breaks ties the same way)."""
     cfg = tables.cfg
-    if tables.hq_weights is None:
-        return None
     d = cfg.dim
     n = tables.n_nodes
     dt = cfg.dtype
@@ -597,42 +619,44 @@ def _near_coo(euler, support_pts, xi, node_ids, tables, nr, RC: int = 4096):
     Kn = min(cfg.near_panels, Nc)
     flip_all = _t(tables.flip_sign, euler)
 
-    centers = euler[cells_map].mean(dim=1).to(dt)  # [Nc, d]
-    d2 = torch.sum(
-        (xi[:, None, :].to(dt) - centers[None, :, :]) ** 2, dim=-1
-    )  # [nr, Nc]
-    near = torch.sort(d2, dim=1, stable=True).indices[:, :Kn]  # [nr, Kn]
+    with timers.span("Near selection"):
+        centers = euler[cells_map].mean(dim=1).to(dt)  # [Nc, d]
+        d2 = torch.sum(
+            (xi[:, None, :].to(dt) - centers[None, :, :]) ** 2, dim=-1
+        )  # [nr, Nc]
+        near = torch.sort(d2, dim=1, stable=True).indices[:, :Kn]  # [nr, Kn]
 
     lo_rule = (tables.q_weights, tables.phi_map, tables.dphi_map, tables.phi_fe)
     hi_rule = (tables.hq_weights, tables.hphi_map, tables.hdphi_map, tables.hphi_fe)
     ar = torch.arange(d, dtype=torch.long, device=euler.device)
 
-    ris, cis, dVs, dKs = [], [], [], []
-    for c0 in range(0, xi.shape[0], RC):
-        xi_c = xi[c0 : c0 + RC].to(dt)
-        ids_c = node_ids[c0 : c0 + RC]
-        near_c = near[c0 : c0 + RC]
-        rows_c = torch.arange(
-            c0, c0 + xi_c.shape[0], dtype=torch.long, device=euler.device
-        )
-        rc = xi_c.shape[0]
-        ec = euler[cells_map[near_c]].to(dt)  # [rc, Kn, nlm, d]
-        flip = flip_all[near_c]
-        cols = cells_fe[near_c]  # [rc, Kn, nl]
-        # mask singular (own-cell) pairs
-        sing = torch.any(cols == ids_c[:, None, None], dim=-1)  # [rc, Kn]
-        keep = (~sing).to(dt)
-        Vh, Kh = _pair_local_blocks(cfg, ec, flip, xi_c, keep, hi_rule)
-        Vl, Kl = _pair_local_blocks(cfg, ec, flip, xi_c, keep, lo_rule)
-        # scatter rows (a, row) local; cols (b, cells_fe) global
-        row_idx = ar[None, :] * nr + rows_c[:, None]  # [rc, d]
-        col_idx = ar[None, None, :, None] * n + cols[:, :, None, :]  # [rc, Kn, d, nl]
-        shape = (rc, Kn, d, d, nl)
-        ris.append(row_idx[:, None, :, None, None].expand(shape).reshape(-1))
-        cis.append(col_idx[:, :, None, :, :].expand(shape).reshape(-1))
-        dVs.append((Vh - Vl).reshape(-1))
-        dKs.append((Kh - Kl).reshape(-1))
-    return torch.cat(ris), torch.cat(cis), torch.cat(dVs), torch.cat(dKs)
+    with timers.span("Near local blocks"):
+        ris, cis, dVs, dKs = [], [], [], []
+        for c0 in range(0, xi.shape[0], RC):
+            xi_c = xi[c0 : c0 + RC].to(dt)
+            ids_c = node_ids[c0 : c0 + RC]
+            near_c = near[c0 : c0 + RC]
+            rows_c = torch.arange(
+                c0, c0 + xi_c.shape[0], dtype=torch.long, device=euler.device
+            )
+            rc = xi_c.shape[0]
+            ec = euler[cells_map[near_c]].to(dt)  # [rc, Kn, nlm, d]
+            flip = flip_all[near_c]
+            cols = cells_fe[near_c]  # [rc, Kn, nl]
+            # mask singular (own-cell) pairs
+            sing = torch.any(cols == ids_c[:, None, None], dim=-1)  # [rc, Kn]
+            keep = (~sing).to(dt)
+            Vh, Kh = _pair_local_blocks(cfg, ec, flip, xi_c, keep, hi_rule)
+            Vl, Kl = _pair_local_blocks(cfg, ec, flip, xi_c, keep, lo_rule)
+            # scatter rows (a, row) local; cols (b, cells_fe) global
+            row_idx = ar[None, :] * nr + rows_c[:, None]  # [rc, d]
+            col_idx = ar[None, None, :, None] * n + cols[:, :, None, :]  # [rc, Kn, d, nl]
+            shape = (rc, Kn, d, d, nl)
+            ris.append(row_idx[:, None, :, None, None].expand(shape).reshape(-1))
+            cis.append(col_idx[:, :, None, :, :].expand(shape).reshape(-1))
+            dVs.append((Vh - Vl).reshape(-1))
+            dKs.append((Kh - Kl).reshape(-1))
+        return torch.cat(ris), torch.cat(cis), torch.cat(dVs), torch.cat(dKs)
 
 
 def _add_singular_rows(

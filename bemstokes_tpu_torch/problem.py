@@ -198,23 +198,36 @@ class StokesBEMProblem:
         # near-contact quadrature auto-promotion: gap below the local panel
         # diameter (distinct components, or the surface vs its wall image)
         # switches to the adaptive two-level scheme with a raised near-pair
-        # order (mesh/proximity.py)
+        # order (mesh/proximity.py).  The decision, with the tightest gap (the
+        # smallest against its panel diameter) and that diameter, is the scope
+        # "Quadrature promotion" and `self.quadrature_promotion`.
         quad = self.cfg.quadrature
         q_order, q_far = quad.order, quad.order_far
         self.quadrature_promoted = False
+        self.quadrature_promotion = None
         if quad.auto_promote and q_far is None:
             from .mesh.proximity import min_intercomponent_gap, wall_image_gap
 
-            cands = []
-            g = min_intercomponent_gap(mesh)
-            if g is not None:
-                cands.append(g)
-            if kernel != KERNEL_FREE_SPACE:
-                cands.append(wall_image_gap(mesh, wall_axis, wall_position))
-            if any(gap < diam for gap, diam in cands):
-                q_far = q_order
-                q_order = q_order + quad.promote_boost
-                self.quadrature_promoted = True
+            with timers.scope("Quadrature promotion") as scope:
+                cands = []
+                g = min_intercomponent_gap(mesh)
+                if g is not None:
+                    cands.append(g)
+                if kernel != KERNEL_FREE_SPACE:
+                    cands.append(wall_image_gap(mesh, wall_axis, wall_position))
+                if any(gap < diam for gap, diam in cands):
+                    q_far = q_order
+                    q_order = q_order + quad.promote_boost
+                    self.quadrature_promoted = True
+                gap, diam = min(cands, key=lambda c: c[0] / c[1]) if cands else (None, None)
+                self.quadrature_promotion = dict(
+                    promoted=self.quadrature_promoted,
+                    gap=gap,
+                    diameter=diam,
+                    order_far=q_far if self.quadrature_promoted else q_order,
+                    order_near=q_order,
+                )
+                scope.set(**self.quadrature_promotion)
 
         if self.cfg.assembly_backend not in ASSEMBLY_BACKENDS:
             raise ValueError(

@@ -1,8 +1,9 @@
 """The port's tracer (`bemstokes_tpu_torch/utils/timers.py`) on the CPU: off,
 a frame loop keeps its per-name host totals and records no span; under
 `torch.profiler` it records the frame's span tree with one frame id a frame,
-the GMRES iteration's three children, the host syncs and the counters, each
-also an annotation of the profiler's trace on the same clock."""
+the GMRES iteration's three children, the near-pair delta of a promoted
+quadrature, the host syncs and the counters, each also an annotation of the
+profiler's trace on the same clock."""
 
 import contextlib
 import json
@@ -10,7 +11,7 @@ import json
 import pytest
 import torch
 
-from bemstokes_tpu_torch.config import ProblemConfig, WallConfig
+from bemstokes_tpu_torch.config import ProblemConfig, QuadratureConfig, WallConfig
 from bemstokes_tpu_torch.la.gmres import gmres
 from bemstokes_tpu_torch.swimmer import SwimmerSimulation
 from bemstokes_tpu_torch.utils import timers
@@ -21,9 +22,10 @@ CPU = [torch.profiler.ProfilerActivity.CPU]
 CLOCK_US = 50.0
 
 
-def sphere_cfg(**kw):
-    """A unit sphere (create_sphere(1)) towed beside the Blake no-slip wall:
-    two frames of the Direct loop, files every frame."""
+def sphere_cfg(height=2.0, **kw):
+    """A unit sphere (create_sphere(1)) towed beside the Blake no-slip wall,
+    its centre `height` above it: two frames of the Direct loop, files every
+    frame."""
     return ProblemConfig(
         build_sphere_in_code=True,
         internal_sphere_refinements=1,
@@ -31,7 +33,7 @@ def sphere_cfg(**kw):
         grid_type="ImposedForce",
         imposed_component=0,
         no_slip_kernel=True,
-        walls=(WallConfig(enabled=False, position=(0.0, -2.0, 0.0), span=(10.0, 0.0, 10.0)),),
+        walls=(WallConfig(enabled=False, position=(0.0, -height, 0.0), span=(10.0, 0.0, 10.0)),),
         consider_rigid_displacements=True,
         rigid_displacement_axes=(True, True, True),
         time_step=5.0,
@@ -48,11 +50,13 @@ def registry():
 
 
 def run_loop(out, traced, **kw):
-    sim = SwimmerSimulation(sphere_cfg(**kw), str(out), device="cpu")
+    """Two frames of the loop; traced, the set-up is recorded too."""
     if traced:
         with torch.profiler.profile(activities=CPU):
+            sim = SwimmerSimulation(sphere_cfg(**kw), str(out), device="cpu")
             sim.run(0, 2)
     else:
+        sim = SwimmerSimulation(sphere_cfg(**kw), str(out), device="cpu")
         sim.run(0, 2)
     return sim
 
@@ -149,6 +153,51 @@ def test_traced_matrix_free_loop_spans_the_sweep(registry, tmp_path):
     in_matvec = [s for s in sweeps if s.parent.name == "Matvec"]
     assert len(in_matvec) == len(named("Matvec"))
     assert all(s.within("GMRES") and s.within("Matfree GMRES") for s in in_matvec)
+
+
+#: the sphere 1.02 radii above the wall: the quadrature is promoted (far
+#: rule order 2, near pairs order 8), as in the benchmark's contact cell
+CONTACT = dict(height=1.02, quadrature=QuadratureConfig(order=2, promote_boost=6))
+#: host syncs of one promoted assembly of CONTACT's create_sphere(1) before
+#: the near delta had spans: the spans add none
+CONTACT_ASSEMBLY_SYNCS = 111
+
+
+def test_promoted_loop_spans_the_near_delta(registry, tmp_path):
+    sim = run_loop(tmp_path, traced=True, **CONTACT)
+    (decision,) = named("Quadrature promotion")
+    assert decision.attrs == sim.problem.quadrature_promotion
+    assert decision.attrs["promoted"] is True and sim.problem.quadrature_promoted
+    assert decision.attrs["gap"] == pytest.approx(0.04, rel=1e-3)
+    assert decision.attrs["gap"] < decision.attrs["diameter"]
+    assert (decision.attrs["order_far"], decision.attrs["order_near"]) == (2, 8)
+    assemblies, deltas = named("Assemble"), named("Near delta")
+    assert len(assemblies) == len(deltas) == 2
+    rows, panels = sim.problem.n, min(32, len(sim.mesh.cells))
+    for asm, d in zip(assemblies, deltas):
+        assert d.parent is asm and d.frame == asm.frame
+        assert d.attrs == dict(rows=rows, near_panels=panels, chunks=1, far_points=4, near_points=64)
+        assert d.counts["near pairs"] == rows * panels
+        children = [s for s in timers.spans if s.parent is d]
+        assert [c.name for c in children] == ["Near selection", "Near local blocks"]
+        # three table uploads; a chunk, each rule's four tables and the
+        # image kernel's four scalars copied in; the two scatters
+        inside = sum(s.counts.get("host syncs", 0) for s in [d, *children])
+        assert inside == 3 + 2 * 8 * d.attrs["chunks"] + 2
+        in_asm = [s for s in timers.spans if s is asm or (s.within("Assemble") and s.frame == asm.frame)]
+        assert sum(s.counts.get("host syncs", 0) for s in in_asm) == CONTACT_ASSEMBLY_SYNCS
+    assert timers.counts["near pairs"] == 2 * rows * panels
+
+
+def test_unpromoted_loop_has_no_near_delta(registry, tmp_path):
+    sim = run_loop(tmp_path, traced=True)
+    (decision,) = named("Quadrature promotion")
+    assert decision.attrs["promoted"] is False and not sim.problem.quadrature_promoted
+    assert decision.attrs["gap"] == pytest.approx(2.0, rel=1e-3)
+    assert decision.attrs["gap"] > decision.attrs["diameter"]
+    assert decision.attrs["order_far"] == decision.attrs["order_near"] == 4
+    assert named("Assemble") and not named("Near delta") and not named("Near local blocks")
+    assert "near pairs" not in timers.counts
 
 
 @pytest.mark.parametrize("traced", [False, True], ids=["untraced", "traced"])
