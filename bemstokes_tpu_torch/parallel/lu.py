@@ -23,8 +23,9 @@ its [m, m] triangular block and broadcasts the m-vector; every later
 
 `torch.linalg.lu_factor` returns LAPACK's 1-based pivots (row i swapped
 with row piv[i] - 1, in order); the JAX package's are 0-based and turned
-into a permutation by `lu_pivots_to_permutation`.  `pivots_to_permutation`
-does the same on the host, without forming the m x m permutation matrix.
+into a permutation by `lu_pivots_to_permutation`.
+`la.direct.pivots_to_permutation` does the same on the host, without
+forming the m x m permutation matrix.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..la.direct import pivots_to_permutation
 from .sharded import RowMesh, padded_rows
 
 
@@ -43,16 +45,6 @@ def _slab_geometry(n_nodes: int, dim: int, mesh: RowMesh):
 
 def _src(mesh: RowMesh, k: int) -> int:
     return dist.get_global_rank(mesh.group, k)
-
-
-def pivots_to_permutation(piv: torch.Tensor) -> torch.Tensor:
-    """LAPACK's 1-based row interchanges -> the permutation p with
-    (P A)[i] = A[p[i]], on the pivots' device."""
-    swaps = piv.cpu().numpy().astype(np.int64) - 1
-    perm = np.arange(swaps.shape[0])
-    for i, j in enumerate(swaps):
-        perm[i], perm[j] = perm[j], perm[i]
-    return torch.as_tensor(perm, device=piv.device)
 
 
 def slab_reorder_columns(A_loc: torch.Tensor, n_nodes: int, dim: int, mesh: RowMesh):

@@ -121,3 +121,46 @@ def test_lu_preconditioner_float32_factors():
     assert yt.dtype == torch.float64
     yj = np.asarray(pj.apply(jnp.asarray(b)))
     assert np.max(np.abs(yj - yt.numpy())) <= 1e-5 * np.max(np.abs(yj))
+
+
+def _pivoting_matrix(seed, n=N):
+    """A nonsymmetric matrix whose LU swaps rows: no diagonal dominance."""
+    return torch.as_tensor(np.random.default_rng(seed).normal(size=(n, n)))
+
+
+@pytest.mark.parametrize("refactor", [False, True], ids=["first", "refactored"])
+@pytest.mark.parametrize("vector", ["fresh", "row_view"])
+@pytest.mark.parametrize("factor_dtype", [None, torch.float32], ids=["f64", "f32"])
+def test_lu_preconditioner_apply_is_lu_solve_bit_for_bit(factor_dtype, vector, refactor):
+    """The apply (the permutation kept from the factorization, one gather,
+    two triangular solves) gives `torch.linalg.lu_solve`'s bits, also after
+    a refactor onto a matrix with other pivots."""
+    pt = direct_t.LUPreconditioner(refactor_iteration_trigger=10, factor_dtype=factor_dtype)
+    A, A2 = _pivoting_matrix(7), _pivoting_matrix(8)
+    assert pt.maybe_refactor(A, 0)
+    first = pt._perm
+    if refactor:
+        assert pt.maybe_refactor(A2, 11)
+        assert not torch.equal(pt._perm, first)
+    lu, piv = pt._factors
+    assert not torch.equal(piv, torch.arange(1, N + 1, dtype=piv.dtype))
+    V = torch.as_tensor(np.random.default_rng(9).normal(size=(3, N)))
+    v = V[1] if vector == "row_view" else V[1].clone()
+    y = pt.apply(v)
+    ref = torch.linalg.lu_solve(lu, piv, v.to(lu.dtype)[:, None])[:, 0].to(v.dtype)
+    assert y.dtype == v.dtype == torch.float64
+    assert torch.equal(y, ref)
+    # the factor of the matrix it holds: a solve, not only the same bits
+    M = (A2 if refactor else A).to(lu.dtype)
+    res = torch.linalg.vector_norm(M @ y.to(lu.dtype) - v.to(lu.dtype))
+    assert float(res) <= (1e-4 if factor_dtype else 1e-10) * float(torch.linalg.vector_norm(v))
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, N])
+def test_pivots_to_permutation_matches_lu_unpack(n):
+    """(P^T A)[i] = A[p[i]] for torch.lu_unpack's P, without forming P."""
+    lu, piv = torch.linalg.lu_factor(_pivoting_matrix(10 + n, n))
+    P, _, _ = torch.lu_unpack(lu, piv)
+    perm = direct_t.pivots_to_permutation(piv)
+    assert perm.dtype == torch.long and sorted(perm.tolist()) == list(range(n))
+    assert torch.equal(P.T, torch.eye(n, dtype=P.dtype)[perm])

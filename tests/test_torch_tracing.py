@@ -2,7 +2,8 @@
 a frame loop keeps its per-name host totals and records no span; under
 `torch.profiler` it records the frame's span tree with one frame id a frame,
 the GMRES iteration's three children, the near-pair delta of a promoted
-quadrature, the host syncs and the counters, each also an annotation of the
+quadrature, the host syncs and the counters (the stale LU's permutations
+and applies among them), each also an annotation of the
 profiler's trace on the same clock."""
 
 import contextlib
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from bemstokes_tpu_torch.config import ProblemConfig, QuadratureConfig, WallConfig
+from bemstokes_tpu_torch.la.direct import LUPreconditioner
 from bemstokes_tpu_torch.la.gmres import gmres
 from bemstokes_tpu_torch.swimmer import SwimmerSimulation
 from bemstokes_tpu_torch.utils import timers
@@ -318,3 +320,33 @@ def test_trace_annotations_match_the_records(registry, tmp_path):
         if worst <= CLOCK_US:
             break
     assert worst <= CLOCK_US
+
+
+@pytest.mark.parametrize("traced", [False, True], ids=["untraced", "traced"])
+def test_lu_preconditioner_counts_permutations_and_applies(registry, traced):
+    """One factorization and k applies: `lu permutations` 1 on the
+    refactorisation, `lu applies` k, one on each "Preconditioner" span and
+    one at each cycle's end on "GMRES"; the apply syncs nothing."""
+    A, b = dense_system(seed=2)
+    stale = A + 0.3 * torch.randn(A.shape, generator=torch.Generator().manual_seed(3), dtype=A.dtype)
+    p = LUPreconditioner()
+    with torch.profiler.profile(activities=CPU) if traced else contextlib.nullcontext():
+        with timers.scope("DirectPreconditioner Refactorisation"):
+            assert p.maybe_refactor(stale, 0)
+        syncs = timers.counts["host syncs"]
+        x, info = gmres(lambda v: A @ v, b, precond=p.apply, restart=4, tol=1e-12, max_restarts=30)
+    its = info["iterations"]
+    cycles = -(-its // 4)
+    assert its > 4 and torch.linalg.vector_norm(A @ x - b) <= 1e-10 * torch.linalg.vector_norm(b)
+    assert timers.counts["lu permutations"] == 1
+    assert timers.counts["lu applies"] == its + cycles
+    # the factor's status, the pivots' read back, the permutation's upload
+    assert syncs == 3
+    if not traced:
+        return
+    (refactor,) = named("DirectPreconditioner Refactorisation")
+    assert refactor.counts == {"host syncs": 3, "lu permutations": 1}
+    applies = named("Preconditioner")
+    assert len(applies) == its and all(s.counts == {"lu applies": 1} for s in applies)
+    (g,) = named("GMRES")
+    assert g.counts["lu applies"] == cycles
