@@ -12,12 +12,15 @@ on the GPU).  The JAX package's single-chip blocked LU (`blocked_lu_*`) is
 not ported: it works around a size limit of XLA's LU on the TPU, which the
 GPU does not have.
 
-The preconditioner turns the factor's pivots into a row permutation once, on
-the host, when it factors, and applies it as one gather: for one right-hand
-side `torch.linalg.lu_solve` on the GPU walks the n row interchanges on one
-thread at every call before the same two triangular solves.  The counters
-`lu permutations` (one a factorization) and `lu applies` (one an apply) show
-the reuse.
+Every LU apply of the port is `lu_apply`: the factor's pivots are turned
+into a row permutation once, on the host, when it factors
+(`pivots_to_permutation`), and each apply is one gather before the two
+triangular solves: for one right-hand side `torch.linalg.lu_solve` on the GPU
+walks the n row interchanges on one thread at every call before the same two
+solves.  It serves one vector, several columns and a batch of diagonal
+blocks (block-Jacobi), and `bordered_solver` closes a surface solve over a
+small saddle tail with it.  The preconditioner's counters `lu permutations`
+(one a factorization) and `lu applies` (one an apply) show the reuse.
 """
 
 from __future__ import annotations
@@ -40,23 +43,61 @@ def lu_factor_dense(A: torch.Tensor):
 def pivots_to_permutation(piv: torch.Tensor) -> torch.Tensor:
     """LAPACK's 1-based row interchanges (row i swapped with row piv[i] - 1,
     in order) -> the permutation p with (P A)[i] = A[p[i]], on the pivots'
-    device, without forming the n x n permutation matrix.  The pivots' read
-    back and the permutation's upload are host syncs."""
+    device, without forming the n x n permutation matrix.  `piv` is [n] or a
+    batch [nb, n] (one permutation a block); the pivots' one read back and
+    the permutation's upload are host syncs."""
     with timers.host_sync():
-        swaps = piv.cpu().tolist()
-    perm = list(range(len(swaps)))
-    for i, j in enumerate(swaps):
-        perm[i], perm[j - 1] = perm[j - 1], perm[i]
+        swaps = piv.reshape(-1, piv.shape[-1]).cpu().tolist()
+    perms = []
+    for row in swaps:
+        perm = list(range(len(row)))
+        for i, j in enumerate(row):
+            perm[i], perm[j - 1] = perm[j - 1], perm[i]
+        perms.append(perm)
     with timers.host_sync():
-        return torch.tensor(perm, dtype=torch.long, device=piv.device)
+        return torch.tensor(perms, dtype=torch.long, device=piv.device).reshape(piv.shape)
+
+
+def lu_apply(lu: torch.Tensor, perm: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve with an LU and its kept row permutation: one gather, then the
+    two triangular solves of `torch.linalg.lu_solve`'s route (its bits,
+    without its walk over the pivots).  `b` is [n] or [n, k] for an [n, n]
+    factor, or [nb, n, k] for a batch of [nb, n, n] factors with perm
+    [nb, n]."""
+    x = b[:, None] if b.ndim == 1 else b
+    x = x.gather(-2, perm[..., None].expand(x.shape)) if x.ndim == 3 else x[perm]
+    x = torch.linalg.solve_triangular(lu, x, upper=False, unitriangular=True)
+    x = torch.linalg.solve_triangular(lu, x, upper=True)
+    return x[:, 0] if b.ndim == 1 else x
 
 
 def lu_solve_dense(factors, b: torch.Tensor) -> torch.Tensor:
-    """Solve with `lu_factor_dense` factors; b is [n] or [n, k]."""
+    """Solve with `lu_factor_dense` factors (LU, pivots); b is [n] or
+    [n, k].  The pivots become the permutation at each call: a caller that
+    solves more than once keeps `pivots_to_permutation`'s instead."""
     lu, piv = factors
-    if b.ndim == 1:
-        return torch.linalg.lu_solve(lu, piv, b[:, None])[:, 0]
-    return torch.linalg.lu_solve(lu, piv, b)
+    return lu_apply(lu, pivots_to_permutation(piv), b)
+
+
+def bordered_solver(solve, C: torch.Tensor, B: torch.Tensor, D: torch.Tensor):
+    """The exact inverse of the bordered matrix [[A_s, C], [B, D]] given the
+    surface block's solve `solve(v)` = A_s^-1 v (for v [m] and [m, k]):
+    with Z = A_s^-1 C and the Schur complement S = D - B Z, factored once,
+
+        [v_s; v_t] -> x_t = S^-1 (v_t - B A_s^-1 v_s),  x_s = A_s^-1 v_s - Z x_t.
+
+    Returns the apply (one surface solve and one small LU apply a call)."""
+    Z = solve(C)
+    S_lu, S_piv = lu_factor_dense(D - B @ Z)
+    S_perm = pivots_to_permutation(S_piv)
+    m = C.shape[0]
+
+    def apply(v):
+        ys = solve(v[:m])
+        xt = lu_apply(S_lu, S_perm, v[m:] - B @ ys)
+        return torch.cat([ys - Z @ xt, xt])
+
+    return apply
 
 
 @dataclasses.dataclass
@@ -92,10 +133,7 @@ class LUPreconditioner:
             raise RuntimeError("LUPreconditioner not initialized")
         timers.count("lu applies")
         lu = self._factors[0]
-        x = v.to(lu.dtype)[self._perm, None]
-        x = torch.linalg.solve_triangular(lu, x, upper=False, unitriangular=True)
-        x = torch.linalg.solve_triangular(lu, x, upper=True)
-        return x[:, 0].to(v.dtype)
+        return lu_apply(lu, self._perm, v.to(lu.dtype)).to(v.dtype)
 
     def maybe_refactor(self, A: torch.Tensor, last_iterations: int) -> bool:
         """Refactor if the last solve needed too many iterations. Returns

@@ -59,6 +59,21 @@ def gmres(
     return x, {"residual": res, "iterations": total_it}
 
 
+def restart_params(solver) -> tuple[int, int]:
+    """(restart, max_restarts) for a `SolverConfig`: cycles of
+    `gmres_restart` Arnoldi steps, as many as `max_steps` allows (at least
+    one)."""
+    restart = solver.gmres_restart
+    return restart, max(1, -(-solver.max_steps // max(restart, 1)))
+
+
+def solve_converged(residual: float, b_norm: float, tol: float) -> bool:
+    """The frame loop's convergence test of a finished solve: the residual
+    within `tol` of |b| (of 1 for a zero rhs), with a margin of 1e-4 for its
+    rounding."""
+    return residual <= tol * (b_norm if b_norm > 0 else 1.0) * 1.0001
+
+
 def _gmres(matvec, b, x0, precond, m, tol, max_restarts, agree):
     n = b.shape[0]
     dt, dev = b.dtype, b.device

@@ -11,7 +11,8 @@ name maps onto a dense equivalent, as in the JAX package:
   with relaxation omega, as dense triangular solves
   (`torch.linalg.solve_triangular`);
 - "ILU", "AMG", "BlockJacobi": block-Jacobi LU — exact LU of the diagonal
-  blocks, one batched `torch.linalg.lu_factor` over [n_blocks, nb, nb];
+  blocks, one batched `lu_factor_dense` over [n_blocks, nb, nb], applied by
+  `lu_apply`;
 - "Direct":   the stale-LU preconditioner of `la/direct.py`.
 
 A `bandwith` limit (reference `bandwith_preconditioner`,
@@ -25,7 +26,7 @@ import dataclasses
 
 import torch
 
-from .direct import LUPreconditioner
+from .direct import LUPreconditioner, lu_apply, lu_factor_dense, pivots_to_permutation
 
 
 def band_mask(A: torch.Tensor, bandwith: int) -> torch.Tensor:
@@ -115,21 +116,22 @@ def _block_lu_factor(A: torch.Tensor, n_blocks: int):
     blocks = torch.stack(
         [Ap[k * nb : (k + 1) * nb, k * nb : (k + 1) * nb] for k in range(n_blocks)]
     )
-    return torch.linalg.lu_factor(blocks)
+    return lu_factor_dense(blocks)
 
 
 def _block_lu_solve(factors, v: torch.Tensor, n_blocks: int, n: int) -> torch.Tensor:
+    """Apply the blocks' (LU, row permutation) to a flat [n] vector."""
     nb = -(-n // n_blocks)
     vp = torch.zeros((n_blocks * nb,), dtype=v.dtype, device=v.device)
     vp[:n] = v
-    lu, piv = factors
-    y = torch.linalg.lu_solve(lu, piv, vp.reshape(n_blocks, nb, 1))
+    y = lu_apply(*factors, vp.reshape(n_blocks, nb, 1))
     return y.reshape(-1)[:n]
 
 
 @dataclasses.dataclass
 class BlockJacobiPreconditioner:
-    """Exact LU of the diagonal blocks (the dense stand-in for ILU/AMG)."""
+    """Exact LU of the diagonal blocks (the dense stand-in for ILU/AMG);
+    `factors` the blocks' LU and row permutations."""
 
     factors: tuple
     n_blocks: int
@@ -137,7 +139,8 @@ class BlockJacobiPreconditioner:
 
     @classmethod
     def build(cls, A: torch.Tensor, n_blocks: int = 8):
-        return cls(factors=_block_lu_factor(A, n_blocks), n_blocks=n_blocks, n=A.shape[0])
+        lu, piv = _block_lu_factor(A, n_blocks)
+        return cls(factors=(lu, pivots_to_permutation(piv)), n_blocks=n_blocks, n=A.shape[0])
 
     def apply(self, v: torch.Tensor) -> torch.Tensor:
         return _block_lu_solve(self.factors, v, self.n_blocks, self.n)

@@ -25,7 +25,8 @@ Preconditioner: block-Jacobi of materialized diagonal node blocks of A
 (assembled per block by `ops.assemble.assemble_rows`, so each block holds
 its singular/near corrections; slave and padding rows become identity),
 closed with an EXACT bordered Schur complement over the rigid(+torque) tail
-so the saddle rows are solved, not just scaled.
+(`la.direct.bordered_solver` over `SaddleTail.border`) so the saddle rows are
+solved, not just scaled.
 
 Not carried over from the JAX package: its host-driven loop of one GMRES
 cycle per dispatch (a work-around for a remote-execution watchdog; here
@@ -42,17 +43,12 @@ import numpy as np
 import torch
 
 from .fem.geometry import support_points
-from .la.direct import lu_factor_dense
-from .la.gmres import gmres
+from .la.direct import bordered_solver, lu_apply, lu_factor_dense, pivots_to_permutation
+from .la.gmres import gmres, restart_params
 from .ops.assemble import _near_coo, _singular_coo, assemble_rows, near_delta_span
 from .ops.corrections import tangential_projector
 from .ops.matfree_node import build_sweep_arrays, sweep_matvec, sweep_matvec_2d, sweep_static
-from .ops.monolithic import (
-    GRID_IMPOSED_VELOCITY,
-    GRID_REAL,
-    imposed_tail_vector,
-    operator_column_mask,
-)
+from .ops.monolithic import SaddleTail, operator_column_mask
 from .physics.rigid import (
     build_mass_operator,
     flatten,
@@ -99,8 +95,6 @@ class MatfreeSolver:
         self.d, self.n = d, n
         self.dn = d * n
         self.R = p.num_rigid
-        self.with_torque = bool(cfg.solve_with_torque)
-        self.RT = self.R + (1 if self.with_torque else 0)
         self.has_torque_dual = (
             cfg.solve_with_torque or cfg.imposed_rotation_as_flagellum_shape
         )
@@ -120,11 +114,9 @@ class MatfreeSolver:
         self.factor_dt = torch.float32 if fd == "float32" else self.dt
         # hanging-node row-replacement tables (static)
         hc = p.hanging
+        self.h_rows = p._constrained_t
         if hc.n:
             comp = np.arange(d)[:, None] * n
-            self.h_rows = torch.as_tensor(
-                (hc.slaves[None, :] + comp).reshape(-1), dtype=torch.long, device=dev
-            )
             M = hc.masters.shape[1]
             self.h_cols = torch.as_tensor(
                 (hc.masters[None, :, :] + comp[:, :, None]).reshape(-1, M),
@@ -136,8 +128,6 @@ class MatfreeSolver:
                 dtype=self.dt,
                 device=dev,
             )
-        else:
-            self.h_rows = None
 
     def _sweep(self, arrs, XV, XK):
         """The bulk's action: K5 in 3D, the plain torch sweep in 2D (the JAX
@@ -298,33 +288,7 @@ class MatfreeSolver:
             n_sel = int(sel_V.sum())
         side = "V" if n_sel == dn else "K" if n_sel == 0 else "both"
 
-        # ---- rhs (mirrors ops.monolithic.build_monolithic_system) ----
-        rhs_tail = torch.zeros((R,), dtype=dt, device=dev)
-        if cfg.grid_type != GRID_REAL:
-            rhs_head = torch.zeros((dn,), dtype=dt, device=dev)
-            rhs_tail = imposed_tail_vector(
-                R,
-                d,
-                cfg.imposed_component,
-                angle=cfg.angle_for_imposed_stuff,
-                rotate=cfg.extra_debug_info,
-                dtype=dt,
-                device=dev,
-            )
-        else:
-            rhs_head = rhs_surface
-        if self.with_torque:
-            rhs = torch.cat(
-                [
-                    torch.zeros((dn,), dtype=dt, device=dev),
-                    rhs_tail,
-                    torch.full((1,), cfg.imposed_motor_torque, dtype=dt, device=dev),
-                ]
-            )
-        else:
-            rhs = torch.cat([rhs_head, rhs_tail])
-        if self.h_rows is not None:
-            rhs[self.h_rows] = 0.0
+        tail = SaddleTail.from_config(cfg, tmp_N, flatten(N_dual), tmp_torque, torque_dual, self.h_rows)
 
         diagnostics = dict(
             mass_body=mass_body,
@@ -340,6 +304,7 @@ class MatfreeSolver:
             N_dual_complete=N_dual_complete,
             tmp_N=tmp_N,
             mass_jxw=jxw,
+            tail=tail,
         )
         if torque_mode_flat is not None:
             operators["N_flagellum_torque"] = torque_mode_flat
@@ -356,11 +321,8 @@ class MatfreeSolver:
             sa_vals=sa_vals,
             sel_V=sel_V,
             side=side,
-            tmp_N=tmp_N,
-            tmp_torque=tmp_torque,
-            torque_dual=torque_dual,
-            N_dual_flat=flatten(N_dual),
-            rhs=rhs,
+            tail=tail,
+            rhs=tail.rhs(rhs_surface),
             sp=sp,
             euler=euler,
         )
@@ -377,9 +339,8 @@ class MatfreeSolver:
         leaves out the other's delta, rank-1 and solid-angle terms, whose
         input would be exactly zero: the same result bit for bit (up to the
         sign of a zero when only K is applied)."""
-        cfg = self.p.cfg
-        dn, R = self.dn, self.R
-        scale = cfg.assemble_scaling
+        dn = self.dn
+        tail = sys["tail"]
         sel = sys["sel_V"]
         side = sys["side"]
         coo, dV, dK = sys["coo"], sys["dV"], sys["dK"]
@@ -390,7 +351,6 @@ class MatfreeSolver:
 
         def mv(x):
             xs = x[:dn]
-            tail = x[dn : dn + R]
             u = none if side == "K" else xs if side == "V" else torch.where(sel, xs, zero)
             w = none if side == "V" else xs if side == "K" else torch.where(sel, zero, xs)
             Vu, Kw = self._sweep(sys["arrs"], u, w)
@@ -400,20 +360,7 @@ class MatfreeSolver:
             if side != "V":
                 Kw = Kw + _delta_apply(coo, dK, w, dn)
                 Kw = Kw + self._sa_apply(sys["sa_vals"], w)
-            head = Vu if side == "V" else -Kw if side == "K" else Vu - Kw
-            top = head - scale * (tail @ sys["tmp_N"])
-            if self.with_torque:
-                top = top - scale * sys["tmp_torque"] * x[-1]
-            if cfg.grid_type == GRID_IMPOSED_VELOCITY:
-                mid = scale * tail
-            elif cfg.grid_type == GRID_REAL:
-                mid = scale * (sys["N_dual_flat"] @ xs)
-            else:  # ImposedForce / Convergence
-                mid = sys["N_dual_flat"] @ xs
-            parts = [top, mid]
-            if self.with_torque:
-                parts.append(scale * torch.dot(sys["torque_dual"], xs)[None])
-            out = torch.cat(parts)
+            out = tail.apply(Vu if side == "V" else -Kw if side == "K" else Vu - Kw, x)
             if self.h_rows is not None:
                 out[self.h_rows] = x[self.h_rows] - torch.sum(
                     self.h_wts * x[self.h_cols], dim=1
@@ -451,7 +398,10 @@ class MatfreeSolver:
 
     def _build_blocks(self, sys):
         """Sequential per-block assembly and factorization (memory stays at
-        one [d*bn, d*n] row panel of V and of K)."""
+        one [d*bn, d*n] row panel of V and of K); the blocks' factors
+        [nblk, d*bn, d*bn] and row permutations [nblk, d*bn].  The factors
+        are stacked column-major, as `lu_factor` returns each: on a row-major
+        stack cuBLAS runs its slower transposed triangular solves."""
         slave_scalar = np.zeros(self.n, bool)
         if self.h_rows is not None:
             slave_scalar[np.asarray(self.p.hanging.slaves)] = True
@@ -463,10 +413,10 @@ class MatfreeSolver:
             )
             lus.append(lu)
             pivs.append(piv)
-        return torch.stack(lus), torch.stack(pivs)
+        return torch.stack([lu.mT for lu in lus]).mT, pivots_to_permutation(torch.stack(pivs))
 
     # ------------------------------------------------------------------
-    def _ms_inv(self, lus, pivs):
+    def _ms_inv(self, lus, perms):
         d, n, bn = self.d, self.n, self.bn
         fdt = self.factor_dt
 
@@ -475,62 +425,24 @@ class MatfreeSolver:
             v3 = torch.zeros((d, self.npad, B), dtype=fdt, device=v.device)
             v3[:, :n] = v.reshape(d, n, B)
             vb = v3.reshape(d, self.nblk, bn, B).permute(1, 0, 2, 3).reshape(self.nblk, d * bn, B)
-            xb = torch.linalg.lu_solve(lus, pivs, vb)
+            xb = lu_apply(lus, perms, vb)
             x3 = xb.reshape(self.nblk, d, bn, B).permute(1, 0, 2, 3).reshape(d, self.npad, B)
             return x3[:, :n].reshape(v.shape).to(v.dtype)
 
         return apply
 
     def _schur(self, sys, ms_inv):
-        """Bordered Schur closure over the rigid(+torque) tail: the pieces
-        the preconditioner applies every iteration, computed once."""
-        cfg = self.p.cfg
-        dn, R = self.dn, self.R
-        dt, dev = self.dt, self.p.device
-        scale = cfg.assemble_scaling
-        C_cols = [-scale * sys["tmp_N"].T]  # [dn, R]
-        if self.with_torque:
-            C_cols.append(-scale * sys["tmp_torque"][:, None])
-        C = torch.cat(C_cols, dim=1)
-        if self.h_rows is not None:
-            C[self.h_rows, :] = 0.0
-        B_rows = []
-        if cfg.grid_type == GRID_IMPOSED_VELOCITY:
-            B_rows.append(torch.zeros((R, dn), dtype=dt, device=dev))
-            D = scale * torch.eye(R, dtype=dt, device=dev)
-        elif cfg.grid_type == GRID_REAL:
-            B_rows.append(scale * sys["N_dual_flat"])
-            D = torch.zeros((R, R), dtype=dt, device=dev)
-        else:
-            B_rows.append(sys["N_dual_flat"])
-            D = torch.zeros((R, R), dtype=dt, device=dev)
-        if self.with_torque:
-            B_rows.append(scale * sys["torque_dual"][None, :])
-            D = torch.nn.functional.pad(D, (0, 1, 0, 1))
-        B = torch.cat(B_rows, dim=0)  # [RT, dn]
-        MsC = ms_inv(C)  # [dn, RT]
-        S_lu, S_piv = lu_factor_dense(D - B @ MsC)
-        return dict(B=B, MsC=MsC, S_lu=S_lu, S_piv=S_piv)
+        """The preconditioner: the block-Jacobi inverse closed by the exact
+        bordered Schur complement over the rigid(+torque) tail, its pieces
+        computed once a frame."""
+        return bordered_solver(ms_inv, *sys["tail"].border())
 
-    def _precond(self, pre, ms_inv):
-        dn = self.dn
-
-        def precond(v):
-            vs, t = v[:dn], v[dn:]
-            ys = ms_inv(vs)
-            t2 = torch.linalg.lu_solve(
-                pre["S_lu"], pre["S_piv"], (t - pre["B"] @ ys)[:, None]
-            )[:, 0]
-            return torch.cat([ys - pre["MsC"] @ t2, t2])
-
-        return precond
-
-    def _gmres(self, sys, pre, ms_inv):
-        restart, max_restarts = self.p._gmres_solver_params()
+    def _gmres(self, sys, precond):
+        restart, max_restarts = restart_params(self.p.cfg.solver)
         return gmres(
             self._matvec(sys),
             sys["rhs"],
-            precond=self._precond(pre, ms_inv),
+            precond=precond,
             restart=restart,
             tol=self.p.cfg.solver.tolerance,
             max_restarts=max_restarts,
@@ -546,10 +458,9 @@ class MatfreeSolver:
         with timers.scope("Matfree setup sweep"):
             sys, ops, diag = self._setup(euler, sdot_flat, rotation)
         with timers.scope("Matfree block preconditioner"):
-            ms_inv = self._ms_inv(*self._build_blocks(sys))
-            pre = self._schur(sys, ms_inv)
+            precond = self._schur(sys, self._ms_inv(*self._build_blocks(sys)))
         with timers.scope("Matfree GMRES"):
-            x, info = self._gmres(sys, pre, ms_inv)
+            x, info = self._gmres(sys, precond)
             forces, wall, packed_dev = p._finish(
                 self._matvec(sys), sys["rhs"], ops, diag, x, info["iterations"], info["residual"]
             )

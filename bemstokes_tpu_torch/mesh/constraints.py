@@ -40,6 +40,11 @@ class HangingConstraints:
     def n(self) -> int:
         return len(self.slaves)
 
+    def flat_rows(self, n: int, d: int) -> np.ndarray:
+        """The constrained rows of a component-blocked [d*n] system: the d
+        rows a*n + h of every slave h, component-major [d*H]."""
+        return (self.slaves[None, :].astype(np.int64) + np.arange(d)[:, None] * n).reshape(-1)
+
 
 def _edge_set(mesh: SurfaceMesh) -> dict[tuple[int, int], int]:
     edge_count: dict[tuple[int, int], int] = {}
@@ -273,7 +278,7 @@ def apply_hanging_constraints_monolithic(A, rhs, hc: HangingConstraints, n, d):
         return A, rhs
     dev = A.device
     comp = np.arange(d)[:, None] * n  # [d, 1]
-    rows_np = (hc.slaves[None, :] + comp).reshape(-1)  # [d*H]
+    rows_np = hc.flat_rows(n, d)  # [d*H]
     rows = torch.as_tensor(rows_np, dtype=torch.long, device=dev)
     A[rows, :] = 0.0
     A[rows, rows] = 1.0

@@ -11,9 +11,16 @@ Column selection per BC set (columns = unknowns at that node):
   free-surface wall: wall-normal component -> V, tangential -> -K
   do-nothing wall:   wall-normal component -> -K, tangential -> V
 (reference `:3196-3243`.)
+
+`SaddleTail` holds everything beyond the surface block (the rigid and
+motor-torque columns and rows, the rhs, the hanging-node rows' share): the
+dense (`problem.py`), matrix-free (`matfree.py`) and distributed
+(`parallel/solve.py`) frame steps all take their tail from it.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -84,6 +91,154 @@ def imposed_tail_vector(
         return torch.as_tensor(tail, dtype=dtype, device=device)
 
 
+@dataclasses.dataclass
+class SaddleTail:
+    """The monolithic system beyond its surface block: the rigid (and
+    motor-torque) columns, the rows that close them and the rhs, written
+    once for the dense, the matrix-free and the distributed frame steps.
+
+    With the surface block S (V or -K columns, `operator_column_mask`), the
+    R rigid unknowns u and, under `solve_with_torque`, the flagellum rate
+    omega (reference `source/bem_stokes.cc:3152-3360`):
+
+        [ S                 -scale tmp_N^T   -scale tmp_torque ] [x_s  ]
+        [ rigid rows        D_rr             0                 ] [u    ]
+        [ scale torque_dual  0               0                 ] [omega]
+
+    The rigid rows by `grid_type`: ImposedVelocity `scale * I` on u (zero
+    surface columns), Real `scale * N_dual`, ImposedForce and Convergence
+    `N_dual` unscaled.  The rhs: the surface rhs on the head for Real without
+    the torque unknown, a zero head otherwise (the gait rate is then an
+    unknown, reference `:3191-3192`); `rhs_tail` (zero for Real) on the
+    rigid rows; the imposed motor torque on the last row.  The hanging-node
+    rows `constrained` carry no rigid or torque column and a zero rhs (the
+    caller writes their interpolation identity into the surface rows)."""
+
+    grid_type: str
+    scale: float
+    tmp_N: torch.Tensor  # [R, d*n] P_t K P_t N_r
+    N_dual: torch.Tensor  # [R, d*n] M-duals of the rigid modes
+    rhs_tail: torch.Tensor  # [R]
+    tmp_torque: torch.Tensor | None = None  # [d*n] P_t K P_t N_flag_torque
+    torque_dual: torch.Tensor | None = None  # [d*n] M N_flagellum_torque
+    motor_torque: float = -2.0
+    constrained: torch.Tensor | None = None  # [c] constrained flat rows
+
+    def __post_init__(self):
+        self.R, self.dn = self.tmp_N.shape
+        self.size = self.R + (self.tmp_torque is not None)  # unknowns beyond the surface
+        if self.constrained is not None:
+            self.tmp_N = self.tmp_N.clone()
+            self.tmp_N[:, self.constrained] = 0.0
+            if self.tmp_torque is not None:
+                self.tmp_torque = self.tmp_torque.clone()
+                self.tmp_torque[self.constrained] = 0.0
+
+    @classmethod
+    def from_config(cls, cfg, tmp_N, N_dual, tmp_torque=None, torque_dual=None, constrained=None):
+        """The tail of a frame under `cfg` (a `ProblemConfig`): the torque
+        unknown when `cfg.solve_with_torque`, the imposed rhs tail of
+        `imposed_tail_vector` off the Real grid; `constrained` the flat rows
+        of `HangingConstraints.flat_rows` on the device, or None."""
+        if cfg.grid_type == GRID_REAL:
+            rhs_tail = torch.zeros((tmp_N.shape[0],), dtype=tmp_N.dtype, device=tmp_N.device)
+        else:
+            rhs_tail = imposed_tail_vector(
+                tmp_N.shape[0],
+                cfg.dim,
+                cfg.imposed_component,
+                angle=cfg.angle_for_imposed_stuff,
+                rotate=cfg.extra_debug_info,
+                dtype=tmp_N.dtype,
+                device=tmp_N.device,
+            )
+        if not cfg.solve_with_torque:
+            tmp_torque = torque_dual = None
+        return cls(
+            cfg.grid_type, cfg.assemble_scaling, tmp_N, N_dual, rhs_tail, tmp_torque, torque_dual,
+            cfg.imposed_motor_torque, constrained,
+        )
+
+    def _zero_constrained(self, v):
+        if self.constrained is not None:
+            v[self.constrained] = 0.0
+        return v
+
+    def rhs(self, rhs_surface: torch.Tensor) -> torch.Tensor:
+        """The full rhs [d*n + size] from the surface rhs P_t K P_t s_dot."""
+        dt, dev = self.tmp_N.dtype, self.tmp_N.device
+        parts = [self.rhs_tail]
+        if self.tmp_torque is not None:
+            parts.append(torch.full((1,), self.motor_torque, dtype=dt, device=dev))
+        if self.grid_type == GRID_REAL and self.tmp_torque is None:
+            head = rhs_surface
+        else:
+            head = torch.zeros((self.dn,), dtype=dt, device=dev)
+        return self._zero_constrained(torch.cat([head, *parts]))
+
+    def frozen_rhs(self, rhs_surface: torch.Tensor) -> torch.Tensor:
+        """The rhs of the frozen-geometry re-solve: the new surface rhs over
+        a zero tail, whatever the grid (the reference's squirmer branch
+        rebuilds the surface rhs only, `:5734-5759`)."""
+        tail = torch.zeros((self.size,), dtype=rhs_surface.dtype, device=rhs_surface.device)
+        return self._zero_constrained(torch.cat([rhs_surface, tail]))
+
+    def apply(self, head: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """The monolithic action on x [d*n + size], given the surface
+        block's action `head` on x[:d*n]: the rigid and torque columns added
+        to the surface rows, then the rigid rows and the motor balance."""
+        dn, R, scale = self.dn, self.R, self.scale
+        xs, u = x[:dn], x[dn : dn + R]
+        top = head - scale * (u @ self.tmp_N)
+        if self.tmp_torque is not None:
+            top = top - scale * self.tmp_torque * x[-1]
+        if self.grid_type == GRID_IMPOSED_VELOCITY:
+            mid = scale * u
+        elif self.grid_type == GRID_REAL:
+            mid = scale * (self.N_dual @ xs)
+        else:  # ImposedForce / Convergence: momentum rows, unscaled
+            mid = self.N_dual @ xs
+        parts = [top, mid]
+        if self.tmp_torque is not None:
+            parts.append(scale * torch.dot(self.torque_dual, xs)[None])
+        return torch.cat(parts)
+
+    def border(self):
+        """(C [d*n, size], B [size, d*n], D [size, size]): the columns, the
+        rows and the corner of the system's border, for its dense form and
+        its Schur complement."""
+        dt, dev = self.tmp_N.dtype, self.tmp_N.device
+        scale, R, T = self.scale, self.R, self.size
+        C = torch.empty((self.dn, T), dtype=dt, device=dev)
+        B = torch.zeros((T, self.dn), dtype=dt, device=dev)
+        D = torch.zeros((T, T), dtype=dt, device=dev)
+        C[:, :R] = -scale * self.tmp_N.T
+        if self.grid_type == GRID_IMPOSED_VELOCITY:
+            D[:R, :R] = scale * torch.eye(R, dtype=dt, device=dev)
+        elif self.grid_type == GRID_REAL:
+            B[:R] = scale * self.N_dual
+        else:
+            B[:R] = self.N_dual
+        if self.tmp_torque is not None:
+            C[:, R] = -scale * self.tmp_torque
+            B[R] = scale * self.torque_dual
+        return C, B, D
+
+    def system(self, V, K, sel_V, rhs_surface):
+        """The dense system (A [d*n + size]^2, rhs): V columns where sel_V,
+        -K elsewhere (written in A itself: no dense -K temporary), then the
+        border."""
+        dn = self.dn
+        size = dn + self.size
+        A = torch.empty((size, size), dtype=V.dtype, device=V.device)
+        top = A[:dn, :dn]
+        torch.where(sel_V[None, :], V, K, out=top)
+        with timers.host_sync():  # the masks' selections read their counts back
+            top[:, ~sel_V] = -top[:, ~sel_V]
+        A[:dn, dn:], A[dn:, :dn], A[dn:, dn:] = self.border()
+        return A, self.rhs(rhs_surface)
+
+
 def build_monolithic_system(
     V: torch.Tensor,  # [d*n, d*n]
     K: torch.Tensor,  # [d*n, d*n]
@@ -99,8 +254,8 @@ def build_monolithic_system(
     imposed_motor_torque: float = -2.0,
     imposed_tail: torch.Tensor | None = None,  # [R] rhs tail override
 ):
-    """Materialize A [d*n+R(+1), d*n+R(+1)] and rhs (for the LU/direct path
-    and as the preconditioner matrix).
+    """Materialize A [d*n+R(+1), d*n+R(+1)] and rhs (the JAX package's entry;
+    the frame steps build a `SaddleTail` and call its `system`).
 
     With `tmp_torque`/`torque_dual` the system gains the motor-torque
     unknown: the flagellum rotation rate omega becomes an extra column
@@ -108,56 +263,18 @@ def build_monolithic_system(
     extra balance row (scale * torque_dual^T f = imposed_motor_torque), with
     a zero surface rhs — reference `solve_with_torque`,
     `source/bem_stokes.cc:3191-3192, 3252-3256, 3340-3356`."""
-    dn = V.shape[0]
-    R = tmp_N.shape[0]
-    dt, dev = V.dtype, V.device
-    with_torque = tmp_torque is not None
-    size = dn + R + (1 if with_torque else 0)
-    A = torch.empty((size, size), dtype=dt, device=dev)
-    # top-left: V columns where sel_V, -K elsewhere (built in A itself: no
-    # dense -K temporary)
-    top = A[:dn, :dn]
-    torch.where(sel_V[None, :], V, K, out=top)
-    with timers.host_sync():  # the masks' selections read their counts back
-        top[:, ~sel_V] = -top[:, ~sel_V]
-    A[:dn, dn : dn + R] = -assemble_scaling * tmp_N.T  # [dn, R]
-
-    rigid = slice(dn, dn + R)
-    if grid_type == GRID_IMPOSED_VELOCITY:
-        A[rigid, :dn] = 0.0
-        A[rigid, rigid] = assemble_scaling * torch.eye(R, dtype=dt, device=dev)
-    elif grid_type == GRID_REAL:
-        A[rigid, :dn] = assemble_scaling * N_dual
-        A[rigid, rigid] = 0.0
-    else:  # ImposedForce / Convergence: momentum rows, unscaled
-        A[rigid, :dn] = N_dual
-        A[rigid, rigid] = 0.0
-
-    rhs_tail = torch.zeros((R,), dtype=dt, device=dev)
+    rhs_tail = torch.zeros((tmp_N.shape[0],), dtype=V.dtype, device=V.device)
     if grid_type != GRID_REAL:
-        rhs_head = torch.zeros((dn,), dtype=dt, device=dev)
         if imposed_tail is not None:
-            rhs_tail = imposed_tail.to(dt)
+            rhs_tail = imposed_tail.to(V.dtype)
         else:
             rhs_tail[imposed_component] = 1.0
-    else:
-        rhs_head = rhs_surface
-    if not with_torque:
-        return A, torch.cat([rhs_head, rhs_tail])
-
-    A[:dn, -1] = -assemble_scaling * tmp_torque
-    A[rigid, -1] = 0.0
-    A[-1, :dn] = assemble_scaling * torque_dual
-    A[-1, dn:] = 0.0
-    # the gait is the unknown: zero surface rhs (reference `:3191-3192`)
-    rhs = torch.cat(
-        [
-            torch.zeros((dn,), dtype=dt, device=dev),
-            rhs_tail,
-            torch.full((1,), imposed_motor_torque, dtype=dt, device=dev),
-        ]
+    if tmp_torque is None:
+        torque_dual = None
+    tail = SaddleTail(
+        grid_type, assemble_scaling, tmp_N, N_dual, rhs_tail, tmp_torque, torque_dual, imposed_motor_torque
     )
-    return A, rhs
+    return tail.system(V, K, sel_V, rhs_surface)
 
 
 def split_monolithic_solution(

@@ -21,9 +21,10 @@ import torch
 import torch.distributed as dist
 
 from ..fem.geometry import support_points
-from ..la.gmres import gmres
+from ..la.direct import bordered_solver, lu_apply, lu_factor_dense, lu_solve_dense, pivots_to_permutation
+from ..la.gmres import gmres, restart_params
 from ..ops.corrections import tangential_projector
-from ..ops.monolithic import imposed_tail_vector, operator_column_mask
+from ..ops.monolithic import SaddleTail, operator_column_mask
 from ..physics.kinematics import update_rotation_matrix
 from ..physics.rigid import (
     build_mass_operator,
@@ -188,11 +189,11 @@ def slab_block_jacobi_lu(A_loc, tail_rows, n_nodes, dim, n_rigid, mesh: RowMesh)
         local = (b * nloc + j).reshape(-1)
         cols = (b * n + r0 + j).reshape(-1)
         own[local[:, None], local[None, :]] = A_loc[local][:, cols]
-    return torch.linalg.lu_factor(own)
+    return lu_factor_dense(own)
 
 
 def slab_block_jacobi_apply(lu_loc, piv_loc, v_loc, mesh: RowMesh):
-    return torch.linalg.lu_solve(lu_loc, piv_loc, v_loc[:, None])[:, 0]
+    return lu_solve_dense((lu_loc, piv_loc), v_loc)
 
 
 def slab_diagonal(A_loc, n_nodes, dim, mesh: RowMesh):
@@ -295,11 +296,6 @@ def _advance(cfg, d, euler, pole, rigid_vel, body):
     return euler_next
 
 
-def _gmres_params(cfg):
-    restart = cfg.solver.gmres_restart
-    return restart, max(1, -(-cfg.solver.max_steps // max(restart, 1)))
-
-
 def make_sharded_frame_step(
     problem,
     dmesh: RowMesh,
@@ -359,24 +355,16 @@ def make_sharded_frame_step(
     d, n = problem.dim, problem.n
     dn = d * n
     R = problem.num_rigid
-    # the motor-torque unknown: one extra column (the flagellum rotation
-    # rate) and one extra balance row (reference `source/bem_stokes.cc:
-    # 3191-3192, 3252-3256, 3340-3356`, rank-0 rows `:3297-3352`)
+    # the motor-torque unknown (one extra column and balance row, rank-0 rows
+    # in the reference `:3297-3352`) lives in the SaddleTail; its mode also
+    # gives the transmitted torque under an imposed rotation
     with_torque = bool(cfg.solve_with_torque)
     with_torque_dual = with_torque or cfg.imposed_rotation_as_flagellum_shape
-    RT = R + (1 if with_torque else 0)
     dt = problem.asm_cfg.dtype
     dev = problem.device
     scale = cfg.assemble_scaling
     body = _map_body(problem)
     agree = dmesh.agree if dmesh.world > 1 else None
-    # hanging-node constraints: the d constrained flat rows per slave node
-    # (the single-card apply_hanging_constraints_monolithic row set)
-    keep_rows = None
-    if problem.hanging.n:
-        constr = (problem.hanging.slaves[None, :].astype(np.int64) + np.arange(d)[:, None] * n).reshape(-1)
-        keep_rows = torch.ones((dn,), dtype=dt, device=dev)
-        keep_rows[torch.as_tensor(constr, device=dev)] = 0.0
 
     def build_system(euler, sdot_flat, rotation):
         """Sharded assembly + corrections + implicit monolithic system: the
@@ -408,15 +396,12 @@ def make_sharded_frame_step(
             torque_mode_flat, torque_dual_flat = _replicated(dmesh, torque_mode_flat, torque_dual_flat)
             if with_torque:
                 tmp_torque = PKP(torque_mode_flat)
-        if keep_rows is not None:
-            # constrained rows: the monolithic row (its rigid columns and rhs
-            # entry included) is the interpolation identity, so the rigid
-            # columns and the rhs vanish there (the slab rows themselves are
-            # rewritten by slab_apply_hanging_constraints below)
-            tmp_N = tmp_N * keep_rows
-            rhs_surface = rhs_surface * keep_rows
-            if tmp_torque is not None:
-                tmp_torque = tmp_torque * keep_rows
+        # constrained rows: the monolithic row (its rigid columns and rhs
+        # entry included) is the interpolation identity; the tail leaves them
+        # out, and slab_apply_hanging_constraints below rewrites the slab rows
+        tail = SaddleTail.from_config(
+            cfg, tmp_N, N_dual_flat, tmp_torque, torque_dual_flat, problem._constrained_t
+        )
 
         sel_V = operator_column_mask(problem._node_material_t, flatten(nv["normal"]), n, d)
         # the surface block of the implicit monolithic operator: V or -K
@@ -425,38 +410,11 @@ def make_sharded_frame_step(
         del V_loc
         A_loc = slab_apply_hanging_constraints(A_loc, problem.hanging, n, d, dmesh)
 
-        if cfg.grid_type == "ImposedVelocity":
-            tail = torch.zeros_like(N_dual_flat)
-        else:
-            tail = scale * N_dual_flat if cfg.grid_type == "Real" else N_dual_flat
-        rhs_tail = torch.zeros((R,), dtype=dt, device=dev)
-        if cfg.grid_type != "Real":
-            rhs_head = torch.zeros((dn,), dtype=dt, device=dev)
-            rhs_tail = imposed_tail_vector(
-                R,
-                d,
-                cfg.imposed_component,
-                angle=cfg.angle_for_imposed_stuff,
-                rotate=cfg.extra_debug_info,
-                dtype=dt,
-                device=dev,
-            )
-        elif with_torque:
-            # the gait rate is an unknown of the motor balance: zero surface
-            # rhs (reference `:3191-3192`)
-            rhs_head = torch.zeros((dn,), dtype=dt, device=dev)
-        else:
-            rhs_head = rhs_surface
-        rhs_parts = [rhs_head, rhs_tail]
-        if with_torque:
-            rhs_parts.append(torch.full((1,), cfg.imposed_motor_torque, dtype=dt, device=dev))
-        rhs = torch.cat(rhs_parts)
-        sysd = dict(euler=euler, A_slab=A_loc, tmp_N=tmp_N, tail=tail, rhs=rhs, pole=ops["pole"])
+        rhs = tail.rhs(rhs_surface)
+        sysd = dict(euler=euler, A_slab=A_loc, tail=tail, rhs=rhs, pole=ops["pole"])
         if with_torque_dual:
             sysd["torque_dual"] = torque_dual_flat
             sysd["torque_mode_flat"] = torque_mode_flat
-        if with_torque:
-            sysd["tmp_torque"] = tmp_torque
         if keep_frozen_pieces:
             # frozen-geometry squirmer fast path: the per-frame rhs rebuild
             # P_t K P_t sdot needs the double-layer slab and the projector
@@ -482,20 +440,10 @@ def make_sharded_frame_step(
         return sysd
 
     def make_matvec(sysd):
-        A_loc, tmp_N, tail = sysd["A_slab"], sysd["tmp_N"], sysd["tail"]
+        A_loc, tail = sysd["A_slab"], sysd["tail"]
 
         def matvec(x):  # x = [dn + R (+1 torque)], replicated
-            xs, u = x[:dn], x[dn : dn + R]
-            y_surf = slab_to_flat(sharded_matvec(A_loc, xs, dmesh), n, d, dmesh)
-            y_surf = y_surf - scale * (u @ tmp_N)
-            if with_torque:
-                y_surf = y_surf - scale * x[dn + R] * sysd["tmp_torque"]
-            y_tail = scale * u if cfg.grid_type == "ImposedVelocity" else tail @ xs
-            parts = [y_surf, y_tail]
-            if with_torque:
-                # motor balance row (reference `:3340-3356`)
-                parts.append(scale * (sysd["torque_dual"] @ xs)[None])
-            return torch.cat(parts)
+            return tail.apply(slab_to_flat(sharded_matvec(A_loc, x[:dn], dmesh), n, d, dmesh), x)
 
         return matvec
 
@@ -503,50 +451,21 @@ def make_sharded_frame_step(
     fdt = torch.float32 if cfg.solver.preconditioner_dtype == "float32" else dt
 
     def direct_factor(sysd):
-        """Distributed blocked LU of the surface slab + bordered Schur
-        complement for the RT tail rows/columns (R rigid + optional torque):
-        with As the surface block, B the rigid/torque columns, T/D the tail
-        rows, the preconditioner is the EXACT monolithic inverse
-        [[As, B], [T, D]]^-1 through Z = As^-1 B and S = D - T Z (one
-        distributed LU solve per application)."""
+        """Distributed blocked LU of the surface slab, closed over the tail
+        rows and columns (R rigid + optional torque) by the bordered Schur
+        complement (`la.direct.bordered_solver`, in the factor dtype): the
+        EXACT monolithic inverse, one distributed LU solve per application.
+        Returns the preconditioner."""
         with timers.scope("DirectPreconditioner Refactorisation"):
             A2 = slab_reorder_columns(sysd["A_slab"], n, d, dmesh).to(fdt)
             lu, perm = slab_lu_factor(A2, dmesh)
             del A2
-            bcols = [-scale * sysd["tmp_N"][r] for r in range(R)]
-            if with_torque:
-                bcols.append(-scale * sysd["tmp_torque"])
-            B = flat_to_slab(torch.stack(bcols, dim=1).to(fdt), n, d, dmesh)  # [m, RT]
-            Z = slab_to_flat(slab_lu_solve(lu, perm, B, dmesh), n, d, dmesh)  # [dn, RT]
-            if cfg.grid_type == "ImposedVelocity":
-                T_top = torch.zeros((R, dn), dtype=fdt, device=dev)
-                D_top = scale * torch.eye(R, dtype=fdt, device=dev)
-            else:
-                T_top = sysd["tail"].to(fdt)
-                D_top = torch.zeros((R, R), dtype=fdt, device=dev)
-            if with_torque:
-                T = torch.cat([T_top, (scale * sysd["torque_dual"]).to(fdt)[None, :]])
-                D = torch.zeros((RT, RT), dtype=fdt, device=dev)
-                D[:R, :R] = D_top
-            else:
-                T, D = T_top, D_top
-            S_lu = torch.linalg.lu_factor(D - T @ Z)
-        return dict(lu=lu, perm=perm, Z=Z, T=T, S_lu=S_lu)
 
-    def direct_apply(fac):
-        def precond(x):
-            b_s, b_u = x[:dn], x[dn:]
-            w = slab_to_flat(
-                slab_lu_solve(fac["lu"], fac["perm"], flat_to_slab(b_s.to(fdt), n, d, dmesh), dmesh),
-                n,
-                d,
-                dmesh,
-            )
-            x_u = torch.linalg.lu_solve(*fac["S_lu"], (b_u.to(fdt) - fac["T"] @ w)[:, None])[:, 0]
-            x_s = w - fac["Z"] @ x_u
-            return torch.cat([x_s, x_u]).to(x.dtype)
+            def surface_solve(v):  # flat [dn] or [dn, k]
+                return slab_to_flat(slab_lu_solve(lu, perm, flat_to_slab(v, n, d, dmesh), dmesh), n, d, dmesh)
 
-        return precond
+            solve = bordered_solver(surface_solve, *(m.to(fdt) for m in sysd["tail"].border()))
+        return lambda x: solve(x.to(fdt)).to(x.dtype)
 
     def make_precond(sysd):
         A_loc = sysd["A_slab"]
@@ -558,9 +477,10 @@ def make_sharded_frame_step(
 
         else:  # block-Jacobi LU slab blocks (the SOR/SSOR/ILU/AMG analogs)
             lu_loc, piv_loc = slab_block_jacobi_lu(A_loc, None, n, d, R, dmesh)
+            perm_loc = pivots_to_permutation(piv_loc)
 
             def apply_surface(v_loc):
-                return slab_block_jacobi_apply(lu_loc, piv_loc, v_loc, dmesh)
+                return lu_apply(lu_loc, perm_loc, v_loc)
 
         def precond(x):
             xs, u = x[:dn], x[dn:]
@@ -569,7 +489,7 @@ def make_sharded_frame_step(
 
         return precond
 
-    restart, max_restarts = _gmres_params(cfg)
+    restart, max_restarts = restart_params(cfg.solver)
 
     def solve_and_finish(sysd, precond):
         x, info = gmres(
@@ -634,7 +554,7 @@ def make_sharded_frame_step(
         if not reuse:
             state["factors"] = None  # the old factors go before the new ones come
             state["factors"] = direct_factor(sysd)
-        out = solve_and_finish(sysd, direct_apply(state["factors"]))
+        out = solve_and_finish(sysd, state["factors"])
         state["refactored"] = not reuse
         state["sysd"] = sysd if keep_frozen_pieces else None
         state["last_iterations"] = int(out[2]["iterations"])
@@ -655,13 +575,11 @@ def make_sharded_frame_step(
 
             sdot = problem._as_device(sdot_flat)
             rhs_surface = P_t(slab_to_flat(sharded_matvec(fz["K_slab"], P_t(sdot), dmesh), n, d, dmesh))
-            if keep_rows is not None:
-                rhs_surface = rhs_surface * keep_rows
-            rhs = torch.cat([rhs_surface, torch.zeros((R,), dtype=dt, device=dev)])
+            rhs = sysd["tail"].frozen_rhs(rhs_surface)
             sysd2 = dict(sysd, rhs=rhs)
             if return_fields:
                 sysd2["fields"] = dict(sysd["fields"], rhs_norm=torch.linalg.vector_norm(rhs))
-            out = solve_and_finish(sysd2, direct_apply(state["factors"]))
+            out = solve_and_finish(sysd2, state["factors"])
             state["last_iterations"] = int(out[2]["iterations"])
             state["refactored"] = False
             return out
@@ -699,7 +617,7 @@ def make_sharded_resistance_step(problem, dmesh: RowMesh, return_fields: bool = 
     R = problem.num_rigid
     dt = problem.asm_cfg.dtype
     dev = problem.device
-    restart, max_restarts = _gmres_params(cfg)
+    restart, max_restarts = restart_params(cfg.solver)
     body = _map_body(problem)
     agree = dmesh.agree if dmesh.world > 1 else None
 

@@ -35,7 +35,7 @@ import torch
 from .config import ProblemConfig
 from .fem.geometry import euler_from_mesh, support_points
 from .la.direct import LUPreconditioner, lu_factor_dense, lu_solve_dense
-from .la.gmres import gmres
+from .la.gmres import gmres, restart_params, solve_converged
 from .la.preconditioners import build_preconditioner
 from .mesh import SurfaceMesh, build_scalar_space, read_mesh
 from .mesh.surface_mesh import MATERIAL_BODY
@@ -52,12 +52,7 @@ from .ops.corrections import (
     tangential_projector,
     v_nullspace_correction,
 )
-from .ops.monolithic import (
-    build_monolithic_system,
-    imposed_tail_vector,
-    operator_column_mask,
-    split_monolithic_solution,
-)
+from .ops.monolithic import SaddleTail, operator_column_mask, split_monolithic_solution
 from .physics.rigid import (
     build_mass_operator,
     flatten,
@@ -352,14 +347,15 @@ class StokesBEMProblem:
         self._flagellum_node_mask_t = torch.as_tensor(
             self.flagellum_node_mask, dtype=dt, device=dev
         )
-
-    def _gmres_solver_params(self):
-        restart = self.cfg.solver.gmres_restart
-        max_restarts = max(1, -(-self.cfg.solver.max_steps // max(restart, 1)))
-        return restart, max_restarts
+        # the monolithic system's hanging-node rows (None without any)
+        self._constrained_t = (
+            torch.as_tensor(self.hanging.flat_rows(self.n, self.dim), device=dev)
+            if self.hanging.n
+            else None
+        )
 
     def _gmres_direct(self, A, rhs):
-        restart, max_restarts = self._gmres_solver_params()
+        restart, max_restarts = restart_params(self.cfg.solver)
         return gmres(
             lambda v: A @ v,
             rhs,
@@ -374,7 +370,7 @@ class StokesBEMProblem:
         preconditioner built afresh from this frame's matrix (the JAX
         `_gmres_generic_impl`)."""
         cfg = self.cfg
-        restart, max_restarts = self._gmres_solver_params()
+        restart, max_restarts = restart_params(cfg.solver)
         bw = cfg.solver.bandwith if cfg.solver.bandwith_preconditioner else None
         with timers.scope("Preconditioner Set Up"):
             precond = build_preconditioner(A, cfg.solver.preconditioner_type, bandwith=bw)
@@ -549,29 +545,10 @@ class StokesBEMProblem:
             torque_mode_flat = flatten(self.flagellum_torque_mode(euler, rotation))
             torque_dual_flat = flatten(mass_op.matvec(unflatten(torque_mode_flat, d)))
             tmp_torque = PKP(torque_mode_flat)
-        A, rhs = build_monolithic_system(
-            V,
-            K,
-            sel_V,
-            tmp_N,
-            flatten(N_dual),
-            rhs_surface,
-            grid_type=cfg.grid_type,
-            imposed_component=cfg.imposed_component,
-            assemble_scaling=cfg.assemble_scaling,
-            tmp_torque=tmp_torque if cfg.solve_with_torque else None,
-            torque_dual=torque_dual_flat if cfg.solve_with_torque else None,
-            imposed_motor_torque=cfg.imposed_motor_torque,
-            imposed_tail=imposed_tail_vector(
-                self.num_rigid,
-                d,
-                cfg.imposed_component,
-                angle=cfg.angle_for_imposed_stuff,
-                rotate=cfg.extra_debug_info,
-                dtype=dt,
-                device=self.device,
-            ),
+        tail = SaddleTail.from_config(
+            cfg, tmp_N, flatten(N_dual), tmp_torque, torque_dual_flat, self._constrained_t
         )
+        A, rhs = tail.system(V, K, sel_V, rhs_surface)
         if self.hanging.n:
             from .mesh.constraints import apply_hanging_constraints_monolithic
 
@@ -595,6 +572,7 @@ class StokesBEMProblem:
             N_dual_complete=N_dual_complete,
             tmp_N=tmp_N,
             mass_jxw=jxw,
+            tail=tail,
         )
         if torque_mode_flat is not None:
             operators["N_flagellum_torque"] = torque_mode_flat
@@ -679,24 +657,15 @@ class StokesBEMProblem:
             flatten(nv["M_normal_pure"]),
             nv["l2_gamma_pure"],
             self._as_device(shape_velocities_flat),
+            ops["tail"],
         )
         return self._solve_monolithic_system(A, rhs, ops, diag)
 
-    def _frozen_rhs(self, K, n_pure_f, Mn_pure_f, l2g_pure, sdot_flat):
-        dt = self.asm_cfg.dtype
-        d, n = self.dim, self.n
-
+    def _frozen_rhs(self, K, n_pure_f, Mn_pure_f, l2g_pure, sdot_flat, tail):
         def P_t(v):
             return tangential_projector(v, n_pure_f, Mn_pure_f, l2g_pure)
 
-        rhs_surface = P_t(K @ P_t(sdot_flat.to(dt)))
-        tail_len = self.num_rigid + (1 if self.cfg.solve_with_torque else 0)
-        rhs = torch.cat([rhs_surface, torch.zeros((tail_len,), dtype=dt, device=K.device)])
-        if self.hanging.n:
-            comp = np.arange(d)[:, None] * n
-            rows = (self.hanging.slaves[None, :] + comp).reshape(-1)
-            rhs[torch.as_tensor(rows, dtype=torch.long, device=K.device)] = 0.0
-        return rhs
+        return tail.frozen_rhs(P_t(K @ P_t(sdot_flat.to(self.asm_cfg.dtype))))
 
     # ------------------------------------------------------------------
     def _solve_monolithic_system(self, A, rhs, ops, diag):
@@ -763,9 +732,7 @@ class StokesBEMProblem:
         converged = True
         if not cfg.solver.solve_directly:
             self._last_direct_iterations = iters
-            converged = gmres_res <= cfg.solver.tolerance * (
-                b_norm if b_norm > 0 else 1.0
-            ) * 1.0001
+            converged = solve_converged(gmres_res, b_norm, cfg.solver.tolerance)
             if not converged:
                 import warnings
 

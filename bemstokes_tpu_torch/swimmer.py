@@ -36,6 +36,7 @@ import torch
 
 from .config import ProblemConfig
 from .fem.geometry import euler_from_mesh, support_points
+from .la.gmres import solve_converged
 from .mesh.factories import add_walls_to_mesh
 from .mesh.io import read_mesh
 from .mesh.io_vtu import write_vtu
@@ -345,7 +346,7 @@ class SwimmerSimulation:
         iters = int(info["iterations"])
         residual = float(info["residual"])
         b_norm = float(f["rhs_norm"])
-        converged = residual <= cfg.solver.tolerance * (b_norm if b_norm > 0 else 1.0) * 1.0001
+        converged = solve_converged(residual, b_norm, cfg.solver.tolerance)
         if not converged:
             import warnings
 

@@ -70,6 +70,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import bemstokes_tpu_torch.matfree as matfree  # noqa: E402
 import bemstokes_tpu_torch.mesh.constraints as constraints  # noqa: E402
 import bemstokes_tpu_torch.ops.assemble as asm  # noqa: E402
+import bemstokes_tpu_torch.ops.monolithic as monolithic  # noqa: E402
 import bemstokes_tpu_torch.problem as problem  # noqa: E402
 import bemstokes_tpu_torch.swimmer as swimmer  # noqa: E402
 from bemstokes_tpu_torch.config import (  # noqa: E402
@@ -225,7 +226,7 @@ def main():
     problem.normal_vector_l2 = timed(stages, "L2 normal (CG)", problem.normal_vector_l2)
     problem.v_nullspace_correction = timed(stages, "V correction", problem.v_nullspace_correction)
     problem.k_solid_angle_correction = timed(stages, "K correction", problem.k_solid_angle_correction)
-    problem.build_monolithic_system = timed(stages, "system build", problem.build_monolithic_system)
+    monolithic.SaddleTail.system = timed(stages, "system build", monolithic.SaddleTail.system)
     LUPreconditioner.set_up = timed(stages, "LU factor", LUPreconditioner.set_up)
     cls = problem.StokesBEMProblem
     cls.flagellum_torque_mode = timed(stages, "torque mode", cls.flagellum_torque_mode)

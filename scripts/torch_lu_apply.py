@@ -2,12 +2,13 @@
 """The stale-LU preconditioner's apply on the card, against `torch.linalg.lu_solve`.
 
     python3 scripts/torch_lu_apply.py [--n 23101] [--applies 20] [--frames 3]
+                                      [--blocks 8] [--block-size 3072]
                                       [--root DIR] [--out FILE]
 
 Factors a seeded nonsymmetric n x n float64 matrix on the card with
 `LUPreconditioner.set_up` and, for one right-hand side at a time (rows of a
 [k, n] tensor, as GMRES passes them): checks that `LUPreconditioner.apply`
-gives `lu_solve_dense`'s bits (`torch.linalg.lu_solve`), that the apply
+gives `torch.linalg.lu_solve`'s bits, that the apply
 makes no host sync (`torch.cuda.set_sync_debug_mode("error")`), times both
 routes with CUDA events (`--applies` calls each, after a warm-up), and lists
 each route's device kernels over 5 calls from `torch.profiler` (calls and
@@ -17,8 +18,14 @@ past 100 iterations) with every apply checked against `lu_solve` of the
 factors it holds, and reports the applies, the mismatches and the counters
 `lu permutations` / `lu applies`.  `--root` imports bemstokes_tpu_torch
 and chip_smoke.py from another checkout (an older tree's apply is timed the
-same way).  Prints the card's name and power limit first and one JSON line
-last, also written to `--out`.
+same way).  With `--blocks B` > 0 it factors a batch of B seeded
+`--block-size` blocks (the matrix-free block-Jacobi's 8 x 3,072 at the
+bacterium's width) and, for one and for seven columns (an iteration's
+apply and the Schur tail's), compares `la.direct.lu_apply` with the kept
+permutations against `torch.linalg.lu_solve` on the pivots: bits, the time
+of each (CUDA events) and of the host's walk over the batch's pivots, and
+their kernels.  Prints the card's name and power limit first and one JSON
+line last, also written to `--out`.
 """
 
 import argparse
@@ -75,7 +82,7 @@ def isolated(n, applies, direct):
     swapped = int((piv != torch.arange(1, n + 1, dtype=piv.dtype, device=piv.device)).sum())
 
     def old(j=0):
-        return direct.lu_solve_dense(p._factors, V[j])
+        return torch.linalg.lu_solve(lu, piv, V[j][:, None])[:, 0]
 
     def new(j=0):
         return p.apply(V[j])
@@ -105,6 +112,39 @@ def isolated(n, applies, direct):
     )
 
 
+def blocks(nb, size, applies, direct):
+    g = torch.Generator(device="cuda").manual_seed(21)
+    A = torch.randn(nb, size, size, generator=g, dtype=torch.float64, device="cuda")
+    lu, piv = direct.lu_factor_dense(A)
+    del A
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    perm = direct.pivots_to_permutation(piv)
+    torch.cuda.synchronize()
+    out = dict(blocks=nb, size=size, walk_ms=(time.perf_counter() - t0) * 1e3)
+    for cols in (1, 7):
+        b = torch.randn(nb, size, cols, generator=g, dtype=torch.float64, device="cuda")
+
+        def old():
+            return torch.linalg.lu_solve(lu, piv, b)
+
+        def new():
+            return direct.lu_apply(lu, perm, b)
+
+        for _ in range(3):
+            old(), new()
+        x_old, x_new = old(), new()
+        out[f"cols_{cols}"] = dict(
+            bit_for_bit=bool(torch.equal(x_old, x_new)),
+            max_rel_diff=float((x_old - x_new).abs().max() / x_old.abs().max()),
+            lu_solve_ms=[event_ms(old, applies), event_ms(old, applies)],
+            lu_apply_ms=[event_ms(new, applies), event_ms(new, applies)],
+            lu_solve_kernels=device_kernels(old),
+            lu_apply_kernels=device_kernels(new),
+        )
+    return out
+
+
 def frames(count, direct):
     import chip_smoke
     from bemstokes_tpu_torch.swimmer import SwimmerSimulation
@@ -116,7 +156,7 @@ def frames(count, direct):
     def checked(self, v):
         y = apply(self, v)
         lu = self._factors[0]
-        ref = direct.lu_solve_dense(self._factors, v.to(lu.dtype)).to(v.dtype)
+        ref = torch.linalg.lu_solve(lu, self._factors[1], v.to(lu.dtype)[:, None])[:, 0].to(v.dtype)
         seen["applies"] += 1
         if not torch.equal(y, ref):
             seen["mismatches"] += 1
@@ -142,6 +182,8 @@ def main():
     ap.add_argument("--n", type=int, default=23101)
     ap.add_argument("--applies", type=int, default=20)
     ap.add_argument("--frames", type=int, default=3)
+    ap.add_argument("--blocks", type=int, default=0)
+    ap.add_argument("--block-size", type=int, default=3072)
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
     ap.add_argument("--out")
     args = ap.parse_args()
@@ -155,6 +197,8 @@ def main():
     print(card, flush=True)
     result = dict(card=card, torch=torch.__version__, root=str(Path(args.root).resolve()))
     result["isolated"] = isolated(args.n, args.applies, direct)
+    if args.blocks:
+        result["blocks"] = blocks(args.blocks, args.block_size, args.applies, direct)
     if args.frames:
         result["frames"] = frames(args.frames, direct)
     line = json.dumps(result)
