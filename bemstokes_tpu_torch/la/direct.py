@@ -19,8 +19,14 @@ triangular solves: for one right-hand side `torch.linalg.lu_solve` on the GPU
 walks the n row interchanges on one thread at every call before the same two
 solves.  It serves one vector, several columns and a batch of diagonal
 blocks (block-Jacobi), and `bordered_solver` closes a surface solve over a
-small saddle tail with it.  The preconditioner's counters `lu permutations`
-(one a factorization) and `lu applies` (one an apply) show the reuse.
+small saddle tail with it, bit for bit `lu_solve`'s on the CPU.  The stale
+LU on the card (`LUPreconditioner`, and the distributed block-Jacobi's slab
+block) applies its single dense factor to one vector through the
+hand-written kernel of `csrc/lu_trsv.cu` instead (`ops.lu_trsv`, its plan
+made once a factorization): the gather and both solves in two launches,
+each triangle read once (counter `lu applies native`); it rounds otherwise
+than cuBLAS.  The preconditioner's counters `lu permutations` (one a
+factorization) and `lu applies` (one an apply) show the reuse.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import dataclasses
 
 import torch
 
+from ..ops import lu_trsv
 from ..utils import timers
 
 
@@ -109,19 +116,24 @@ class LUPreconditioner:
     apply, while GMRES iterates in the problem dtype — a stale approximate
     factorization is a preconditioner either way.
 
-    The apply is `torch.linalg.lu_solve`'s route for one right-hand side,
-    bit for bit, with the permutation kept from the factorization."""
+    The apply uses the permutation kept from the factorization.  On the
+    card it is the hand-written kernel, through the factor's `ops.lu_trsv`
+    plan made with it; on the CPU it is `lu_apply`, `torch.linalg.lu_solve`'s
+    route for one right-hand side, bit for bit."""
 
     refactor_iteration_trigger: int = 100
     factor_dtype: torch.dtype | None = None
     _factors: tuple | None = None
     _perm: torch.Tensor | None = None
+    _plan: lu_trsv.TrsvPlan | None = None
 
     def set_up(self, A: torch.Tensor):
         if self.factor_dtype is not None:
             A = A.to(self.factor_dtype)
+        self._plan = None  # the old plan's scratch before the new factor
         self._factors = lu_factor_dense(A)
         self._perm = pivots_to_permutation(self._factors[1])
+        self._plan = lu_trsv.plan(self._factors[0])
         timers.count("lu permutations")
 
     @property
@@ -133,7 +145,9 @@ class LUPreconditioner:
             raise RuntimeError("LUPreconditioner not initialized")
         timers.count("lu applies")
         lu = self._factors[0]
-        return lu_apply(lu, self._perm, v.to(lu.dtype)).to(v.dtype)
+        b = v.to(lu.dtype)
+        x = lu_apply(lu, self._perm, b) if self._plan is None else self._plan.solve(self._perm, b)
+        return x.to(v.dtype)
 
     def maybe_refactor(self, A: torch.Tensor, last_iterations: int) -> bool:
         """Refactor if the last solve needed too many iterations. Returns

@@ -23,6 +23,7 @@ import torch.distributed as dist
 from ..fem.geometry import support_points
 from ..la.direct import bordered_solver, lu_apply, lu_factor_dense, lu_solve_dense, pivots_to_permutation
 from ..la.gmres import gmres, restart_params
+from ..ops import lu_trsv
 from ..ops.corrections import tangential_projector
 from ..ops.monolithic import SaddleTail, operator_column_mask
 from ..physics.kinematics import update_rotation_matrix
@@ -478,9 +479,12 @@ def make_sharded_frame_step(
         else:  # block-Jacobi LU slab blocks (the SOR/SSOR/ILU/AMG analogs)
             lu_loc, piv_loc = slab_block_jacobi_lu(A_loc, None, n, d, R, dmesh)
             perm_loc = pivots_to_permutation(piv_loc)
+            plan_loc = lu_trsv.plan(lu_loc)
 
             def apply_surface(v_loc):
-                return lu_apply(lu_loc, perm_loc, v_loc)
+                if plan_loc is None:
+                    return lu_apply(lu_loc, perm_loc, v_loc)
+                return plan_loc.solve(perm_loc, v_loc)
 
         def precond(x):
             xs, u = x[:dn], x[dn:]

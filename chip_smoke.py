@@ -7,8 +7,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. versions (torch, CUDA, nvcc) and the card's name and power limit;
 2. the build of the kernels from csrc/ (the node sweeps K1, K2, K3 and K4,
-   the fused sweep-matvec K5 and the slot kernel K6 with its two entry
-   points, `tile_slots` and `tile_nodes`; one nvcc per source, started
+   the fused sweep-matvec K5, the slot kernel K6 with its two entry
+   points, `tile_slots` and `tile_nodes`, and the stale LU's `lu_trsv`; one nvcc per source, started
    together), with each kernel's registers and spills as ptxas reports
    them; and the pipe instructions per interaction of K1-K4's sample loops
    and per (row, panel point) of `tile_nodes`' loop, counted from their
@@ -232,7 +232,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    times further; (d) two create_sphere(5) bodies 3.0 and 2.05 apart along
    x (12,292 nodes, 36,882 unknowns): lambda within 1e-2 of Stimson and
    Jeffery's, the promotion at 2.05 only, and a matrix-free frame at 2.05
-   with the near-pair delta in each iteration (1e-8).  K3 at m = 16 and
+   with the near-pair delta in each iteration (1e-8).  The promoted frame at
+   H = 1.02 (the contact sphere) holds the stale LU's kernel on its own
+   factor against cuBLAS's trsv (`lu_trsv_check`, as in 24 (a)).  K3 at m = 16 and
    256, K1 at 12,292 nodes and K5 (1, 1) on the four-wall mesh are held
    against their plain versions on the first 512 rows and timed.
 24. the swimmer gaits through SwimmerSimulation.run, f64, each path with the
@@ -251,7 +253,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    beside the no-slip wall at y = -3 (K3), the motor torque -2 within 1e-8
    every frame and in motor_torque.txt, the body counter-rotating against
    the flagellum and swimming head first, the centre-of-mass series
-   written; frame 0 on an f32 LU (GMRES to 1e-12) within 1e-8 of the f64
+   written, every LU apply of both loops through the kernel `lu_trsv` (its
+   launches set to 0 before each loop: two an apply, `lu applies native` =
+   `lu applies`), and the free-space loop's own factor (23,101 unknowns)
+   held against cuBLAS's trsv (1e-11 in f64; cast to f32, the kernel at most
+   4 times cuBLAS's distance from the f64 solution) and timed beside its
+   bytes bound; frame 0 on an f32 LU (GMRES to 1e-12) within 1e-8 of the f64
    frame; a gather frame (`tile_nodes`) within 1e-8 of the node frame; the
    matrix-free loop (K5 V alone, the torque unknown in the Schur tail)
    within 1e-7 of the materialized loop; the loop with `distributed` at
@@ -284,7 +291,11 @@ path since the gather path takes `tile_nodes`: 0), its error against the
 plain version, both times and its bound, for K1, K3, K5 and `tile_nodes`
 the records of phase 22's new shapes (`higher_order_shapes`), for K1, K3
 and K5 those of phase 23 (`walls_near_contact_shapes`) and for K1, K3 and
-`tile_nodes` those of phase 24 (`swimmer_gaits_shapes`); the last line is
+`tile_nodes` those of phase 24 (`swimmer_gaits_shapes`); `lu_trsv` with
+its launches over phase 24's free-space bacterium loop, and its error, ms,
+bound_ms (n^2 values, both triangles, at 3.35 TB/s) and library_ms (the
+gather and cuBLAS's two trsv) at 23,101 unknowns, f64 and f32, beside the
+contact sphere's record (`records`); the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
 """
@@ -368,6 +379,21 @@ FLOPS_PER_INTERACTION = {"free_space": 50, "free_surface": 86, "no_slip": 141}
 # FP32 outside the tensor cores, and the memory rate.
 PEAK_FLOPS = {torch.float64: 33.5e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+#: the stale LU's apply (no Pallas counterpart).  Held against
+#: `la.direct.lu_apply` (the gather and cuBLAS's two trsv) on the same f64
+#: factor relative to max|x|; on the factor cast to f32 both routes round far
+#: from the f64 solution, and the kernel's distance from it may be at most
+#: LU_TRSV_F32_RATIO times cuBLAS's.
+LU_KERNEL = dict(
+    name="lu_trsv",
+    source="bemstokes_tpu_torch/csrc/lu_trsv.cu",
+    replaces="none: the JAX package's triangular solves are XLA's",
+)
+TOL_LU_TRSV = 1e-11
+LU_TRSV_F32_RATIO = 4.0
+#: filled as the phases run: `lu_trsv_check`'s records and the kernel's
+#: launches and the applies over phase 24's bacterium loop
+LU_TRSV_RUNS = {"records": [], "loop": None}
 
 KERNELS = {
     "free_space": dict(
@@ -610,7 +636,7 @@ def sm_clock_mhz(clock):
 def phase_build(cuda_build):
     t0 = time.perf_counter()
     built = cuda_build.build_all()
-    if not {"sweep_matvec.cu", "node_sweep.cu", "node_sweep_image.cu", "tile_slots.cu"} <= set(built):
+    if not {"sweep_matvec.cu", "node_sweep.cu", "node_sweep_image.cu", "tile_slots.cu", "lu_trsv.cu"} <= set(built):
         raise AssertionError(f"kernel sources missing from the build: {sorted(built)}")
     log(f"kernel build {time.perf_counter() - t0:.2f} s: " + ", ".join(p.name for p, _ in built.values()))
     for name, (_, output) in built.items():
@@ -4387,6 +4413,8 @@ def wn_near_contact(node_kernel, device, kernels, counts, near):
                 raise AssertionError(f"walls and near contact (c): lambda {lam[H, quad]} at H = {H} off Brenner")
             if H == WN_GAPS[0] and quad != "far2+auto":
                 args = sweep_args(prob)
+            if H == WN_GAPS[-1] and quad == "far2+auto":
+                lu_trsv_check(f"contact sphere at H = {H}, {prob.n} nodes (23 (c))", prob.preconditioner)
             del prob
             if H == WN_GAPS[0] and quad != "far2+auto":
                 label = f"m = {args[1].shape[1]}, {quad}, H = {H} (c)"
@@ -4817,6 +4845,62 @@ def gait_small(device, folder, kernels):
     return worst_all
 
 
+def lu_trsv_check(label, pre):
+    """The stale LU's kernel on a main path's own factor (the
+    LUPreconditioner `pre` on the card, its plan made with the factor), f64
+    and cast to f32, against `la.direct.lu_apply` (cuBLAS trsv): relative
+    error, the apply's ms beside both triangles' bytes bound and the
+    library's ms, the SM clock under load.  Appended to LU_TRSV_RUNS."""
+    from bemstokes_tpu_torch.la.direct import lu_apply
+    from bemstokes_tpu_torch.ops import lu_trsv
+
+    lu, perm, plan = pre._factors[0], pre._perm, pre._plan
+    n = lu.shape[0]
+    if plan is None or lu.dtype != torch.float64:
+        raise AssertionError(f"lu_trsv {label}: expected an f64 factor with a kernel plan, got {lu.dtype}, {plan}")
+    g = torch.Generator(device=lu.device).manual_seed(n)
+    b = torch.randn(n, generator=g, dtype=torch.float64, device=lu.device)
+    x, ref = plan.solve(perm, b), lu_apply(lu, perm, b)
+    err = rel(x, ref)
+    lu32 = lu.mT.to(torch.float32).mT
+    plan32 = lu_trsv.plan(lu32)
+    b32 = b.float()
+    err32 = {"kernel": rel(plan32.solve(perm, b32).double(), x), "library": rel(lu_apply(lu32, perm, b32).double(), x)}
+    rec = dict(label=label, n=n, error=err, error_f32_from_f64=err32)
+    for key, (f, plan_f, b_f) in {"": (lu, plan, b), "_f32": (lu32, plan32, b32)}.items():
+        rec["ms" + key] = cuda_ms(lambda: plan_f.solve(perm, b_f), 20)
+        rec["library_ms" + key] = cuda_ms(lambda: lu_apply(f, perm, b_f), 20)
+        rec["bound_ms" + key] = n * n * f.element_size() / PEAK_BYTES * 1e3
+    rec["clock"] = clock_under_load(lambda: [plan.solve(perm, b) for _ in range(50)])
+    del plan32, lu32
+    log(
+        f"lu_trsv {label}: {n} unknowns; f64 against cuBLAS {err:.3e} (tol {TOL_LU_TRSV:g}); f32 from the f64 "
+        f"solution: kernel {err32['kernel']:.3e}, cuBLAS {err32['library']:.3e} (ratio at most {LU_TRSV_F32_RATIO:g}); "
+        f"apply {rec['ms']:.3f} ms (f32 {rec['ms_f32']:.3f}) against cuBLAS {rec['library_ms']:.3f} "
+        f"({rec['library_ms_f32']:.3f}), bound {rec['bound_ms']:.3f} ({rec['bound_ms_f32']:.3f}) ms; clock {rec['clock']}"
+    )
+    if not err <= TOL_LU_TRSV or not err32["kernel"] <= LU_TRSV_F32_RATIO * err32["library"]:
+        raise AssertionError(f"lu_trsv {label}: the kernel disagrees with cuBLAS")
+    LU_TRSV_RUNS["records"].append(rec)
+
+
+def lu_entry():
+    """The kernels-line entry of `lu_trsv`: its launches over phase 24's
+    bacterium loop (two an apply, every apply of the loop), the bacterium's
+    record (23,101 unknowns) as its error and times, and each record."""
+    records = LU_TRSV_RUNS["records"]
+    main = max(records, key=lambda r: r["n"])
+    return dict(
+        route="cuda",
+        launches=LU_TRSV_RUNS["loop"]["launches"],
+        loop=LU_TRSV_RUNS["loop"],
+        **LU_KERNEL,
+        **{k: v for k, v in main.items() if k not in ("label", "clock")},
+        error_max=max(r["error"] for r in records),
+        records=records,
+    )
+
+
 def phase_swimmer_gaits(node_kernel, matfree_node, slot_kernel, device, counts):
     """Phase 24: the bacterium under the motor-torque balance, Heun time
     stepping and the frozen-geometry squirmer through SwimmerSimulation.run
@@ -4862,6 +4946,8 @@ def gait_bacterium(node_kernel, matfree_node, slot_kernel, device, counts, folde
 
     from bemstokes_tpu_torch.config import SolverConfig
     from bemstokes_tpu_torch.mesh.proximity import min_intercomponent_gap
+    from bemstokes_tpu_torch.ops import lu_trsv
+    from bemstokes_tpu_torch.utils import timers
 
     grids = os.path.join(folder, "bacterium", "")
     os.makedirs(grids)
@@ -4888,10 +4974,19 @@ def gait_bacterium(node_kernel, matfree_node, slot_kernel, device, counts, folde
 
     for kernel in ("free_space", "no_slip"):
         name = f"bacterium, {kernel}"
+        lu_trsv.launches = 0
+        applies = {key: timers.counts.get(key, 0) for key in ("lu applies", "lu applies native")}
         sim, rec = path(
             name, bacterium_config(grids, kernel), GAIT_FRAMES,
             lambda r, k=kernel: r["launches"] == {f"K1-K4:{k}": GAIT_FRAMES},
         )
+        applies = {key: timers.counts.get(key, 0) - v for key, v in applies.items()}
+        log(f"swimmer gaits (a) {name}: lu_trsv launches {lu_trsv.launches}, {applies}")
+        if not 0 < applies["lu applies"] == applies["lu applies native"] == lu_trsv.launches // 2:
+            raise AssertionError(f"swimmer gaits (a) {name}: an LU apply left the kernel: {applies}, {lu_trsv.launches}")
+        if kernel == "free_space":
+            LU_TRSV_RUNS["loop"] = dict(launches=lu_trsv.launches, **applies)
+            lu_trsv_check(f"bacterium, {sim.problem.n} nodes (24 (a))", sim.problem.preconditioner)
         check_torque(name, rec)
         if rec["solves"][0]["refactored"] is not True:
             raise AssertionError(f"swimmer gaits (a) {name}: frame 0 did not factor")
@@ -5206,6 +5301,7 @@ def smoke(folder, cpu_study):
         node_sweep_entry("planes", PLANES_KERNEL, planes_record),
         dict(route="cuda", launches=slots_launches, **SLOT_KERNEL, **slots_record),
         nodes_entry(nodes_launches, nodes_pairs, nodes_record),
+        lu_entry(),
     ]
     for entry in kernels:
         key = {"node_sweep": "free_space", "node_sweep_no_slip": "no_slip"}.get(entry["name"], entry["name"])

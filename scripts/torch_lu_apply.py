@@ -1,30 +1,41 @@
 #!/usr/bin/env python3
-"""The stale-LU preconditioner's apply on the card, against `torch.linalg.lu_solve`.
+"""The stale-LU preconditioner's apply on the card: the kernel of
+`csrc/lu_trsv.cu` against `torch.linalg.solve_triangular` and `lu_solve`.
 
-    python3 scripts/torch_lu_apply.py [--n 23101] [--applies 20] [--frames 3]
+    python3 scripts/torch_lu_apply.py [--sizes 23101,18444] [--dtypes f64,f32]
+                                      [--route both|kernel|solve_triangular]
+                                      [--applies 20] [--frames 3]
                                       [--blocks 8] [--block-size 3072]
                                       [--root DIR] [--out FILE]
 
-Factors a seeded nonsymmetric n x n float64 matrix on the card with
-`LUPreconditioner.set_up` and, for one right-hand side at a time (rows of a
-[k, n] tensor, as GMRES passes them): checks that `LUPreconditioner.apply`
-gives `torch.linalg.lu_solve`'s bits, that the apply
-makes no host sync (`torch.cuda.set_sync_debug_mode("error")`), times both
-routes with CUDA events (`--applies` calls each, after a warm-up), and lists
-each route's device kernels over 5 calls from `torch.profiler` (calls and
-device ms a call).  With `--frames F` > 0 it then runs F frames of
-chip_smoke.py's bacterium loop (23,101 unknowns, the stale LU refactored
-past 100 iterations) with every apply checked against `lu_solve` of the
-factors it holds, and reports the applies, the mismatches and the counters
-`lu permutations` / `lu applies`.  `--root` imports bemstokes_tpu_torch
-and chip_smoke.py from another checkout (an older tree's apply is timed the
-same way).  With `--blocks B` > 0 it factors a batch of B seeded
-`--block-size` blocks (the matrix-free block-Jacobi's 8 x 3,072 at the
-bacterium's width) and, for one and for seven columns (an iteration's
-apply and the Schur tail's), compares `la.direct.lu_apply` with the kept
-permutations against `torch.linalg.lu_solve` on the pivots: bits, the time
-of each (CUDA events) and of the host's walk over the batch's pivots, and
-their kernels.  Prints the card's name and power limit first and one JSON
+For each size and factor dtype it factors a seeded nonsymmetric n x n matrix
+on the card with `LUPreconditioner.set_up` (float64, cast to float32 for an
+f32 factor, as `factor_dtype` does) and, for one right-hand side at a time
+(rows of a [k, n] tensor, as GMRES passes them), for each route: the kernel
+(`ops.lu_trsv`, the preconditioner's plan) and `solve_triangular` (the
+gather and the two solves, `la.direct.lu_apply`).  It reports
+each triangle's ms (CUDA events, `--applies` calls after a warm-up) beside
+its bytes bound (n^2 / 2 values read at 3.35 TB/s) and their share, the
+whole apply's ms, the relative difference from `torch.linalg.lu_solve`
+(max |x - x_ref| / max |x_ref|; `solve_triangular` gives its bits), whether
+the apply or the plan's preparation makes a host sync
+(`torch.cuda.set_sync_debug_mode("error")`), the SM clock sampled by
+`nvidia-smi` while the kernel runs (`torch_sass_count.py`'s sampler), and
+each route's device kernels over 5 applies (`torch.profiler`).  The
+kernel's build prints its registers, shared memory and spills first.
+
+With `--frames F` > 0 it then runs F frames of chip_smoke.py's bacterium
+loop (23,101 unknowns, the stale LU refactored past 100 iterations) with
+every apply held against `lu_solve` of the factors it holds, and reports the
+applies, the largest relative difference and the counters `lu
+permutations`, `lu applies`, `lu applies native`.  `--root` imports
+bemstokes_tpu_torch and chip_smoke.py from another checkout (an older
+tree's apply is timed the same way; `--route solve_triangular` there).  With
+`--blocks B` > 0 it factors a batch of B seeded `--block-size` blocks (the
+matrix-free block-Jacobi's 8 x 3,072 at the bacterium's width), which the
+kernel does not take, and for one and for seven columns compares
+`la.direct.lu_apply` with the kept permutations against `lu_solve` (bits,
+times, kernels).  Prints the card's name and power limit first and one JSON
 line last, also written to `--out`.
 """
 
@@ -37,6 +48,10 @@ import time
 from pathlib import Path
 
 import torch
+from torch_sass_count import ClockSampler
+
+HBM_BYTES_PER_S = 3.35e12
+DTYPES = {"f64": torch.float64, "f32": torch.float32}
 
 
 def device_kernels(fn, calls=5):
@@ -67,11 +82,27 @@ def event_ms(fn, calls):
     return start.elapsed_time(end) / calls
 
 
-def isolated(n, applies, direct):
+def rel_diff(x, ref):
+    return float((x - ref).abs().max() / ref.abs().max())
+
+
+def syncs(fn):
+    """Whether fn makes a host sync that torch sees."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+        return False
+    except RuntimeError:
+        return True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def isolated(n, dtype, applies, routes, direct, lu_trsv, sampler):
     g = torch.Generator(device="cuda").manual_seed(20)
     A = torch.randn(n, n, generator=g, dtype=torch.float64, device="cuda")
-    V = torch.randn(8, n, generator=g, dtype=torch.float64, device="cuda")
-    p = direct.LUPreconditioner()
+    V = torch.randn(8, n, generator=g, dtype=torch.float64, device="cuda").to(dtype)
+    p = direct.LUPreconditioner(factor_dtype=dtype)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     p.set_up(A)
@@ -79,37 +110,72 @@ def isolated(n, applies, direct):
     set_up_ms = (time.perf_counter() - t0) * 1e3
     del A
     lu, piv = p._factors
-    swapped = int((piv != torch.arange(1, n + 1, dtype=piv.dtype, device=piv.device)).sum())
+    perm = p._perm
+    out = dict(n=n, dtype=str(dtype), set_up_ms=set_up_ms, layout_column_major=lu.mT.is_contiguous())
+    bound_ms = n * n / 2 * lu.element_size() / HBM_BYTES_PER_S * 1e3
+    out["triangle_bound_ms"] = bound_ms
 
-    def old(j=0):
+    def lu_solve(j=0):
         return torch.linalg.lu_solve(lu, piv, V[j][:, None])[:, 0]
 
-    def new(j=0):
-        return p.apply(V[j])
+    refs = [lu_solve(j) for j in range(V.shape[0])]
+    if "kernel" in routes:
+        plan = p._plan
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh = lu_trsv.plan(lu)
+        torch.cuda.synchronize()
+        out_k = dict(plan_ms=(time.perf_counter() - t0) * 1e3, plan_syncs=syncs(lambda: lu_trsv.plan(lu)))
+        del fresh
+        lib = lu_trsv._library()
+        x = torch.empty(n, dtype=dtype, device="cuda")
 
-    for _ in range(3):
-        old(), new()
-    equal = all(torch.equal(new(j), old(j)) for j in range(V.shape[0]))
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        for j in range(V.shape[0]):
-            new(j)
-        apply_syncs = False
-    except RuntimeError:
-        apply_syncs = True
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    return dict(
-        n=n,
-        set_up_ms=set_up_ms,
-        rows_swapped=swapped,
-        bit_for_bit=equal,
-        apply_syncs=apply_syncs,
-        lu_solve_ms=[event_ms(old, applies), event_ms(old, applies)],
-        apply_ms=[event_ms(new, applies), event_ms(new, applies)],
-        lu_solve_kernels=device_kernels(old),
-        apply_kernels=device_kernels(new),
-    )
+        def apply(j=0):
+            return p.apply(V[j])
+
+        def lower():
+            plan._launch(lib, False, V[0], 1, perm, plan.y)
+
+        def upper():
+            plan._launch(lib, True, plan.y, 1, None, x)
+
+        for _ in range(3):
+            apply()
+        out_k["rel_diff_lu_solve"] = max(rel_diff(apply(j), refs[j]) for j in range(V.shape[0]))
+        out_k["same_bits_twice"] = bool(torch.equal(apply(1), apply(1)))
+        out_k["apply_syncs"] = syncs(lambda: [apply(j) for j in range(V.shape[0])])
+        t0 = time.perf_counter()
+        out_k["lower_ms"] = [event_ms(lower, applies), event_ms(lower, applies)]
+        out_k["upper_ms"] = [event_ms(upper, applies), event_ms(upper, applies)]
+        out_k["apply_ms"] = [event_ms(apply, applies), event_ms(apply, applies)]
+        out_k["sm_clock"] = sampler.between(t0, time.perf_counter())
+        out_k["lower_share_of_bound"] = bound_ms / min(out_k["lower_ms"])
+        out_k["upper_share_of_bound"] = bound_ms / min(out_k["upper_ms"])
+        out_k["kernels"] = device_kernels(apply)
+        out["kernel"] = out_k
+    if "solve_triangular" in routes:
+
+        def apply_st(j=0):
+            return direct.lu_apply(lu, perm, V[j])
+
+        xp = V[0][perm][:, None]
+        y = torch.linalg.solve_triangular(lu, xp, upper=False, unitriangular=True)
+        for _ in range(3):
+            apply_st()
+        out_s = dict(
+            bit_for_bit_lu_solve=all(torch.equal(apply_st(j), refs[j]) for j in range(V.shape[0])),
+            apply_syncs=syncs(lambda: [apply_st(j) for j in range(V.shape[0])]),
+            lower_ms=[event_ms(lambda: torch.linalg.solve_triangular(lu, xp, upper=False, unitriangular=True),
+                               applies)],
+            upper_ms=[event_ms(lambda: torch.linalg.solve_triangular(lu, y, upper=True), applies)],
+            apply_ms=[event_ms(apply_st, applies), event_ms(apply_st, applies)],
+            lu_solve_ms=[event_ms(lu_solve, applies)],
+            kernels=device_kernels(apply_st),
+        )
+        out_s["lower_share_of_bound"] = bound_ms / out_s["lower_ms"][0]
+        out_s["upper_share_of_bound"] = bound_ms / out_s["upper_ms"][0]
+        out["solve_triangular"] = out_s
+    return out
 
 
 def blocks(nb, size, applies, direct):
@@ -136,7 +202,7 @@ def blocks(nb, size, applies, direct):
         x_old, x_new = old(), new()
         out[f"cols_{cols}"] = dict(
             bit_for_bit=bool(torch.equal(x_old, x_new)),
-            max_rel_diff=float((x_old - x_new).abs().max() / x_old.abs().max()),
+            max_rel_diff=rel_diff(x_new, x_old),
             lu_solve_ms=[event_ms(old, applies), event_ms(old, applies)],
             lu_apply_ms=[event_ms(new, applies), event_ms(new, applies)],
             lu_solve_kernels=device_kernels(old),
@@ -150,7 +216,7 @@ def frames(count, direct):
     from bemstokes_tpu_torch.swimmer import SwimmerSimulation
     from bemstokes_tpu_torch.utils import timers
 
-    seen = dict(applies=0, mismatches=0, max_abs_diff=0.0)
+    seen = dict(applies=0, max_rel_diff=0.0)
     apply = direct.LUPreconditioner.apply
 
     def checked(self, v):
@@ -158,9 +224,7 @@ def frames(count, direct):
         lu = self._factors[0]
         ref = torch.linalg.lu_solve(lu, self._factors[1], v.to(lu.dtype)[:, None])[:, 0].to(v.dtype)
         seen["applies"] += 1
-        if not torch.equal(y, ref):
-            seen["mismatches"] += 1
-            seen["max_abs_diff"] = max(seen["max_abs_diff"], float((y - ref).abs().max()))
+        seen["max_rel_diff"] = max(seen["max_rel_diff"], rel_diff(y, ref))
         return y
 
     direct.LUPreconditioner.apply = checked
@@ -171,15 +235,16 @@ def frames(count, direct):
         with tempfile.TemporaryDirectory() as out:
             SwimmerSimulation(cfg, out).run(0, count)
     direct.LUPreconditioner.apply = apply
-    seen["gmres_iterations"] = timers.counts.get("gmres iterations")
-    seen["lu_permutations"] = timers.counts.get("lu permutations")
-    seen["lu_applies"] = timers.counts.get("lu applies")
+    for key in ("gmres iterations", "lu permutations", "lu applies", "lu applies native"):
+        seen[key.replace(" ", "_")] = timers.counts.get(key)
     return seen
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--n", type=int, default=23101)
+    ap.add_argument("--sizes", default="23101,18444")
+    ap.add_argument("--dtypes", default="f64,f32")
+    ap.add_argument("--route", choices=("both", "kernel", "solve_triangular"), default="both")
     ap.add_argument("--applies", type=int, default=20)
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--blocks", type=int, default=0)
@@ -196,7 +261,26 @@ def main():
     ).stdout.strip()
     print(card, flush=True)
     result = dict(card=card, torch=torch.__version__, root=str(Path(args.root).resolve()))
-    result["isolated"] = isolated(args.n, args.applies, direct)
+    routes = ("kernel", "solve_triangular") if args.route == "both" else (args.route,)
+    lu_trsv = None
+    if "kernel" in routes:
+        from bemstokes_tpu_torch.ops import cuda_build, lu_trsv
+
+        lib_path, proc, tmp = cuda_build._start_build(lu_trsv.SOURCE)
+        build = cuda_build._finish_build(lu_trsv.SOURCE, lib_path, proc, tmp)
+        result["ptxas"] = [line.strip() for line in build.splitlines() if "registers" in line or "spill" in line]
+        print("\n".join(result["ptxas"]), flush=True)
+    sampler = ClockSampler()
+    try:
+        result["isolated"] = []
+        for n in (int(v) for v in args.sizes.split(",")):
+            for name in args.dtypes.split(","):
+                row = isolated(n, DTYPES[name], args.applies, routes, direct, lu_trsv, sampler)
+                print(json.dumps({k: v for k, v in row.items()}), flush=True)
+                result["isolated"].append(row)
+                torch.cuda.empty_cache()
+    finally:
+        sampler.stop()
     if args.blocks:
         result["blocks"] = blocks(args.blocks, args.block_size, args.applies, direct)
     if args.frames:

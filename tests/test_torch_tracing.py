@@ -15,6 +15,7 @@ import torch
 from bemstokes_tpu_torch.config import ProblemConfig, QuadratureConfig, WallConfig
 from bemstokes_tpu_torch.la.direct import LUPreconditioner
 from bemstokes_tpu_torch.la.gmres import gmres
+from bemstokes_tpu_torch.ops import lu_trsv
 from bemstokes_tpu_torch.swimmer import SwimmerSimulation
 from bemstokes_tpu_torch.utils import timers
 import torch_threads  # noqa: F401  (one torch thread a test process)
@@ -350,3 +351,29 @@ def test_lu_preconditioner_counts_permutations_and_applies(registry, traced):
     assert len(applies) == its and all(s.counts == {"lu applies": 1} for s in applies)
     (g,) = named("GMRES")
     assert g.counts["lu applies"] == cycles
+
+
+def test_lu_applies_native_is_not_counted_on_the_cpu(registry):
+    """On the CPU the stale LU has no kernel plan: `lu applies` counts every
+    apply, `lu applies native` none; the kernel's entry point refuses a
+    factor it cannot read and a right-hand side of another dtype."""
+    A, b = dense_system(seed=4)
+    p = LUPreconditioner()
+    p.set_up(A)
+    assert p._plan is None
+    for _ in range(3):
+        p.apply(b)
+    assert timers.counts["lu applies"] == 3
+    assert timers.counts.get("lu applies native", 0) == 0
+    lu = p._factors[0]
+    assert lu_trsv.plan(lu) is None
+    with pytest.raises(ValueError, match="column-major"):
+        lu_trsv.TrsvPlan(lu.contiguous(), grid=1)  # row-major
+    with pytest.raises(ValueError, match="column-major"):
+        lu_trsv.TrsvPlan(torch.linalg.lu_factor(torch.eye(80, dtype=A.dtype))[0][::2, ::2], grid=1)  # strided
+    with pytest.raises(ValueError, match="one square factor"):
+        lu_trsv.TrsvPlan(torch.stack([lu, lu]), grid=1)  # batched
+    with pytest.raises(TypeError, match="float32 or float64"):
+        lu_trsv.TrsvPlan(lu.mT.to(torch.float16).mT, grid=1)
+    with pytest.raises(TypeError, match="b is torch.float32"):
+        lu_trsv.TrsvPlan(lu, grid=1).solve(p._perm, b.float())
