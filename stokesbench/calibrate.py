@@ -6,12 +6,14 @@ and the control's (the upper readings), in one process on the card.
         --control-seeds 3 --seconds 8 [--out FILE]
 
 For each seed the cell runs as the benchmark runs it (`harness.run_cell`,
-untraced, a short window at the cell's own load), and the frames the run
-checks are judged: the program's outputs, and for the first
-`--control-seeds` seeds the control's, against the float64 reference from
-the same carried state.  The control is
-the reference in the precision below the one the configuration states
-(float32 for float64).  The benchmark's own runs never run this."""
+untraced, a short window at the cell's own load; a cell over several cards
+through the same launch of its ranks), and the frames the run checks are
+judged: the program's outputs, and for the first `--control-seeds` seeds
+the control's, against the float64 reference from the same carried state.
+The control is the configuration's reference module's (`Control`): for
+`loop` the reference in the precision below the one the configuration
+states (float32 for float64), for `streamed` the program's solution
+rounded to float32.  The benchmark's own runs never run this."""
 
 import argparse
 import json

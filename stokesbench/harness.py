@@ -1,6 +1,8 @@
 """One run of one cell: the inputs from the seed, set-up and warm-up, the
 measured window of frames, the traced reading of the layers, the check of
-the window's frames against the plain reference, and the result line.
+the window's frames against the plain reference, and the result line.  A
+cell whose `chips` is W > 1 runs one process a card (`ranks.py`), each rank
+through `measure`; this process is rank 0, which alone traces and checks.
 
 Everything a cell needs is found by name: `BENCHMARK.json` names the cell's
 configuration, traffic mix and metrics; `configs/<config>.json`,
@@ -197,36 +199,130 @@ def pick_frames(frames, iterations, count, seed):
     return [first] + sorted(int(f) for f in extra)
 
 
+def reference_module(cell):
+    """The module of `reference/` that judges the cell's frames: the
+    configuration's `reference` (default `loop`)."""
+    return importlib.import_module(f".reference.{cell.config.get('reference', 'loop')}", __package__)
+
+
 def check(loop, cell, frames, device, control=False):
     """({number: worst gap over `frames`} of the program's frames against the
-    float64 plain reference, and the same of the control, the reference in
-    float32 put in the program's place, or None unless `control`).  The
-    numbers are those `reference.loop.judge` gives for the configuration."""
+    float64 plain reference, and the same of the control, or None unless
+    `control`).  The numbers are those the configuration's reference module
+    (`reference_module`) judges, and its control is that module's."""
     import torch
 
-    from .reference import loop as refloop
-
-    ref = refloop.Reference(loop.problem, dtype=torch.float64, device=device)
-    ctl = refloop.Reference(loop.problem, dtype=torch.float32, device=device) if control else None
+    ref_mod = reference_module(cell)
+    ref = ref_mod.Reference(loop.problem, dtype=torch.float64, device=device)
+    ctl = ref_mod.Control(loop.problem, device) if control else None
     worst, worst_ctl = {}, {} if control else None
     for k in frames:
         rot, disp, cand = loop.outputs(k)
-        exp = refloop.expected(ref, k, rot, disp)
-        for n, g in refloop.judge(ref, exp, rot, disp, cand).items():
+        exp = ref_mod.expected(ref, k, rot, disp)
+        for n, g in ref_mod.judge(ref, exp, rot, disp, cand).items():
             worst[n] = max(worst.get(n, 0.0), g)
         if control:
-            for n, g in refloop.judge(ref, exp, rot, disp, ctl.candidate(k, rot, disp)).items():
+            for n, g in ref_mod.judge(ref, exp, rot, disp, ctl.candidate(k, rot, disp, cand)).items():
                 worst_ctl[n] = max(worst_ctl.get(n, 0.0), g)
     return worst, worst_ctl
+
+
+@dataclasses.dataclass
+class Window:
+    """What `measure` gives of one run: the (closed) loop, the metric
+    readers' `Record`, the warm-up's seconds, the window's frames and their
+    GMRES iterations, and every rank's peak allocated bytes."""
+
+    loop: Loop
+    rec: Record
+    warmup_s: float
+    frames: list
+    iterations: list
+    peaks: list
+
+
+def measure(cell, seed, seconds, trace, device, work, problem_overrides=None, geometry_overrides=None,
+            fault=None, t_start=None, group=None):
+    """Set-up, warm-up and the measured window of one run (a `Window`), on
+    each rank of a cell over several cards (`group`, a `ranks.Group`, which
+    it closes once the window has closed, or None on one card); the program
+    is freed at the end."""
+    import torch
+
+    cuda = torch.device(device).type == "cuda"
+    loop = Loop(cell, seed, work, device, problem_overrides, geometry_overrides)
+    if fault is not None:
+        fault(loop)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t_warm = time.perf_counter()
+    for _ in range(cell.traffic["warmup_frames"]):
+        loop.step()
+    warmup_s = time.perf_counter() - t_warm
+    spans = prof = None
+    if trace:
+        from . import spans as spans_mod
+
+        spans = spans_mod.install(loop.sim, cuda)
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if cuda:
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.__enter__()
+    if group is not None:
+        group.barrier()
+    setup_s = time.perf_counter() - t_start
+    frames, seconds_of, iterations = [], [], []
+    window = torch.profiler.record_function("stokesbench.window") if trace else contextlib.nullcontext()
+    with window:
+        t0 = time.perf_counter()
+        while True:
+            ts = time.perf_counter()
+            k = loop.step()
+            te = time.perf_counter()
+            stop = te - t0 >= seconds
+            if group is not None:
+                stop = group.frame_done(k, stop)
+                te = time.perf_counter()
+            frames.append(k)
+            seconds_of.append(te - ts)
+            iterations.append(loop.sim.history[-1]["iterations"])
+            if stop:
+                break
+    window_s = te - t0
+    peaks = [torch.cuda.max_memory_allocated() if cuda else 0]
+    if group is not None:
+        # the group's last collective, before rank 0 stops its profiler and
+        # reduces the trace, which the other ranks need not wait for
+        peaks = [int(p) for p, in group.gather(peaks)]
+        group.close()
+    reduced = None
+    if trace:
+        prof.__exit__(None, None, None)
+        from . import trace as trace_mod
+
+        t_reduce = time.perf_counter()
+        reduced = trace_mod.reduce(trace_mod.raw_events(prof))
+        reduced["reduce_s"] = time.perf_counter() - t_reduce
+        del prof
+        spans.restore()
+    rec = Record(cell, setup_s, seconds_of, window_s, max(peaks), spans, reduced)
+    loop.close()
+    return Window(loop, rec, warmup_s, frames, iterations, peaks)
 
 
 def run_cell(name, seed, seconds, trace, device="cuda", problem_overrides=None, geometry_overrides=None,
              t_start=None, bench=None, fault=None, control=False):
     """One run of cell `name`; returns the result dict (the last line).
     `fault(loop)`, for the harness's own tests, breaks the program's timed
-    path before the warm-up.  With `control` the result also holds the
-    control's gaps (`check`), for `calibrate.py`; the benchmark's runs
-    never set it."""
+    path before the warm-up (on every rank: a fault of a cell over several
+    cards is a module-level function, which the other ranks import by
+    name).  With `control` the result also holds the control's gaps
+    (`check`), for `calibrate.py`; the benchmark's runs never set it.
+
+    A cell with `chips` W > 1 runs on W cards, one process a card
+    (`ranks.py`): this process is rank 0, the only one that traces, checks
+    and returns a result."""
     import torch
 
     t_start = time.perf_counter() if t_start is None else t_start
@@ -234,56 +330,28 @@ def run_cell(name, seed, seconds, trace, device="cuda", problem_overrides=None, 
     cuda = torch.device(device).type == "cuda"
     tmp = os.environ.get("TMPDIR") or tempfile.gettempdir()
     work = tempfile.mkdtemp(prefix="stokesbench-", dir=tmp)
+    world, children, group = cell.entry["chips"], None, None
     try:
-        loop = Loop(cell, seed, work, device, problem_overrides, geometry_overrides)
-        if fault is not None:
-            fault(loop)
-        if cuda:
-            torch.cuda.reset_peak_memory_stats()
-        t_warm = time.perf_counter()
-        for _ in range(cell.traffic["warmup_frames"]):
-            loop.step()
-        warmup_s = time.perf_counter() - t_warm
-        spans = prof = None
-        if trace:
-            from . import spans as spans_mod
+        if world > 1:
+            from . import ranks
 
-            spans = spans_mod.install(loop.sim, cuda)
-            activities = [torch.profiler.ProfilerActivity.CPU]
-            if cuda:
-                activities.append(torch.profiler.ProfilerActivity.CUDA)
-            prof = torch.profiler.profile(activities=activities)
-            prof.__enter__()
-        setup_s = time.perf_counter() - t_start
-        frames, seconds_of, iterations = [], [], []
-        window = torch.profiler.record_function("stokesbench.window") if trace else contextlib.nullcontext()
-        with window:
-            t0 = time.perf_counter()
-            while True:
-                ts = time.perf_counter()
-                k = loop.step()
-                te = time.perf_counter()
-                frames.append(k)
-                seconds_of.append(te - ts)
-                iterations.append(loop.sim.history[-1]["iterations"])
-                if te - t0 >= seconds:
-                    break
-        window_s = te - t0
-        reduced = None
-        if trace:
-            prof.__exit__(None, None, None)
-            from . import trace as trace_mod
-
-            t_reduce = time.perf_counter()
-            reduced = trace_mod.reduce(trace_mod.raw_events(prof))
-            reduced["reduce_s"] = time.perf_counter() - t_reduce
-            del prof
-            spans.restore()
-        peak = torch.cuda.max_memory_allocated() if cuda else 0
+            if not cell.traffic["problem"].get("distributed"):
+                raise SystemExit(f"{name}: a cell on {world} cards needs a mix with `distributed` set")
+            spec = dict(name=name, seed=seed, seconds=seconds, device=str(device), problem_overrides=problem_overrides,
+                        geometry_overrides=geometry_overrides, bench=bench, fault=ranks.fault_name(fault), folder=work)
+            children = ranks.Ranks(world, spec, work)
+            group = ranks.Group.join(world, device, children.port)
+        w = measure(cell, seed, seconds, trace, device, Path(work) / "rank0" if group else work, problem_overrides,
+                    geometry_overrides, fault, t_start, group)
+        if group is not None:
+            others = children.join()
+            found = {o["rank"]: o["forbidden"] for o in others if o["forbidden"]}
+            if found:
+                raise SystemExit(f"stokesbench: modules of JAX or the JAX package were loaded on rank(s) {found}")
+        loop, rec, frames, iterations = w.loop, w.rec, w.frames, w.iterations
         max_steps = loop.problem["solver"].get("max_steps", 1000)
         failed = sum(1 for i in iterations if i >= max_steps)
-        rec = Record(cell, setup_s, seconds_of, window_s, peak, spans, reduced)
-        loop.close()
+        reduced, spans, peak = rec.trace, rec.spans, rec.peak_bytes
 
         checked = pick_frames(frames, iterations, cell.traffic["check_frames"], seed)
         t_ref = time.perf_counter()
@@ -303,7 +371,7 @@ def run_cell(name, seed, seconds, trace, device="cuda", problem_overrides=None, 
         dev = dict(
             platform="gpu" if cuda else "cpu",
             kind=torch.cuda.get_device_name(0) if cuda else "cpu",
-            count=1,
+            count=world,
             memory_peak_bytes=int(peak),
             card=card_line() if cuda else "cpu",
             torch=torch.__version__,
@@ -315,21 +383,27 @@ def run_cell(name, seed, seconds, trace, device="cuda", problem_overrides=None, 
         result["timings"] = dict(
             inputs_s=loop.inputs_s,
             init_s=loop.init_s,
-            warmup_s=warmup_s,
+            warmup_s=w.warmup_s,
             reference_s=reference_s,
             trace_reduce_s=reduced["reduce_s"] if reduced else None,
             frames=len(frames),
-            frame_quartiles=[float(q) for q in np.percentile(seconds_of, [0, 25, 50, 75, 100])],
+            frame_quartiles=[float(q) for q in np.percentile(rec.frame_seconds, [0, 25, 50, 75, 100])],
         )
         if reduced is not None:
             traced = [s for s in spans.records if s.info and "call" in s.info]
             result["timings"]["traced_calls"] = dict(
                 calls=len(traced), with_device_time=sum(f"{s.name}#{s.info['call']}" in reduced["span_device_s"]
                                                         for s in traced))
+        if group is not None:
+            result["timings"]["ranks"] = [dict(rank=0, frames=frames, peak_bytes=w.peaks[0])] + [
+                dict(rank=o["rank"], frames=o["frames"], peak_bytes=p) for o, p in zip(others, w.peaks[1:])]
         result["checked_frames"] = checked
         if control:
             result["control"] = gaps_ctl
         result["checks"] = checks
         return result
     finally:
+        if children is not None:
+            children.close()
         shutil.rmtree(work, ignore_errors=True)
+

@@ -360,6 +360,14 @@ class Frame:
 
     def _singular(self, euler, V, K):
         """Own panels by the Duffy rule of the row's local node."""
+        rows, cols, Vl, Kl = self.singular_blocks(euler)
+        self._scatter(V, rows, cols, Vl)
+        self._scatter(K, rows, cols, Kl)
+
+    def singular_blocks(self, euler):
+        """(rows [R], cols [R, 1, 4], V and K blocks [R, 1, 3, 3, 4]) of each
+        (panel, local node) pair: the row of the node against its own panel
+        by the Duffy rule of that node."""
         w, phi, dphi = self.sing  # [4, qs], [4, qs, 4], [4, qs, 4, 2]
         ec = euler[self.cells_t]  # [Nc, 4, 3]
         xq = torch.einsum("lqm,cmd->clqd", phi, ec)
@@ -377,13 +385,19 @@ class Frame:
         Nc = ec.shape[0]
         rows = self.cells_t.reshape(-1)  # (c, l) -> its node
         cols = self.cells_t[:, None, :].expand(Nc, 4, 4).reshape(-1, 1, 4)
-        self._scatter(V, rows, cols, Vl.reshape(Nc * 4, 1, 3, 3, 4))
-        self._scatter(K, rows, cols, Kl.reshape(Nc * 4, 1, 3, 3, 4))
+        return rows, cols, Vl.reshape(Nc * 4, 1, 3, 3, 4), Kl.reshape(Nc * 4, 1, 3, 3, 4)
 
-    def _near(self, euler, V, K, RC=1024):
+    def _near(self, euler, V, K):
         """Each row's `near_panels` nearest panels (by centre, ties to the
         lower index), own panels left out, raised from the far rule to the
         near rule."""
+        for rows, cols, dV, dK in self.near_blocks(euler):
+            self._scatter(V, rows, cols, dV)
+            self._scatter(K, rows, cols, dK)
+
+    def near_blocks(self, euler, RC=1024):
+        """Yield (rows [R], cols [R, P, 4], V and K deltas [R, P, 3, 3, 4]) of
+        `_near`, RC rows at a time."""
         ec = euler[self.cells_t]
         centers = ec.mean(dim=1)
         Kn = min(self.near_panels, ec.shape[0])
@@ -396,8 +410,7 @@ class Frame:
             keep = (~torch.any(cols == rows[:, None, None], dim=-1)).to(self.dt)[..., None, None, None]
             Vh, Kh = self._local(ec[near], xi, self.hi)
             Vf, Kf = self._local(ec[near], xi, self.far)
-            self._scatter(V, rows, cols, (Vh - Vf) * keep)
-            self._scatter(K, rows, cols, (Kh - Kf) * keep)
+            yield rows, cols, (Vh - Vf) * keep, (Kh - Kf) * keep
 
     # ---- mass, normal, rigid modes
     def mass(self, v, jxw):
@@ -457,6 +470,55 @@ class Frame:
         swimmer, the gait rate and the transmitted motor torque."""
         n, dt, dev = self.n, self.dt, self.dev
         euler = torch.as_tensor(euler, dtype=dt, device=dev)
+        s = self.system(euler, grid=grid, imposed_component=imposed_component, rotation=rotation,
+                        flagellum=flagellum, motor_torque=motor_torque, pole=pole)
+        nf, Mnf, l2g = s["nf"], s["Mnf"], s["l2g"]
+        V, K = self.operators(euler)
+        V.add_(torch.outer(nf - V @ nf, Mnf / l2g))
+        # solid angle: each node's 3 x 3 diagonal block so that K e_b = e_b
+        C = torch.stack([K[:, b * n : (b + 1) * n].sum(dim=1) for b in range(3)], dim=-1).reshape(3, n, 3)
+        i = torch.arange(n, device=dev)
+        for a in range(3):
+            for b in range(3):
+                K[a * n + i, b * n + i] += -C[a, :, b] + (1.0 if a == b else 0.0)
+
+        def PKP(v):
+            return s["P"](s["P"](v) @ K.T)
+
+        tmp_N = PKP(s["N"])  # [6, 3n]
+        dn = 3 * n
+        torque = "mode" in s
+        size = dn + 6 + (1 if torque else 0)
+        A = torch.zeros((size, size), dtype=dt, device=dev)
+        A[:dn, :dn] = V
+        del V
+        A[:dn, dn : dn + 6] = -tmp_N.T
+        A[dn : dn + 6, :dn] = s["N_dual"]
+        if torque:
+            A[:dn, -1] = -PKP(s["mode"])
+            A[-1, :dn] = s["dual"]
+        rhs = torch.zeros(size, dtype=dt, device=dev)
+        rhs[dn:] = s["rhs"]
+        del K
+        x = torch.linalg.solve(A, rhs)
+        forces = x[:dn].reshape(3, n).T
+        out = dict(forces=forces, velocities=x[dn : dn + 6])
+        if torque:
+            out["omega"] = x[-1]
+            out["torque"] = torch.dot(s["dual"], x[:dn])
+        return {k: v.detach().cpu().numpy().astype(np.float64) for k, v in out.items()}
+
+    def system(self, euler, *, grid, imposed_component=0, rotation=None, flagellum=None,
+               motor_torque=-2.0, pole="Origin"):
+        """What the frame's monolithic system holds besides V and K, at node
+        positions euler (a tensor [n, 3]), component-blocked [3n]: the
+        L2-projected normal `nf`, its mass `Mnf` and their product `l2g`, the
+        projection `P` off the normal, the rigid modes `N` [6, 3n] about the
+        pole and their duals `N_dual`, for the swimmer the flagellum's
+        rotation mode `mode` and its dual `dual`, and the right-hand side of
+        the rows below the surface rows, `rhs` [6] or [7] (arguments as
+        `solve`)."""
+        n, dt, dev = self.n, self.dt, self.dev
         xq, normals_q, jxw = self.panels(euler, self.far)
         nv = self.normal(normals_q, jxw)
         Mn = self.mass(nv, jxw)
@@ -470,32 +532,14 @@ class Frame:
         modes += [torch.linalg.cross(eye[a].expand(n, 3), r, dim=-1) for a in range(3)]
         N = torch.stack(modes)  # [6, n, 3]: translations, rotations about the pole
         N_dual = torch.stack([self.mass(m, jxw) for m in N])
-        V, K = self.operators(euler)
-        V.add_(torch.outer(nf - V @ nf, Mnf / l2g))
-        # solid angle: each node's 3 x 3 diagonal block so that K e_b = e_b
-        C = torch.stack([K[:, b * n : (b + 1) * n].sum(dim=1) for b in range(3)], dim=-1).reshape(3, n, 3)
-        i = torch.arange(n, device=dev)
-        for a in range(3):
-            for b in range(3):
-                K[a * n + i, b * n + i] += -C[a, :, b] + (1.0 if a == b else 0.0)
 
         def P(v):
             return v - nf * ((v @ Mnf) / l2g)[..., None]
 
-        def PKP(v):
-            return P(P(v) @ K.T)
-
         flat = lambda v: v.transpose(-1, -2).reshape(*v.shape[:-2], -1)  # noqa: E731
-        tmp_N = PKP(flat(N))  # [6, 3n]
-        dn = 3 * n
+        out = dict(nf=nf, Mnf=Mnf, l2g=l2g, P=P, N=flat(N), N_dual=flat(N_dual))
         torque = grid == "Real" and flagellum is not None
-        size = dn + 6 + (1 if torque else 0)
-        A = torch.zeros((size, size), dtype=dt, device=dev)
-        A[:dn, :dn] = V
-        del V
-        A[:dn, dn : dn + 6] = -tmp_N.T
-        A[dn : dn + 6, :dn] = flat(N_dual)
-        rhs = torch.zeros(size, dtype=dt, device=dev)
+        rhs = torch.zeros(6 + (1 if torque else 0), dtype=dt, device=dev)
         if torque:
             Rm = torch.as_tensor(rotation, dtype=dt, device=dev)
             body = euler @ Rm
@@ -504,22 +548,14 @@ class Frame:
             mode = (torch.linalg.cross(ex, body, dim=-1) @ Rm.T) * torch.as_tensor(
                 flagellum, dtype=dt, device=dev
             )[:, None]
-            dual = flat(self.mass(mode, jxw))
-            A[:dn, -1] = -PKP(flat(mode))
-            A[-1, :dn] = dual
+            out.update(mode=flat(mode), dual=flat(self.mass(mode, jxw)))
             rhs[-1] = motor_torque
         elif grid == "ImposedForce":
-            rhs[dn + imposed_component] = 1.0
+            rhs[imposed_component] = 1.0
         else:
             raise ValueError(f"grid {grid!r} without a flagellum is not in the reference")
-        del K
-        x = torch.linalg.solve(A, rhs)
-        forces = x[:dn].reshape(3, n).T
-        out = dict(forces=forces, velocities=x[dn : dn + 6])
-        if torque:
-            out["omega"] = x[-1]
-            out["torque"] = torch.dot(dual, x[:dn])
-        return {k: v.detach().cpu().numpy().astype(np.float64) for k, v in out.items()}
+        out["rhs"] = rhs
+        return out
 
 
 # --------------------------------------------------------------------------

@@ -29,6 +29,11 @@ import torch
 from . import bem
 
 
+def numbers(problem):
+    """The names of the numbers `judge` gives for a configuration."""
+    return {"geometry", "state", "velocity", "traction"} | ({"omega"} if problem.get("solve_with_torque") else set())
+
+
 def frame_file(problem, k):
     return os.path.join(
         problem["input_grid_path"], f"{problem['input_grid_base_name']}{k % problem['n_frames']}.msh"
@@ -103,10 +108,11 @@ class Reference:
             disp = disp + f(dt) * np.asarray(U, dtype=f)[None, :3] * axes[None, :]
         return R.astype(f), disp
 
-    def solve(self, euler, rotation):
+    def physics(self, rotation):
+        """The frame's physics as `bem.Frame.solve` and `bem.Frame.system`
+        take it."""
         p = self.problem
-        return self.frame.solve(
-            euler,
+        return dict(
             grid=p.get("grid_type", "Real"),
             imposed_component=p.get("imposed_component", 1),
             rotation=rotation,
@@ -114,6 +120,9 @@ class Reference:
             motor_torque=p.get("imposed_motor_torque", -2.0),
             pole=p.get("force_pole", "Origin"),
         )
+
+    def solve(self, euler, rotation):
+        return self.frame.solve(euler, **self.physics(rotation))
 
     def candidate(self, k, rotation, displacements):
         """This reference put in the program's place: frame k computed from
@@ -158,3 +167,13 @@ def judge(ref, exp, rotation, displacements, cand):
     if "omega" in sol:
         gaps["omega"] = _rel(cand["omega"], sol["omega"])
     return gaps
+
+
+class Control:
+    """The control: this reference in float32, put in the program's place."""
+
+    def __init__(self, problem, device):
+        self.ref = Reference(problem, dtype=torch.float32, device=device)
+
+    def candidate(self, k, rotation, displacements, program):
+        return self.ref.candidate(k, rotation, displacements)

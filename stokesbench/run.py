@@ -3,7 +3,8 @@
     python3 stokesbench/run.py --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
 (or `python3 -m stokesbench.run ...`) from the root of a checkout, on a
-machine with a CUDA card.  The last line of standard output is the result
+machine with as many CUDA cards as the cell's `chips` (one process a card,
+this one rank 0: `ranks.py`).  The last line of standard output is the result
 (JSON); the numbers compared with the reference, each beside its limit,
 are the last lines of standard error.  Without a card, or with a module of
 JAX or of the JAX package loaded once the window has closed, it prints no
@@ -47,10 +48,13 @@ def main(argv=None):
     import torch
 
     torch.set_num_threads(1)
-    if not torch.cuda.is_available() or torch.cuda.device_count() < 1:
-        print("stokesbench: no CUDA card; the benchmark runs on the card only", file=sys.stderr)
-        return 1
     from stokesbench import harness
+
+    chips = harness.Cell.find(args.workload).entry["chips"]
+    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        print(f"stokesbench: {args.workload} runs on {chips} CUDA card(s); this machine has "
+              f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)
+        return 1
 
     result = harness.run_cell(args.workload, args.seed, args.seconds, args.trace, device="cuda", t_start=T_START)
     found = harness.forbidden_modules()

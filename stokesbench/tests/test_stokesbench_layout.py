@@ -23,10 +23,13 @@ def test_cell_found_by_name(cell):
     found = harness.Cell.find(cell["name"], BENCH)
     assert found.config["name"] == cell["config"]
     assert found.traffic["name"] == cell["traffic"]
-    # every limit names a number the reference judges in this configuration
-    judged = {"geometry", "state", "velocity", "traction"} | ({"omega"} if found.config["problem"].get(
-        "solve_with_torque") else set())
-    assert set(found.limits) == judged
+    # every limit names a number the configuration's reference judges
+    ref_mod = harness.reference_module(found)
+    assert set(found.limits) == ref_mod.numbers(found.config["problem"])
+    for attr in ("Reference", "expected", "judge", "Control"):
+        assert callable(getattr(ref_mod, attr))
+    # a cell on several cards runs the distributed frame step
+    assert cell["chips"] == 1 or found.traffic["problem"].get("distributed")
     assert any(m["name"] == "setup_s" for m in found.end_to_end)
     assert len(found.end_to_end) >= 2 and found.per_layer
 
@@ -56,7 +59,9 @@ def test_contract_shape():
     pairs = [(w["config"], w["traffic"]) for w in BENCH["workloads"]]
     assert len(set(pairs)) == len(pairs)
     for w in BENCH["workloads"]:
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
+    four = sum(w["chips"] == 4 for w in BENCH["workloads"])
+    assert four <= max(1, len(BENCH["workloads"]) // 4)
     layers = {}
     for m in BENCH["per_layer"]:
         layers.setdefault(m["layer"], m["layer"])
