@@ -21,6 +21,11 @@ Solve: block forward and backward substitution.  At step k rank k solves
 its [m, m] triangular block and broadcasts the m-vector; every later
 (earlier) rank folds it into its accumulator with an [m, m] GEMV.
 
+The factorization is the scope "Slab LU factor" and each solve the span
+"Slab LU apply" (attributes `world`, `m` and `steps`: W broadcasts of a
+block row, 2W of a solution block); their broadcasts are counted by
+`sharded.collective`.
+
 `torch.linalg.lu_factor` returns LAPACK's 1-based pivots (row i swapped
 with row piv[i] - 1, in order); the JAX package's are 0-based and turned
 into a permutation by `lu_pivots_to_permutation`.
@@ -32,19 +37,15 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ..la.direct import pivots_to_permutation
-from .sharded import RowMesh, padded_rows
+from ..utils import timers
+from .sharded import RowMesh, collective, padded_rows
 
 
 def _slab_geometry(n_nodes: int, dim: int, mesh: RowMesh):
     _, nloc = padded_rows(n_nodes, mesh)
     return mesh.world, nloc, dim * nloc
-
-
-def _src(mesh: RowMesh, k: int) -> int:
-    return dist.get_global_rank(mesh.group, k)
 
 
 def slab_reorder_columns(A_loc: torch.Tensor, n_nodes: int, dim: int, mesh: RowMesh):
@@ -83,33 +84,33 @@ def slab_lu_factor(A2_loc: torch.Tensor, mesh: RowMesh):
     m = A2_loc.shape[1] // W
     A = A2_loc.contiguous()
     perm = torch.arange(m, device=A.device)
-    for j in range(W):
-        c0, c1 = j * m, (j + 1) * m
-        pivot = A if rank == j else torch.empty(A.shape, dtype=A.dtype, device=A.device)
-        if W > 1:
-            dist.broadcast(pivot, src=_src(mesh, j), group=mesh.group)
-        if rank < j:
-            continue
-        lu_D, piv_D = torch.linalg.lu_factor(pivot[:, c0:c1])
-        perm_D = pivots_to_permutation(piv_D)
-        if rank == j:
-            # U block row: L_jj^{-1} P_j on the trailing columns; the left
-            # columns hold L factors of earlier steps and only get P_j
-            row = pivot[perm_D]
-            row[:, c0:c1] = lu_D
-            if c1 < A.shape[1]:
-                row[:, c1:] = torch.linalg.solve_triangular(
-                    lu_D, row[:, c1:], upper=False, unitriangular=True
+    with timers.scope("Slab LU factor", world=W, m=m, steps=W):
+        for j in range(W):
+            c0, c1 = j * m, (j + 1) * m
+            pivot = A if rank == j else torch.empty(A.shape, dtype=A.dtype, device=A.device)
+            pivot = collective("broadcast", pivot, mesh, src=j)
+            if rank < j:
+                continue
+            lu_D, piv_D = torch.linalg.lu_factor(pivot[:, c0:c1])
+            perm_D = pivots_to_permutation(piv_D)
+            if rank == j:
+                # U block row: L_jj^{-1} P_j on the trailing columns; the left
+                # columns hold L factors of earlier steps and only get P_j
+                row = pivot[perm_D]
+                row[:, c0:c1] = lu_D
+                if c1 < A.shape[1]:
+                    row[:, c1:] = torch.linalg.solve_triangular(
+                        lu_D, row[:, c1:], upper=False, unitriangular=True
+                    )
+                A, perm = row, perm_D
+            else:
+                trailing = torch.linalg.solve_triangular(
+                    lu_D, pivot[perm_D, c1:], upper=False, unitriangular=True
                 )
-            A, perm = row, perm_D
-        else:
-            trailing = torch.linalg.solve_triangular(
-                lu_D, pivot[perm_D, c1:], upper=False, unitriangular=True
-            )
-            L_kj = torch.linalg.solve_triangular(lu_D, A[:, c0:c1], upper=True, left=False)
-            A[:, c1:] -= L_kj @ trailing
-            A[:, c0:c1] = L_kj
-        del pivot
+                L_kj = torch.linalg.solve_triangular(lu_D, A[:, c0:c1], upper=True, left=False)
+                A[:, c1:] -= L_kj @ trailing
+                A[:, c0:c1] = L_kj
+            del pivot
     return A, perm
 
 
@@ -141,13 +142,13 @@ def slab_lu_solve(LU_loc: torch.Tensor, perm_loc: torch.Tensor, b_loc: torch.Ten
                 out = xk
             else:
                 xk = torch.empty(acc.shape, dtype=acc.dtype, device=acc.device)
-            if W > 1:
-                dist.broadcast(xk, src=_src(mesh, k), group=mesh.group)
+            xk = collective("broadcast", xk, mesh, src=k)
             if (rank < k) if upper else (rank > k):
                 acc = acc - block(k) @ xk
         return out
 
-    acc = sweep(range(W), upper=False)  # y: forward, unit lower
-    x = sweep(range(W - 1, -1, -1), upper=True)
+    with timers.span("Slab LU apply", world=W, m=m, steps=2 * W):
+        acc = sweep(range(W), upper=False)  # y: forward, unit lower
+        x = sweep(range(W - 1, -1, -1), upper=True)
     x = x.to(b_loc.dtype)
     return x[:, 0] if vec else x

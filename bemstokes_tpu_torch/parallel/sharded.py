@@ -12,9 +12,11 @@ component-blocked flat layout, the same tensor on every rank (replicated).
 
 Where the JAX package's `shard_map` bodies reshard implicitly (a row-sharded
 result read as a replicated value), the port gathers explicitly: every
-collective of this package is a plain `torch.distributed` call on the
-mesh's group, at the place where the JAX package has its `psum`,
-`all_gather` or `ppermute`.
+collective of this package is one call of `collective` on the mesh's group,
+at the place where the JAX package has its `psum`, `all_gather` or
+`ppermute`.  `collective` counts each in the tracer (`utils/timers.py`):
+"collectives", one a call, and "collective bytes", the bytes this rank
+receives from the others, on the innermost span.
 """
 
 from __future__ import annotations
@@ -25,6 +27,10 @@ import torch
 import torch.distributed as dist
 
 from ..ops.assemble import AssemblyTables, assemble_rows
+from ..utils import timers
+
+COLLECTIVES = "collectives"
+COLLECTIVE_BYTES = "collective bytes"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,10 +48,57 @@ class RowMesh:
         rank).  Every scalar that decides a branch of a loop that runs
         collectives passes through here, so that no rank leaves the loop at
         another iteration than the others."""
-        if self.world > 1:
-            t = t.contiguous()
-            dist.broadcast(t, src=dist.get_global_rank(self.group, 0), group=self.group)
+        return collective("broadcast", t, self)
+
+
+def collective(kind: str, t: torch.Tensor, mesh: RowMesh, src: int = 0, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """One collective of the mesh's group on `t`, counted.  `kind`:
+
+    - "broadcast": `t` as rank `src` of the mesh has it (in place on a
+      contiguous `t`);
+    - "all_gather": every rank's `t` stacked along dim 0 in rank order;
+    - "all_reduce": `t` reduced over the ranks by `op` (in place on a
+      contiguous `t`);
+    - "shift": the next rank's `t` (rank + 1 mod W), while this rank's goes
+      to the previous one (one send and one receive, the JAX package's
+      `ppermute` by one).
+
+    A collective sends a tensor's storage as it lies, so `t` goes as a
+    contiguous tensor.  Counts "collectives" one a call and "collective
+    bytes" what this rank receives from the others: a broadcast's tensor
+    (none on its source), W - 1 pieces of an all-gather or of an
+    all-reduce (the others' contributions), the shifted tensor.  With one
+    rank nothing is sent or counted and `t` comes back as it is."""
+    W = mesh.world
+    if W == 1:
         return t
+    t = t.contiguous()
+    nbytes = t.numel() * t.element_size()
+    group = mesh.group
+    if kind == "broadcast":
+        dist.broadcast(t, src=dist.get_global_rank(group, src), group=group)
+        received = 0 if mesh.rank == src else nbytes
+    elif kind == "all_gather":
+        out = t.new_empty((W * t.shape[0],) + t.shape[1:])
+        dist.all_gather(list(out.chunk(W)), t, group=group)
+        t, received = out, (W - 1) * nbytes
+    elif kind == "all_reduce":
+        dist.all_reduce(t, op=op, group=group)
+        received = (W - 1) * nbytes
+    elif kind == "shift":
+        out = torch.empty_like(t)
+        ops = [
+            dist.P2POp(dist.isend, t, dist.get_global_rank(group, (mesh.rank - 1) % W), group),
+            dist.P2POp(dist.irecv, out, dist.get_global_rank(group, (mesh.rank + 1) % W), group),
+        ]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        t, received = out, nbytes
+    else:
+        raise ValueError(f"unknown collective {kind!r}")
+    timers.count(COLLECTIVES)
+    timers.count(COLLECTIVE_BYTES, received)
+    return t
 
 
 def _backend_for(device: torch.device) -> str:
@@ -109,12 +162,7 @@ def _real_rows(n_nodes: int, nloc: int, rank: int) -> int:
 def all_gather_rows(x: torch.Tensor, mesh: RowMesh) -> torch.Tensor:
     """Every rank's `x` stacked along dim 0 in rank order, on every rank
     (the JAX package's `all_gather(..., tiled=True)`)."""
-    if mesh.world == 1:
-        return x
-    x = x.contiguous()
-    out = torch.empty((mesh.world * x.shape[0],) + x.shape[1:], dtype=x.dtype, device=x.device)
-    dist.all_gather(list(out.chunk(mesh.world)), x, group=mesh.group)
-    return out
+    return collective("all_gather", x, mesh)
 
 
 def flat_to_slab(vflat: torch.Tensor, n_nodes: int, dim: int, mesh: RowMesh):
@@ -204,20 +252,11 @@ def sharded_matvec_ring(A2_loc: torch.Tensor, x_loc: torch.Tensor, mesh: RowMesh
     W, rank = mesh.world, mesh.rank
     m = A2_loc.shape[1] // W
     y = torch.zeros_like(x_loc)
-    xcur = x_loc.contiguous()
-    to_rank = dist.get_global_rank(mesh.group, (rank - 1) % W) if W > 1 else rank
-    from_rank = dist.get_global_rank(mesh.group, (rank + 1) % W) if W > 1 else rank
+    xcur = x_loc
     for s in range(W):
         j = (rank + s) % W  # xcur holds block j
         y = y + A2_loc[:, j * m : (j + 1) * m] @ xcur
         if s == W - 1:
             break
-        nxt = torch.empty_like(xcur)
-        ops = [
-            dist.P2POp(dist.isend, xcur, to_rank, mesh.group),
-            dist.P2POp(dist.irecv, nxt, from_rank, mesh.group),
-        ]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        xcur = nxt
+        xcur = collective("shift", xcur, mesh)
     return y

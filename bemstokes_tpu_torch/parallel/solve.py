@@ -12,6 +12,13 @@ like the JAX package's devices; the ones that go through a mass-matrix or
 support-point scatter (`index_add_`, whose order on a CUDA card changes
 between runs) are then broadcast from rank 0, so that the GMRES iterates,
 and the branches taken on them, are the same on every rank.
+
+In the tracer (`utils/timers.py`) a frame's slab system (V, K and A slabs
+with their corrections, the tail and the right-hand side) is the scope
+"Slab assembly", and each product with a slab operator inside GMRES the
+span "Sharded matvec" (attributes `world` and `m`, the rows a rank holds);
+the slab LU's scope and span are `parallel/lu.py`'s, and every collective
+is counted by `sharded.collective`.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from .lu import slab_lu_factor, slab_lu_solve, slab_reorder_columns
 from .multihost import replicate_to_global
 from .sharded import (
     RowMesh,
+    collective,
     flat_to_slab,
     padded_rows,
     sharded_assemble,
@@ -122,9 +130,7 @@ def slab_solid_angle_correction(
         return K_loc
     C2 = torch.where(valid.repeat(d)[:, None], row_sums(), 0.0)
     check = torch.max(torch.abs(C2), dim=0).values
-    if mesh.world > 1:
-        dist.all_reduce(check, op=dist.ReduceOp.MAX, group=mesh.group)
-    return K_loc, check
+    return K_loc, collective("all_reduce", check, mesh, op=dist.ReduceOp.MAX)
 
 
 def slab_apply_hanging_constraints(A_loc, hc, n_nodes, dim, mesh: RowMesh):
@@ -272,6 +278,13 @@ def _build_sharded_operators(problem, dmesh: RowMesh, euler, return_check=False)
     )
 
 
+def _slab_product(A_loc, x, n_nodes, dim, mesh: RowMesh):
+    """A x, replicated, with A held as row slabs: this rank's slab GEMV,
+    then the all-gather of the pieces (the span "Sharded matvec")."""
+    with timers.span("Sharded matvec", world=mesh.world, m=A_loc.shape[0]):
+        return slab_to_flat(sharded_matvec(A_loc, x, mesh), n_nodes, dim, mesh)
+
+
 def _map_body(problem):
     """Body-node mask in MAP space [n_map, 1] (walls never move; reference
     rotates only body DoFs in compute_euler_vector, `:2247-2440`)."""
@@ -366,6 +379,7 @@ def make_sharded_frame_step(
     scale = cfg.assemble_scaling
     body = _map_body(problem)
     agree = dmesh.agree if dmesh.world > 1 else None
+    _, nloc = padded_rows(n, dmesh)
 
     def build_system(euler, sdot_flat, rotation):
         """Sharded assembly + corrections + implicit monolithic system: the
@@ -444,7 +458,7 @@ def make_sharded_frame_step(
         A_loc, tail = sysd["A_slab"], sysd["tail"]
 
         def matvec(x):  # x = [dn + R (+1 torque)], replicated
-            return tail.apply(slab_to_flat(sharded_matvec(A_loc, x[:dn], dmesh), n, d, dmesh), x)
+            return tail.apply(_slab_product(A_loc, x[:dn], n, d, dmesh), x)
 
         return matvec
 
@@ -532,15 +546,16 @@ def make_sharded_frame_step(
             f["torque_mode_flat"] = sysd["torque_mode_flat"]
         return rigid_vel, euler_next, info, f
 
-    def _rot(rotation):
-        if rotation is None:
-            return torch.eye(d, dtype=dt, device=dev)
-        return problem._as_device(rotation)
+    def assembled(euler, sdot_flat, rotation):
+        with timers.scope("Slab assembly", world=dmesh.world, m=d * nloc):
+            if rotation is None:
+                rotation = torch.eye(d, dtype=dt, device=dev)
+            return build_system(euler, sdot_flat, problem._as_device(rotation))
 
     if cfg.solver.preconditioner_type != "Direct":
 
         def step(euler, sdot_flat, rotation=None):
-            sysd = build_system(euler, sdot_flat, _rot(rotation))
+            sysd = assembled(euler, sdot_flat, rotation)
             return solve_and_finish(sysd, make_precond(sysd))
 
         return step
@@ -554,7 +569,7 @@ def make_sharded_frame_step(
             state["factors"] is not None
             and state["last_iterations"] <= cfg.solver.refactor_iteration_trigger
         )
-        sysd = build_system(euler, sdot_flat, _rot(rotation))
+        sysd = assembled(euler, sdot_flat, rotation)
         if not reuse:
             state["factors"] = None  # the old factors go before the new ones come
             state["factors"] = direct_factor(sysd)
@@ -624,11 +639,13 @@ def make_sharded_resistance_step(problem, dmesh: RowMesh, return_fields: bool = 
     restart, max_restarts = restart_params(cfg.solver)
     body = _map_body(problem)
     agree = dmesh.agree if dmesh.world > 1 else None
+    _, nloc = padded_rows(n, dmesh)
 
     def step(euler, sdot_flat, rotation=None):
         # rotation is accepted for signature parity with the monolithic
         # step; the resistance strategy has no torque mode to rotate
-        ops = _build_sharded_operators(problem, dmesh, euler, return_check=return_fields)
+        with timers.scope("Slab assembly", world=dmesh.world, m=d * nloc):
+            ops = _build_sharded_operators(problem, dmesh, euler, return_check=return_fields)
         V_loc, K_loc = ops["V_slab"], ops["K_slab"]
         n_pure_f, Mn_pure_f, l2g_pure = ops["n_pure_f"], ops["Mn_pure_f"], ops["l2g_pure"]
 
@@ -644,7 +661,7 @@ def make_sharded_resistance_step(problem, dmesh: RowMesh, return_fields: bool = 
         def d2n(v):
             rhs = P_t(slab_to_flat(sharded_matvec(K_loc, P_t(v), dmesh), n, d, dmesh))
             f, info = gmres(
-                lambda x: slab_to_flat(sharded_matvec(V_loc, x, dmesh), n, d, dmesh),
+                lambda x: _slab_product(V_loc, x, n, d, dmesh),
                 rhs,
                 precond=V_precond,
                 restart=restart,
