@@ -1,8 +1,13 @@
 // The stale LU's apply for one right-hand side: forward substitution with
-// the unit-lower L, then back substitution with U, on the factor that
-// torch.linalg.lu_factor returns (column-major: entry (i, j) at i + j n), one
-// launch a triangle.  The forward launch gathers b by the row permutation
-// kept from the factorization as it reads it.
+// the unit-lower L, then back substitution with U, one launch a triangle.
+// The forward launch gathers b by the row permutation kept from the
+// factorization as it reads it, where it is given one.  Two layouts of the
+// factor, each read where it lies: column-major, entry (i, j) at i + j n (the
+// factor torch.linalg.lu_factor returns), and row-major, entry (i, j) at
+// i ld + j with ld >= n (a rank's diagonal block of the distributed slab LU,
+// whose rows are [m, W m], ld = W m).  The column-major instantiation keeps
+// n as its stride: a leading dimension of its own would cost it instructions,
+// and no caller has such a factor.
 //
 // It replaces no TPU kernel: the JAX package solves with XLA's triangular
 // solve.  It was added because cuBLAS's trsv, which the port called before
@@ -10,13 +15,14 @@
 // at 38-46 % of the card's bandwidth.
 //
 // Bound: bytes.  A triangle of n^2 / 2 values is read once, two flops a
-// value: 0.64 ms a triangle at 23,101 unknowns in f64 at 3.35 TB/s.  Beside
-// it runs a chain of N = ceil(n / TB) dependent steps, one a block row, each
+// value: 0.64 ms a triangle at 23,101 unknowns in f64 at 3.35 TB/s, 0.406 ms
+// at a slab's m = 18,435 (either layout).  Beside it runs a chain of
+// N = ceil(n / TB) dependent steps, one a block row (289 at m = 18,435), each
 // a hand-over between SMs: it, not the bytes, bounds small or f32 factors.
 //
-// Design.  The triangle is cut into TB x TB tiles; a tile column is TB
-// contiguous values.  Block row R (step s = R forward, s = N - 1 - R
-// backward) needs the off-diagonal tiles of the steps before it and its
+// Design.  The triangle is cut into TB x TB tiles; a tile column (column-
+// major) or a tile row (row-major) is TB contiguous values.  Block row R
+// (step s = R forward, s = N - 1 - R backward) needs the off-diagonal tiles of the steps before it and its
 // diagonal block, whose inverse D^-1 the wrapper computes once a
 // factorization (`dinv`), with M = D^-1 times the tile of the step just
 // before (`coupling`).  The work items of a step: segments of SEG tiles
@@ -38,6 +44,20 @@
 // chain, and nothing to clear between launches; the ticket counter only
 // grows, each launch from its `base`.  Sums are taken in a fixed order: the
 // bits do not depend on which block took which item.
+//
+// The layouts differ only in how a warp reads a tile (ROW, a template
+// parameter).  Column-major: a warp reads tile columns, its lanes down the
+// rows, and sums each row's products in its registers.  Row-major: a warp
+// reads tile rows, its lanes along the columns (256-byte runs of a row in
+// f64), keeps one sum a row it reads over all the tiles of its sweep, and
+// adds them across its lanes once, at the sweep's end, by shuffles; from
+// there both go through the same block sums, partials and chain.  The
+// row-major stream runs with one block an SM (the wrapper's grid): with two
+// it is slower, for no cause found (m = 18,435, f64, ld = 4 m: 0.66 ms a
+// triangle against 0.75; polling the solution one word a warp, 16 or 64
+// tiles a segment, a second tile in flight, more registers and other cache
+// hints for the tile loads changed it by under 5 %), where the
+// column-major stream gains from the second block (0.61 against 0.63 ms).
 //
 // The words are read and written by relaxed gpu-scope accesses in inline
 // PTX (volatile: a poll is never hoisted out of its loop).  In f32 a word
@@ -81,7 +101,7 @@ struct Tagged<float> {
 
 template <typename T>
 struct Args {
-  const T* lu;          // [n, n], column-major
+  const T* lu;          // [n, n]: entry (i, j) at i + j n (column-major) or i ld + j (row-major)
   const T* dinv;        // [N][TB cols][TB rows]: inverse D^-1 of each diagonal block
   const T* coupling;    // [N][TB cols][TB rows]: D^-1 times the block row's tile of the step before
   const T* b;           // right-hand side, element i at b[i * b_stride]
@@ -98,6 +118,7 @@ struct Args {
   int upper;
   unsigned launch;
   int items;
+  int64_t ld;           // the row-major factor's leading dimension, >= n
 };
 
 #ifdef LU_TRSV_HOST_EMULATION
@@ -205,27 +226,31 @@ __device__ __forceinline__ int64_t block_start(const Args<T>& a, int s) {
   return int64_t(a.upper ? a.steps - 1 - s : s) * TB;
 }
 
-// the tile (rows from row0, columns from col0): a warp reads columns
-// w + WARPS j, lane l rows l and l + 32, one coalesced 256-byte load a half column
-template <typename T>
+// the tile (rows from row0, columns from col0), one coalesced 256-byte load
+// a half line in f64: column-major, a warp reads columns w + WARPS j, lane l
+// rows l and l + 32; row-major, a warp reads rows w + WARPS j, lane l
+// columns l and l + 32
+template <typename T, bool ROW>
 __device__ __forceinline__ void load_tile(T (&v)[2 * COLS], const Args<T>& a, int64_t row0, int64_t col0,
                                           int w, int lane) {
   const int64_t n = a.n;
-  const int64_t r0 = row0 + lane, r1 = r0 + 32;
+  // along the contiguous dimension (lanes), across it (warps)
+  const int64_t along = ROW ? col0 : row0, across = ROW ? row0 : col0, ld = ROW ? a.ld : n;
+  const int64_t l0 = along + lane, l1 = l0 + 32;
   if (row0 + TB <= n && col0 + TB <= n) {
 #pragma unroll
     for (int j = 0; j < COLS; ++j) {
-      const T* p = a.lu + (col0 + w + WARPS * j) * n;
-      v[2 * j] = ld_stream(p + r0);
-      v[2 * j + 1] = ld_stream(p + r1);
+      const T* p = a.lu + (across + w + WARPS * j) * ld;
+      v[2 * j] = ld_stream(p + l0);
+      v[2 * j + 1] = ld_stream(p + l1);
     }
   } else {
 #pragma unroll
     for (int j = 0; j < COLS; ++j) {
-      const int64_t c = col0 + w + WARPS * j;
-      const T* p = a.lu + c * n;
-      v[2 * j] = (c < n && r0 < n) ? ld_stream(p + r0) : T(0);
-      v[2 * j + 1] = (c < n && r1 < n) ? ld_stream(p + r1) : T(0);
+      const int64_t c = across + w + WARPS * j;
+      const T* p = a.lu + c * ld;
+      v[2 * j] = (c < n && l0 < n) ? ld_stream(p + l0) : T(0);
+      v[2 * j + 1] = (c < n && l1 < n) ? ld_stream(p + l1) : T(0);
     }
   }
 }
@@ -241,6 +266,52 @@ __device__ __forceinline__ void solved(T (&ys)[COLS], const Args<T>& a, int64_t 
   }
 #pragma unroll
   for (int j = 0; j < COLS; ++j) ys[j] = settle<T>(words[j], a.xt + col0 + w + WARPS * j, a.launch);
+}
+
+// the solution values of the columns lane and lane + 32 of block col0 (row-major)
+template <typename T>
+__device__ __forceinline__ void solved_lanes(T& y0, T& y1, const Args<T>& a, int64_t col0, int lane) {
+  const int64_t c0 = col0 + lane, c1 = c0 + 32;
+  const typename Tagged<T>::Word w0 = c0 < a.n ? ld_word(a.xt + c0) : Tagged<T>::make(T(0), a.launch);
+  const typename Tagged<T>::Word w1 = c1 < a.n ? ld_word(a.xt + c1) : Tagged<T>::make(T(0), a.launch);
+  y0 = settle<T>(w0, a.xt + c0, a.launch);
+  y1 = settle<T>(w1, a.xt + c1, a.launch);
+}
+
+constexpr unsigned ALL_LANES = 0xffffffffu;
+
+// one step of lane_sums: the lanes with bit o keep the sum `hi` and send
+// `lo` across, the others the reverse, so each pair of sums becomes one
+template <typename T>
+__device__ __forceinline__ T halve(T lo, T hi, int lane, int o) {
+  const bool upper = (lane & o) != 0;
+  return (upper ? hi : lo) + __shfl_xor_sync(ALL_LANES, upper ? lo : hi, o);
+}
+
+// row-major: a warp's sums of its rows w + WARPS j (one a lane in acc[j]),
+// each added over the warp's lanes, as the column-major sweep holds them:
+// rows lane and lane + 32 in acc0 and acc1, zero in the rows of other warps.
+// Three steps halve the sums a lane holds (after them lane l holds row
+// index j = l / 4, summed over 8 lanes), two more finish each sum, in an
+// order that does not depend on the data
+template <typename T>
+__device__ __forceinline__ void lane_sums(T (&acc)[COLS], int w, int lane, T& acc0, T& acc1) {
+  static_assert(COLS == 8, "the halving steps take 8 sums a lane");
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] = halve(acc[i], acc[i + 4], lane, 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) acc[i] = halve(acc[i], acc[i + 2], lane, 8);
+  T v = halve(acc[0], acc[1], lane, 4);
+  v += __shfl_xor_sync(ALL_LANES, v, 2);
+  v += __shfl_xor_sync(ALL_LANES, v, 1);
+  // row lane is index lane / WARPS of warp lane % WARPS, row lane + 32 index
+  // lane / WARPS + 4 of the same warp; index j sits in lane 4 j
+  const T s0 = __shfl_sync(ALL_LANES, v, (lane / WARPS) * 4);
+  const T s1 = __shfl_sync(ALL_LANES, v, (lane / WARPS + 4) * 4);
+  if (lane % WARPS == w) {
+    acc0 += s0;
+    acc1 += s1;
+  }
 }
 
 // the sum, in item order, of the partial products of `count` items from
@@ -265,22 +336,36 @@ __device__ __forceinline__ T partials(const Args<T>& a, int first, int count, in
 // [t0, t1) times their solved values; `meanwhile()` runs once the first
 // tile's loads are issued.  (Two tiles in flight a warp measured no faster
 // and spilled registers in f64.)
-template <typename T, typename F>
+template <typename T, bool ROW, typename F>
 __device__ __forceinline__ void sweep(const Args<T>& a, int s, int t0, int t1, int w, int lane, T& acc0, T& acc1,
                                       F meanwhile) {
   const int64_t row0 = block_start(a, s);
   T tile[2 * COLS];
-  if (t0 < t1) load_tile(tile, a, row0, block_start(a, t0), w, lane);
+  if (t0 < t1) load_tile<T, ROW>(tile, a, row0, block_start(a, t0), w, lane);
   meanwhile();
-  for (int t = t0; t < t1; ++t) {
-    T ys[COLS];
-    solved(ys, a, block_start(a, t), w);
+  if constexpr (ROW) {
+    T acc[COLS];
 #pragma unroll
-    for (int j = 0; j < COLS; ++j) {
-      acc0 = fma(tile[2 * j], ys[j], acc0);
-      acc1 = fma(tile[2 * j + 1], ys[j], acc1);
+    for (int j = 0; j < COLS; ++j) acc[j] = T(0);
+    for (int t = t0; t < t1; ++t) {
+      T y0, y1;
+      solved_lanes(y0, y1, a, block_start(a, t), lane);
+#pragma unroll
+      for (int j = 0; j < COLS; ++j) acc[j] = fma(tile[2 * j + 1], y1, fma(tile[2 * j], y0, acc[j]));
+      if (t + 1 < t1) load_tile<T, ROW>(tile, a, row0, block_start(a, t + 1), w, lane);
     }
-    if (t + 1 < t1) load_tile(tile, a, row0, block_start(a, t + 1), w, lane);
+    lane_sums(acc, w, lane, acc0, acc1);
+  } else {
+    for (int t = t0; t < t1; ++t) {
+      T ys[COLS];
+      solved(ys, a, block_start(a, t), w);
+#pragma unroll
+      for (int j = 0; j < COLS; ++j) {
+        acc0 = fma(tile[2 * j], ys[j], acc0);
+        acc1 = fma(tile[2 * j + 1], ys[j], acc1);
+      }
+      if (t + 1 < t1) load_tile<T, ROW>(tile, a, row0, block_start(a, t + 1), w, lane);
+    }
   }
 }
 
@@ -342,7 +427,7 @@ __device__ __forceinline__ void couple(const Args<T>& a, const T* tile, int64_t 
   v1 -= u1;
 }
 
-template <typename T>
+template <typename T, bool ROW>
 __global__ void __launch_bounds__(THREADS, 2) lu_trsv_kernel(Args<T> a) {
   using Tag = Tagged<T>;
   T* dsm = smem<T>();          // [TB cols][TB rows] inverse of the diagonal block
@@ -371,7 +456,7 @@ __global__ void __launch_bounds__(THREADS, 2) lu_trsv_kernel(Args<T> a) {
       // a segment of the step's older tiles: its partial product
       const int t0 = k * SEG;
       const int t1 = t0 + SEG < own_lo ? t0 + SEG : own_lo;
-      sweep(a, s, t0, t1, w, lane, acc0, acc1, [] {});
+      sweep<T, ROW>(a, s, t0, t1, w, lane, acc0, acc1, [] {});
       block_sum(red, acc0, acc1, w, lane, v0, v1);
       if (w == 0) {
         st_word(&a.partial[int64_t(t) * TB + lane], Tag::make(v0, a.launch));
@@ -391,7 +476,7 @@ __global__ void __launch_bounds__(THREADS, 2) lu_trsv_kernel(Args<T> a) {
     // long before its newest tiles can be multiplied, and most partials are
     // in by then
     T rhs = T(0), pre = T(0);
-    sweep(a, s, own_lo, s > 0 ? s - 1 : 0, w, lane, acc0, acc1, [&] {
+    sweep<T, ROW>(a, s, own_lo, s > 0 ? s - 1 : 0, w, lane, acc0, acc1, [&] {
       if (tid < TB) {
         if (row0 + tid < a.n) {
           const int64_t row = row0 + tid;
@@ -433,15 +518,15 @@ __global__ void __launch_bounds__(THREADS, 2) lu_trsv_kernel(Args<T> a) {
   }
 }
 
-template <typename T>
+template <typename T, bool ROW>
 int launch(const Args<T>& a, int grid, cudaStream_t stream) {
 #ifdef LU_TRSV_HOST_EMULATION
   lu_trsv_host_error = 0;
 #endif
-  const int e =
-      int(cudaFuncSetAttribute(lu_trsv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<T>()));
+  const int e = int(
+      cudaFuncSetAttribute(lu_trsv_kernel<T, ROW>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<T>()));
   if (e != 0) return e;
-  lu_trsv_kernel<T><<<grid, THREADS, smem_bytes<T>(), stream>>>(a);
+  lu_trsv_kernel<T, ROW><<<grid, THREADS, smem_bytes<T>(), stream>>>(a);
 #ifdef LU_TRSV_HOST_EMULATION
   if (lu_trsv_host_error) return 99;
 #endif
@@ -457,36 +542,41 @@ int count_items(int steps) {
 }
 
 template <typename T>
-int entry(const T* lu, const T* dinv, const T* coupling, const T* b, int64_t b_stride, const int64_t* perm, T* x,
-          void* xt, void* partial, unsigned long long* ticket, unsigned long long base, const int* step_start,
-          int64_t n, int steps, int upper, unsigned launch_id, int items, int grid, cudaStream_t stream) {
+int entry(const T* lu, int64_t ld, int row_major, const T* dinv, const T* coupling, const T* b, int64_t b_stride,
+          const int64_t* perm, T* x, void* xt, void* partial, unsigned long long* ticket, unsigned long long base,
+          const int* step_start, int64_t n, int steps, int upper, unsigned launch_id, int items, int grid,
+          cudaStream_t stream) {
   // a plan of another tile or split (its step_start and scratch) is refused
-  if (n < 1 || steps != (n + TB - 1) / TB || items != count_items(steps) || grid < 1 || launch_id == 0)
+  if (n < 1 || (row_major ? ld < n : ld != n) || steps != (n + TB - 1) / TB || items != count_items(steps) ||
+      grid < 1 || launch_id == 0)
     return int(cudaErrorInvalidValue);
   using Word = typename Tagged<T>::Word;
   const Args<T> a{lu, dinv, coupling, b, b_stride, perm, x, static_cast<Word*>(xt), static_cast<Word*>(partial),
-                   ticket, base, step_start, n, steps, upper, launch_id, items};
-  return launch(a, grid, stream);
+                   ticket, base, step_start, n, steps, upper, launch_id, items, ld};
+  return row_major ? launch<T, true>(a, grid, stream) : launch<T, false>(a, grid, stream);
 }
 
 }  // namespace
 
-// one triangle: upper = 0 the unit-lower L (b gathered by perm), 1 U.  xt
-// holds n and partial items x TB (value, launch) words of 2 x the value's
-// bytes, zero before a factor's first launch; launch_id counts from 1.
-// Returns the CUDA error of the launch.
-extern "C" int lu_trsv_f64(const double* lu, const double* dinv, const double* coupling, const double* b,
-                           int64_t b_stride, const int64_t* perm, double* x, void* xt, void* partial,
-                           unsigned long long* ticket, unsigned long long base, const int* step_start, int64_t n,
-                           int steps, int upper, unsigned launch_id, int items, int grid, cudaStream_t stream) {
-  return entry(lu, dinv, coupling, b, b_stride, perm, x, xt, partial, ticket, base, step_start, n, steps, upper,
-               launch_id, items, grid, stream);
+// one triangle: upper = 0 the unit-lower L (b gathered by perm, if given),
+// 1 U, of the factor lu: row-major with leading dimension ld >= n where
+// row_major is 1, column-major with ld = n where it is 0.  xt holds n and partial
+// items x TB (value, launch) words of 2 x the value's bytes, zero before a
+// factor's first launch; launch_id counts from 1.  Returns the CUDA error of
+// the launch.
+extern "C" int lu_trsv_f64(const double* lu, int64_t ld, int row_major, const double* dinv, const double* coupling,
+                           const double* b, int64_t b_stride, const int64_t* perm, double* x, void* xt,
+                           void* partial, unsigned long long* ticket, unsigned long long base, const int* step_start,
+                           int64_t n, int steps, int upper, unsigned launch_id, int items, int grid,
+                           cudaStream_t stream) {
+  return entry(lu, ld, row_major, dinv, coupling, b, b_stride, perm, x, xt, partial, ticket, base, step_start, n,
+               steps, upper, launch_id, items, grid, stream);
 }
 
-extern "C" int lu_trsv_f32(const float* lu, const float* dinv, const float* coupling, const float* b,
-                           int64_t b_stride, const int64_t* perm, float* x, void* xt, void* partial,
+extern "C" int lu_trsv_f32(const float* lu, int64_t ld, int row_major, const float* dinv, const float* coupling,
+                           const float* b, int64_t b_stride, const int64_t* perm, float* x, void* xt, void* partial,
                            unsigned long long* ticket, unsigned long long base, const int* step_start, int64_t n,
                            int steps, int upper, unsigned launch_id, int items, int grid, cudaStream_t stream) {
-  return entry(lu, dinv, coupling, b, b_stride, perm, x, xt, partial, ticket, base, step_start, n, steps, upper,
-               launch_id, items, grid, stream);
+  return entry(lu, ld, row_major, dinv, coupling, b, b_stride, perm, x, xt, partial, ticket, base, step_start, n,
+               steps, upper, launch_id, items, grid, stream);
 }

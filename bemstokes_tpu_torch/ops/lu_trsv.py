@@ -3,8 +3,10 @@ hand-written CUDA kernel (`csrc/lu_trsv.cu`), launched once a triangle.
 
 The kernel replaces no TPU kernel (the JAX package solves with XLA's
 triangular solve); the source says what bounds it and how it streams each
-triangle.  It reads the factor where `torch.linalg.lu_factor` leaves it on
-the card, column-major (`lu.mT.is_contiguous()`), and never copies it.
+triangle.  It reads the factor where it lies on the card and never copies
+it: column-major, strides (1, n), as `torch.linalg.lu_factor` leaves it, or
+row-major, strides (ld, 1) with ld >= n, as a rank's diagonal block of the
+distributed slab LU lies in its rows (`parallel/lu.py`, ld = W m).
 
 `plan(lu)` prepares a factor once a factorization: the inverse of each
 TILE x TILE diagonal block of L and of U (`torch.linalg.solve_triangular`
@@ -14,10 +16,13 @@ scratch the launches share (the published solution and partial products,
 each value beside the launch that wrote it, and the ticket).
 Nothing there reads the card back.  `TrsvPlan.solve(perm, b)` then solves
 L U x = b[perm] with two launches, the output its one allocation (counter
-`lu applies native`).  `plan` returns None for a factor on the CPU, which
-keeps `la.direct.lu_apply`'s `torch.linalg.solve_triangular`; a factor on
-the card that the kernel cannot read (batched, row-major, strided, another
-dtype) raises there rather than leave the kernel unused.
+`lu applies native`); `TrsvPlan.solve_triangle(upper, b)` solves one
+triangle in one launch, with no gather (the slab LU's sweeps).  `plan`
+returns None for a factor on the CPU, which keeps
+`torch.linalg.solve_triangular`; a factor on the card that the kernel
+cannot read (batched, no unit stride, a leading dimension below n or a
+column-major one other than n, another dtype) raises there rather than leave
+the kernel unused.
 `ops/cuda_build.py` compiles the source with nvcc at first use and loads
 it with ctypes.
 """
@@ -40,23 +45,28 @@ SOURCE = cuda_build.CSRC / "lu_trsv.cu"
 TILE = 64
 SEGMENT_TILES = 32
 OWNER_TILES = 3
-#: persistent blocks an SM (csrc/lu_trsv.cu `__launch_bounds__`)
+#: persistent blocks an SM (csrc/lu_trsv.cu `__launch_bounds__`): two for a
+#: column-major factor, one for a row-major one, which streams slower with
+#: two (a triangle at m = 18,435 in f64: 0.66 ms with one, 0.75 with two)
 BLOCKS_PER_SM = 2
+ROW_MAJOR_BLOCKS_PER_SM = 1
 DTYPES = (torch.float32, torch.float64)
 
-#: kernel launches made by `TrsvPlan.solve` (a plain counter: two an apply)
+#: kernel launches made by `TrsvPlan.solve` and `solve_triangle` (a plain
+#: counter: two an apply, one a triangle)
 launches = 0
 
 
 def declare(lib):
-    """Declare the C entry points `lu_trsv_f32` and `lu_trsv_f64`: (lu,
-    dinv, coupling, b, b_stride, perm, x, xt, partial, ticket, base,
-    step_start, n, steps, upper, launch, items, grid, stream) -> CUDA error
-    code."""
+    """Declare the C entry points `lu_trsv_f32` and `lu_trsv_f64`: (lu, ld,
+    row_major, dinv, coupling, b, b_stride, perm, x, xt, partial, ticket,
+    base, step_start, n, steps, upper, launch, items, grid, stream) -> CUDA
+    error code."""
     for name in ("lu_trsv_f32", "lu_trsv_f64"):
         fn = getattr(lib, name)
         fn.argtypes = (
-            [ctypes.c_void_p] * 4
+            [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
+            + [ctypes.c_void_p] * 3
             + [ctypes.c_int64]
             + [ctypes.c_void_p] * 5
             + [ctypes.c_uint64, ctypes.c_void_p, ctypes.c_int64]
@@ -130,8 +140,11 @@ def step_items(s: torch.Tensor) -> torch.Tensor:
 
 class TrsvPlan:
     """A factor's diagonal inverses and the scratch of its launches, made
-    once a factorization; `solve` is one apply.  `grid` (blocks a launch)
-    defaults to BLOCKS_PER_SM a multiprocessor of the factor's card."""
+    once a factorization; `solve` is one apply, `solve_triangle` one
+    triangle.  The factor's strides pick the kernel's layout: (1, n)
+    column-major, else (ld, 1) row-major.  `grid` (blocks a launch)
+    defaults to BLOCKS_PER_SM (ROW_MAJOR_BLOCKS_PER_SM) a multiprocessor of
+    the factor's card."""
 
     def __init__(self, lu: torch.Tensor, grid: int | None = None):
         if lu.ndim != 2 or lu.shape[0] != lu.shape[1]:
@@ -139,13 +152,20 @@ class TrsvPlan:
         if lu.dtype not in DTYPES:
             raise TypeError(f"lu_trsv: takes float32 or float64, got {lu.dtype}")
         n = lu.shape[0]
-        if lu.stride() != (1, n):
+        s0, s1 = lu.stride()
+        if s0 == 1 and s1 == n:
+            self.row_major, self.ld = False, n
+        elif s1 == 1 and s0 >= n:
+            self.row_major, self.ld = True, s0
+        else:
             raise ValueError(
-                f"lu_trsv: takes the column-major factor of lu_factor (strides (1, {n})), got strides {lu.stride()}"
+                f"lu_trsv: takes a column-major factor (strides (1, {n})) or a row-major one (strides (ld, 1), "
+                f"ld >= {n}), got strides {lu.stride()}"
             )
         dev, dt = lu.device, lu.dtype
         if grid is None:
-            grid = torch.cuda.get_device_properties(dev).multi_processor_count * BLOCKS_PER_SM
+            per_sm = ROW_MAJOR_BLOCKS_PER_SM if self.row_major else BLOCKS_PER_SM
+            grid = torch.cuda.get_device_properties(dev).multi_processor_count * per_sm
         self.lu, self.n, self.grid = lu, n, grid
         self.steps = -(-n // TILE)
         self.dinv = (diagonal_inverses(lu, False), diagonal_inverses(lu, True))
@@ -170,6 +190,8 @@ class TrsvPlan:
         stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
         rc = fn(
             self.lu.data_ptr(),
+            self.ld,
+            int(self.row_major),
             self.dinv[upper].data_ptr(),
             self.coupling[upper].data_ptr(),
             b.data_ptr(),
@@ -196,16 +218,20 @@ class TrsvPlan:
         global launches
         launches += 1
 
-    def solve(self, perm: torch.Tensor, b: torch.Tensor, lib=None) -> torch.Tensor:
-        """x with L U x = b[perm], for b [n] or [n, 1] (any stride) of the
-        factor's dtype and device and the kept permutation perm [n] (int64);
-        x has b's shape.  Raises on any other b.  `lib` is the loaded kernel
-        library (default: the card's build)."""
+    def _check(self, b: torch.Tensor):
         n = self.n
         if b.dtype != self.lu.dtype or b.device != self.lu.device:
             raise TypeError(f"lu_trsv: b is {b.dtype} on {b.device}, the factor {self.lu.dtype} on {self.lu.device}")
         if b.shape not in ((n,), (n, 1)):
             raise ValueError(f"lu_trsv: b must be [{n}] or [{n}, 1], got {tuple(b.shape)}")
+
+    def solve(self, perm: torch.Tensor, b: torch.Tensor, lib=None) -> torch.Tensor:
+        """x with L U x = b[perm], for b [n] or [n, 1] (any stride) of the
+        factor's dtype and device and the kept permutation perm [n] (int64);
+        x has b's shape.  Raises on any other b.  `lib` is the loaded kernel
+        library (default: the card's build)."""
+        self._check(b)
+        n = self.n
         if perm.shape != (n,) or perm.dtype != torch.int64 or perm.device != b.device or not perm.is_contiguous():
             raise ValueError("lu_trsv: perm must be a contiguous int64 [n] on the factor's device")
         if lib is None:
@@ -214,4 +240,15 @@ class TrsvPlan:
         x = torch.empty(b.shape, dtype=b.dtype, device=b.device)
         self._launch(lib, False, b, b.stride(0), perm, self.y)
         self._launch(lib, True, self.y, 1, None, x)
+        return x
+
+    def solve_triangle(self, upper: bool, b: torch.Tensor, lib=None) -> torch.Tensor:
+        """x with L x = b (`upper` False: the unit-lower triangle) or U x = b,
+        for b as `solve` takes it, in one launch and with no gather; x has
+        b's shape and is the one allocation."""
+        self._check(b)
+        if lib is None:
+            lib = _library()
+        x = torch.empty(b.shape, dtype=b.dtype, device=b.device)
+        self._launch(lib, bool(upper), b, b.stride(0), None, x)
         return x

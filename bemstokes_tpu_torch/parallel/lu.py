@@ -19,12 +19,18 @@ the JAX package's, so the factors match it at the same W.
 
 Solve: block forward and backward substitution.  At step k rank k solves
 its [m, m] triangular block and broadcasts the m-vector; every later
-(earlier) rank folds it into its accumulator with an [m, m] GEMV.
+(earlier) rank folds it into its accumulator with an [m, m] GEMV.  On the
+card a rank solves one right-hand side with the hand-written kernel of
+`ops.lu_trsv`, reading its diagonal block where it lies in the row-major
+slab (the plan `slab_lu_factor` returns); several right-hand sides,
+and the CPU, take `torch.linalg.solve_triangular`, which first copies the
+strided block.
 
 The factorization is the scope "Slab LU factor" and each solve the span
 "Slab LU apply" (attributes `world`, `m` and `steps`: W broadcasts of a
 block row, 2W of a solution block); their broadcasts are counted by
-`sharded.collective`.
+`sharded.collective`, the triangles solved through the kernel by the
+counter `slab triangles native` (two an apply on every rank on the card).
 
 `torch.linalg.lu_factor` returns LAPACK's 1-based pivots (row i swapped
 with row piv[i] - 1, in order); the JAX package's are 0-based and turned
@@ -39,6 +45,7 @@ import numpy as np
 import torch
 
 from ..la.direct import pivots_to_permutation
+from ..ops import lu_trsv
 from ..utils import timers
 from .sharded import RowMesh, collective, padded_rows
 
@@ -77,9 +84,11 @@ def slab_reorder_columns(A_loc: torch.Tensor, n_nodes: int, dim: int, mesh: RowM
 
 def slab_lu_factor(A2_loc: torch.Tensor, mesh: RowMesh):
     """Blocked LU of the slab-ordered square matrix.  Returns this rank's
-    (LU_loc [m, Np], perm_loc [m]): its rows [L_k0 .. L_k,k-1 | LU_kk |
-    U_k,k+1 ..] and its block-local row permutation (already applied to the
-    stored rows).  `A2_loc` is overwritten."""
+    (LU_loc [m, Np], perm_loc [m], plan): its rows [L_k0 .. L_k,k-1 | LU_kk |
+    U_k,k+1 ..], its block-local row permutation (already applied to the
+    stored rows) and the `ops.lu_trsv` plan of its diagonal block LU_kk, read
+    in place (row-major, leading dimension Np; None on the CPU).  `A2_loc`
+    is overwritten."""
     W, rank = mesh.world, mesh.rank
     m = A2_loc.shape[1] // W
     A = A2_loc.contiguous()
@@ -111,19 +120,28 @@ def slab_lu_factor(A2_loc: torch.Tensor, mesh: RowMesh):
                 A[:, c1:] -= L_kj @ trailing
                 A[:, c0:c1] = L_kj
             del pivot
-    return A, perm
+    return A, perm, lu_trsv.plan(A[:, rank * m : (rank + 1) * m])
 
 
-def slab_lu_solve(LU_loc: torch.Tensor, perm_loc: torch.Tensor, b_loc: torch.Tensor, mesh: RowMesh):
+def slab_lu_solve(
+    LU_loc: torch.Tensor,
+    perm_loc: torch.Tensor,
+    b_loc: torch.Tensor,
+    mesh: RowMesh,
+    plan: lu_trsv.TrsvPlan | None,
+):
     """Solve L U x = P b with the factors of `slab_lu_factor`; b and x are
     this rank's slab pieces [m] (or [m, k] for k right-hand sides at once),
-    in the factors' dtype inside and b's outside."""
+    in the factors' dtype inside and b's outside.  `plan` (None: every
+    triangle through `solve_triangular`) solves this rank's triangles of one
+    right-hand side."""
     W, rank = mesh.world, mesh.rank
     m = LU_loc.shape[1] // W
     vec = b_loc.ndim == 1
     acc = b_loc.to(LU_loc.dtype)[perm_loc]
     if vec:
         acc = acc[:, None]
+    native = plan is not None and acc.shape[1] == 1
 
     def block(k):
         return LU_loc[:, k * m : (k + 1) * m]
@@ -136,9 +154,13 @@ def slab_lu_solve(LU_loc: torch.Tensor, perm_loc: torch.Tensor, b_loc: torch.Ten
             # sides comes back column-major, and a broadcast sends and
             # receives the storage as it lies
             if rank == k:
-                xk = torch.linalg.solve_triangular(
-                    block(k), acc, upper=upper, unitriangular=not upper
-                ).contiguous()
+                if native:
+                    xk = plan.solve_triangle(upper, acc)
+                    timers.count("slab triangles native")
+                else:
+                    xk = torch.linalg.solve_triangular(
+                        block(k), acc, upper=upper, unitriangular=not upper
+                    ).contiguous()
                 out = xk
             else:
                 xk = torch.empty(acc.shape, dtype=acc.dtype, device=acc.device)

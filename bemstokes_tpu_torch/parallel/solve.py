@@ -473,11 +473,11 @@ def make_sharded_frame_step(
         Returns the preconditioner."""
         with timers.scope("DirectPreconditioner Refactorisation"):
             A2 = slab_reorder_columns(sysd["A_slab"], n, d, dmesh).to(fdt)
-            lu, perm = slab_lu_factor(A2, dmesh)
+            lu, perm, plan = slab_lu_factor(A2, dmesh)
             del A2
 
             def surface_solve(v):  # flat [dn] or [dn, k]
-                return slab_to_flat(slab_lu_solve(lu, perm, flat_to_slab(v, n, d, dmesh), dmesh), n, d, dmesh)
+                return slab_to_flat(slab_lu_solve(lu, perm, flat_to_slab(v, n, d, dmesh), dmesh, plan), n, d, dmesh)
 
             solve = bordered_solver(surface_solve, *(m.to(fdt) for m in sysd["tail"].border()))
         return lambda x: solve(x.to(fdt)).to(x.dtype)
@@ -653,10 +653,10 @@ def make_sharded_resistance_step(problem, dmesh: RowMesh, return_fields: bool = 
             return tangential_projector(v, n_pure_f, Mn_pure_f, l2g_pure)
 
         with timers.scope("Resistance V factor"):
-            lu, perm = slab_lu_factor(slab_reorder_columns(V_loc, n, d, dmesh), dmesh)
+            lu, perm, plan = slab_lu_factor(slab_reorder_columns(V_loc, n, d, dmesh), dmesh)
 
         def V_precond(x):
-            return slab_to_flat(slab_lu_solve(lu, perm, flat_to_slab(x, n, d, dmesh), dmesh), n, d, dmesh)
+            return slab_to_flat(slab_lu_solve(lu, perm, flat_to_slab(x, n, d, dmesh), dmesh, plan), n, d, dmesh)
 
         def d2n(v):
             rhs = P_t(slab_to_flat(sharded_matvec(K_loc, P_t(v), dmesh), n, d, dmesh))

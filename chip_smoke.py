@@ -179,7 +179,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    on a Real gait of three gmsh files from create_sphere(4) beside the
    no-slip wall against the same loop without it (rigid velocities within
    1e-10, the same output files, one K3 launch a frame); the group is
-   destroyed at the end;
+   destroyed at the end.  Around each distributed path with a slab LU ((a),
+   the resistance step of (b), (d)) `lu_trsv`'s launches are set to 0 and
+   the slab applies counted (`slab_applies`): every apply of one right-hand
+   side solves both its triangles through the kernel's row-major
+   instantiation (`slab triangles native` = 2 x the applies, one "Slab LU
+   apply" span each, = the launches); after it that instantiation is held
+   on the path's own slab block against `solve_triangular` (1e-11 in f64;
+   the slab cast to f32, the kernel at most 4 times the library's distance
+   from the f64 solution) and timed beside its bytes bound
+   (`slab_trsv_check`);
 22. the higher-order elements, f64, Direct, at 18,444 unknowns, each path
    with the launch counters set to 0 just before it and read just after,
    its frames' ms, iterations, drag error and peak memory printed: first
@@ -273,7 +282,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    other components below 1e-6, frames 1-2 frozen with no bulk launch and
    no refactor, frame 1 within 1e-9 of a re-assembled frame), beside the
    no-slip wall and with `distributed` at world size 1 (the frozen step,
-   1e-10).  K1 and K3 at 7,698 nodes and `tile_nodes` on the head-and-tube
+   1e-10).  The distributed loops of (a) and (c) count and check their slab
+   applies as phase 21 does.  K1 and K3 at 7,698 nodes and `tile_nodes` on the head-and-tube
    node groups are held against their plain versions on the first 512 rows
    and timed.
 
@@ -295,7 +305,11 @@ and K5 those of phase 23 (`walls_near_contact_shapes`) and for K1, K3 and
 its launches over phase 24's free-space bacterium loop, and its error, ms,
 bound_ms (n^2 values, both triangles, at 3.35 TB/s) and library_ms (the
 gather and cuBLAS's two trsv) at 23,101 unknowns, f64 and f32, beside the
-contact sphere's record (`records`); the last line is
+contact sphere's record (`records`), and under `row_major` the row-major
+instantiation's launches over the distributed paths of phases 21 and 24
+(`blocks`: each path's applies, triangles and launches) and its error, ms,
+bound_ms and library_ms (`solve_triangular` on the same block) on the
+largest slab block, beside each block's record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
 """
@@ -392,8 +406,10 @@ LU_KERNEL = dict(
 TOL_LU_TRSV = 1e-11
 LU_TRSV_F32_RATIO = 4.0
 #: filled as the phases run: `lu_trsv_check`'s records and the kernel's
-#: launches and the applies over phase 24's bacterium loop
-LU_TRSV_RUNS = {"records": [], "loop": None}
+#: launches and the applies over phase 24's bacterium loop; under "slab",
+#: the row-major instantiation's: each distributed block's applies, triangles
+#: and launches (`slab_applies`) and `slab_trsv_check`'s records
+LU_TRSV_RUNS = {"records": [], "loop": None, "slab": {"blocks": [], "records": []}}
 
 KERNELS = {
     "free_space": dict(
@@ -3176,15 +3192,17 @@ def phase_distributed(node_kernel, device):
     step = make_sharded_frame_step(prob, dmesh, return_fields=True)
     zero_counts(node_kernel)
     dist_recs, field_in = [], None
-    for e in frames:
-        out = dist_frame(step, e, sdot)
-        dist_recs.append(dist_record(*out, step))
-        if field_in is None:
-            U = dist_recs[0]["U"][:3]
-            u_b = torch.as_tensor(np.tile(U, (prob.n, 1)), dtype=torch.float64, device=device)
-            field_in = (flatten(u_b), out[0][3]["forces"], torch.as_tensor(e, device=device))
-        del out
+    with slab_applies(f"Direct, {3 * prob.n + prob.num_rigid} unknowns (21 (a))") as slab:
+        for e in frames:
+            out = dist_frame(step, e, sdot)
+            dist_recs.append(dist_record(*out, step))
+            if field_in is None:
+                U = dist_recs[0]["U"][:3]
+                u_b = torch.as_tensor(np.tile(U, (prob.n, 1)), dtype=torch.float64, device=device)
+                field_in = (flatten(u_b), out[0][3]["forces"], torch.as_tensor(e, device=device))
+            del out
     launches = tally(node_kernel)
+    slab_apply_check(slab)
     compare("Direct", single, dist_recs, DIST_TOL)
     drags = [abs(abs(r["F"][0]) - 6 * np.pi) / (6 * np.pi) for r in dist_recs]
     log(
@@ -3222,8 +3240,11 @@ def phase_distributed(node_kernel, device):
         zero_counts(node_kernel)
         s = single_frame(prob, e0, sdot)
         step = make_sharded_frame_step(prob, dmesh, return_fields=True)
-        d = dist_record(*dist_frame(step, e0, sdot), step)
+        with slab_applies(f"resistance, {prob.n} nodes (21 (b))") as slab:
+            d = dist_record(*dist_frame(step, e0, sdot), step)
         launches = tally(node_kernel)
+        if name == "resistance":  # the Jacobi step has no slab LU
+            slab_apply_check(slab)
         compare(name, [s], [d], tol)
         mobility = 6 * np.pi * d["U"][0] - 1
         log(
@@ -3306,9 +3327,12 @@ def phase_distributed(node_kernel, device):
             zero_counts(node_kernel)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            history = SwimmerSimulation(cfg, out, device=device).run(0, 2)
+            with slab_applies(f"frame loop beside the no-slip wall, create_sphere({REFINEMENTS - 1}) (21 (d))") as slab:
+                history = SwimmerSimulation(cfg, out, device=device).run(0, 2)
             seconds = time.perf_counter() - t0
             launches = tally(node_kernel)
+            if distributed:
+                slab_apply_check(slab)
             runs[distributed] = (history, sorted(os.listdir(out)), seconds, launches)
         (h_s, files_s, sec_s, l_s), (h_d, files_d, sec_d, l_d) = runs[False], runs[True]
         errs = [rel(a["rigid_velocities"], b["rigid_velocities"]) for a, b in zip(h_d, h_s)]
@@ -4884,12 +4908,123 @@ def lu_trsv_check(label, pre):
     LU_TRSV_RUNS["records"].append(rec)
 
 
+@contextlib.contextmanager
+def slab_applies(label):
+    """While open, the distributed step's slab LU (`parallel/solve.py`'s
+    `slab_lu_factor` and `slab_lu_solve`, wrapped): its applies of one
+    right-hand side (one "Slab LU apply" span each), the `slab triangles
+    native` they counted (read around each apply, as the frames reset the
+    timers), and the last factorization.  `lu_trsv.launches` is set to 0 on
+    entry and read on exit.  Yields the record that `slab_apply_check`
+    takes."""
+    from bemstokes_tpu_torch.ops import lu_trsv
+    from bemstokes_tpu_torch.parallel import solve
+    from bemstokes_tpu_torch.utils import timers
+
+    seen = dict(label=label, applies=0, native=0, launches=None, factors=None)
+    factor, apply = solve.slab_lu_factor, solve.slab_lu_solve
+
+    def factored(*args):
+        seen["factors"] = factor(*args)
+        return seen["factors"]
+
+    def applied(LU, perm, b, mesh, plan):
+        before = timers.counts.get("slab triangles native", 0)
+        x = apply(LU, perm, b, mesh, plan)
+        seen["applies"] += int(b.ndim == 1 or b.shape[1] == 1)
+        seen["native"] += timers.counts.get("slab triangles native", 0) - before
+        return x
+
+    solve.slab_lu_factor, solve.slab_lu_solve = factored, applied
+    lu_trsv.launches = 0
+    try:
+        yield seen
+        seen["launches"] = lu_trsv.launches
+    finally:
+        solve.slab_lu_factor, solve.slab_lu_solve = factor, apply
+
+
+def slab_apply_check(seen):
+    """A distributed block's slab applies (`slab_applies`): every apply of
+    one right-hand side solves both its triangles through the kernel (`slab
+    triangles native` = 2 x the applies = the kernel's launches over the
+    block, none elsewhere); then the row-major kernel on the block's last
+    slab factor (`slab_trsv_check`)."""
+    label = seen["label"]
+    counts = {k: seen[k] for k in ("applies", "native", "launches")}
+    log(f"slab LU {label}: {counts['applies']} applies of one right-hand side, slab triangles native "
+        f"{counts['native']}, lu_trsv launches {counts['launches']}")
+    if not 0 < 2 * counts["applies"] == counts["native"] == counts["launches"]:
+        raise AssertionError(f"slab LU {label}: a slab triangle left the kernel, or another launch ran: {counts}")
+    LU_TRSV_RUNS["slab"]["blocks"].append(dict(label=label, **counts))
+    slab_trsv_check(label, *seen["factors"])
+    seen["factors"] = None
+
+
+def slab_trsv_check(label, LU, perm, plan):
+    """The row-major kernel on a distributed path's own slab factor (LU
+    [m, W m] from `slab_lu_factor`, `plan` its diagonal block read in
+    place): each triangle of one right-hand side against
+    `torch.linalg.solve_triangular` on the same block in f64 (relative to
+    max|x|, at most TOL_LU_TRSV), and with the slab cast to f32 the
+    kernel's distance from the f64 solution at most LU_TRSV_F32_RATIO times
+    the library's; both triangles' ms beside their bytes bound (n^2 values
+    at 3.35 TB/s) and the library's ms on the same block.  Appended to
+    LU_TRSV_RUNS["slab"]["records"]."""
+    from bemstokes_tpu_torch.ops import lu_trsv
+
+    block = plan.lu if plan is not None else None
+    if block is None or not plan.row_major or block.dtype != torch.float64 or plan.ld != LU.shape[1]:
+        raise AssertionError(f"slab lu_trsv {label}: expected an f64 row-major plan of the slab's block, got {plan}")
+    m = plan.n
+    c0 = block.storage_offset() - LU.storage_offset()
+    LU32 = LU.to(torch.float32)
+    block32 = LU32[:, c0 : c0 + m]
+    plan32 = lu_trsv.plan(block32)
+    g = torch.Generator(device=LU.device).manual_seed(m)
+    b = torch.randn(m, 1, generator=g, dtype=torch.float64, device=LU.device)
+    b32 = b.float()
+
+    def library(f, rhs, upper):
+        return torch.linalg.solve_triangular(f, rhs, upper=upper, unitriangular=not upper)
+
+    rec = dict(label=label, n=m, ld=plan.ld, error={}, error_f32_from_f64={})
+    for upper, name in ((False, "L"), (True, "U")):
+        x = plan.solve_triangle(upper, b)
+        rec["error"][name] = rel(x, library(block, b, upper))
+        rec["error_f32_from_f64"][name] = {
+            "kernel": rel(plan32.solve_triangle(upper, b32).double(), x),
+            "library": rel(library(block32, b32, upper).double(), x),
+        }
+    for key, p, f, rhs in (("", plan, block, b), ("_f32", plan32, block32, b32)):
+        rec["ms" + key] = sum(cuda_ms(lambda u=u: p.solve_triangle(u, rhs), 20) for u in (False, True))
+        rec["library_ms" + key] = sum(cuda_ms(lambda u=u: library(f, rhs, u), 20) for u in (False, True))
+        rec["bound_ms" + key] = m * m * f.element_size() / PEAK_BYTES * 1e3
+    del plan32, block32, LU32
+    err = max(rec["error"].values())
+    e32 = rec["error_f32_from_f64"]
+    log(
+        f"slab lu_trsv {label}: block {m} of a slab of ld {plan.ld}, row-major; f64 against solve_triangular "
+        f"{rec['error']} (tol {TOL_LU_TRSV:g}); f32 from the f64 solution: {e32} (ratio at most {LU_TRSV_F32_RATIO:g}); "
+        f"both triangles {rec['ms']:.3f} ms (f32 {rec['ms_f32']:.3f}) against solve_triangular {rec['library_ms']:.3f} "
+        f"({rec['library_ms_f32']:.3f}), bound {rec['bound_ms']:.3f} ({rec['bound_ms_f32']:.3f}) ms"
+    )
+    if not err <= TOL_LU_TRSV or any(not v["kernel"] <= LU_TRSV_F32_RATIO * v["library"] for v in e32.values()):
+        raise AssertionError(f"slab lu_trsv {label}: the row-major kernel disagrees with solve_triangular")
+    LU_TRSV_RUNS["slab"]["records"].append(rec)
+
+
 def lu_entry():
     """The kernels-line entry of `lu_trsv`: its launches over phase 24's
     bacterium loop (two an apply, every apply of the loop), the bacterium's
-    record (23,101 unknowns) as its error and times, and each record."""
+    record (23,101 unknowns) as its error and times, and each record; under
+    `row_major`, the row-major instantiation's launches over the distributed
+    blocks of phases 21 and 24 (two a slab apply), the largest slab block's
+    record as its error and times, and each record."""
     records = LU_TRSV_RUNS["records"]
     main = max(records, key=lambda r: r["n"])
+    slab = LU_TRSV_RUNS["slab"]
+    slab_main = max(slab["records"], key=lambda r: r["n"])
     return dict(
         route="cuda",
         launches=LU_TRSV_RUNS["loop"]["launches"],
@@ -4898,6 +5033,13 @@ def lu_entry():
         **{k: v for k, v in main.items() if k not in ("label", "clock")},
         error_max=max(r["error"] for r in records),
         records=records,
+        row_major=dict(
+            launches=sum(b["launches"] for b in slab["blocks"]),
+            blocks=slab["blocks"],
+            **{k: v for k, v in slab_main.items() if k != "label"},
+            error_max=max(max(r["error"].values()) for r in slab["records"]),
+            records=slab["records"],
+        ),
     )
 
 
@@ -5037,10 +5179,12 @@ def gait_bacterium(node_kernel, matfree_node, slot_kernel, device, counts, folde
         raise AssertionError(f"swimmer gaits (a) matrix-free: {diff} from the materialized loop")
     del sim
 
-    sim, rec = path(
-        "bacterium, distributed", bacterium_config(grids, distributed=True), GAIT_FRAMES,
-        lambda r: r["launches"] == {"K1-K4:free_space": GAIT_FRAMES},
-    )
+    with slab_applies("bacterium, distributed (24 (a))") as slab:
+        sim, rec = path(
+            "bacterium, distributed", bacterium_config(grids, distributed=True), GAIT_FRAMES,
+            lambda r: r["launches"] == {"K1-K4:free_space": GAIT_FRAMES},
+        )
+    slab_apply_check(slab)
     single = runs["bacterium, free_space"]
     diff = gait_diff(rec, single)
     iters = [(a["iterations"], b["iterations"]) for a, b in zip(rec["solves"], single["solves"])]
@@ -5134,9 +5278,10 @@ def gait_squirmer(node_kernel, device, folder, kernels):
                 log(f"swimmer gaits (c) frame {h['frame']}: U.e / ((2/3) B1) - 1 = {err:.3e} (tol {SQUIRMER_TOL:g}), other components {np.abs(U[1:]).max():.3e} (tol {SQUIRMER_SIDE_TOL:g})")
                 if err > SQUIRMER_TOL or np.abs(U[1:]).max() > SQUIRMER_SIDE_TOL:
                     raise AssertionError(f"swimmer gaits (c): U {U.tolist()} against Blake's (2/3) B1 = {2 / 3 * b1}")
-    with tempfile.TemporaryDirectory() as out:
+    with tempfile.TemporaryDirectory() as out, slab_applies("squirmer, distributed (24 (c))") as slab:
         sim, rec = gait_run(squirmer_config(grids, distributed=True), device, GAIT_FRAMES, kernels, out)
     tally(node_kernel)
+    slab_apply_check(slab)
     frozen_step = getattr(sim._dist_step, "frozen", None) is not None
     gait_log("(c) squirmer, distributed", sim, rec)
     del sim

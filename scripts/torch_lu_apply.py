@@ -6,6 +6,7 @@
                                       [--route both|kernel|solve_triangular]
                                       [--applies 20] [--frames 3]
                                       [--blocks 8] [--block-size 3072]
+                                      [--slab 18435] [--slab-ranks 4]
                                       [--root DIR] [--out FILE]
 
 For each size and factor dtype it factors a seeded nonsymmetric n x n matrix
@@ -35,8 +36,18 @@ tree's apply is timed the same way; `--route solve_triangular` there).  With
 matrix-free block-Jacobi's 8 x 3,072 at the bacterium's width), which the
 kernel does not take, and for one and for seven columns compares
 `la.direct.lu_apply` with the kept permutations against `lu_solve` (bits,
-times, kernels).  Prints the card's name and power limit first and one JSON
-line last, also written to `--out`.
+times, kernels).  With `--slab m` (sizes, comma-separated) it times the
+distributed slab LU's triangles (`parallel/lu.py:slab_lu_solve`): a seeded
+well-conditioned factor of order m as diagonal block 1 of a row-major
+[m, W m] slab (W = `--slab-ranks`), and for L and U one right-hand side
+[m, 1] through the kernel's row-major instantiation in place
+(`TrsvPlan.solve_triangle`), the route it replaced in the same call
+(`solve_triangular` on the strided block: its copy of the block and
+cuBLAS trsv), cuBLAS trsv alone on a column-major copy, and the kernel's
+column-major instantiation on that copy; with the bytes bound, the
+relative difference from `solve_triangular`, the same bits twice, host
+syncs and each route's device kernels.  Prints the card's name and power
+limit first and one JSON line last, also written to `--out`.
 """
 
 import argparse
@@ -211,6 +222,64 @@ def blocks(nb, size, applies, direct):
     return out
 
 
+def slab_triangles(m, dtype, ranks, applies, lu_trsv, sampler):
+    g = torch.Generator(device="cuda").manual_seed(25)
+    A = torch.randn(m, m, generator=g, dtype=torch.float64, device="cuda").div_(m**0.5)
+    A.diagonal().add_(4.0)
+    A = A[torch.randperm(m, generator=g, device="cuda")]
+    lu = torch.linalg.lu_factor(A)[0]
+    del A
+    lu = lu.to(dtype)  # column-major, as lu_factor leaves it
+    slab = torch.zeros(m, ranks * m, dtype=dtype, device="cuda")
+    block = slab[:, m : 2 * m]
+    block.copy_(lu)
+    bound_ms = m * m / 2 * lu.element_size() / HBM_BYTES_PER_S * 1e3
+    out = dict(m=m, dtype=str(dtype), ld=block.stride(0), triangle_bound_ms=bound_ms)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = lu_trsv.plan(block)
+    torch.cuda.synchronize()
+    out.update(plan_ms=(time.perf_counter() - t0) * 1e3, plan_syncs=syncs(lambda: lu_trsv.plan(block)),
+               row_major=plan.row_major)
+    col = lu_trsv.plan(lu)
+    b = torch.randn(m, 1, generator=g, dtype=torch.float64, device="cuda").to(dtype)
+    for upper in (False, True):
+
+        def row(upper=upper):
+            return plan.solve_triangle(upper, b)
+
+        def copied(upper=upper):
+            return torch.linalg.solve_triangular(block, b, upper=upper, unitriangular=not upper).contiguous()
+
+        def trsv(upper=upper):
+            return torch.linalg.solve_triangular(lu, b, upper=upper, unitriangular=not upper)
+
+        def column(upper=upper):
+            return col.solve_triangle(upper, b)
+
+        for _ in range(3):
+            row(), copied(), trsv(), column()
+        ref = copied()
+        t0 = time.perf_counter()
+        r = dict(
+            rel_diff_solve_triangular=rel_diff(row(), ref),
+            column_major_rel_diff=rel_diff(column(), ref),
+            same_bits_twice=bool(torch.equal(row(), row())),
+            syncs=syncs(row),
+            kernel_ms=[event_ms(row, applies), event_ms(row, applies)],
+            replaced_ms=[event_ms(copied, applies), event_ms(copied, applies)],
+            trsv_alone_ms=[event_ms(trsv, applies)],
+            column_major_ms=[event_ms(column, applies), event_ms(column, applies)],
+        )
+        r["sm_clock"] = sampler.between(t0, time.perf_counter())
+        r["share_of_bound"] = bound_ms / min(r["kernel_ms"])
+        r["column_major_share_of_bound"] = bound_ms / min(r["column_major_ms"])
+        r["kernels"] = device_kernels(row)
+        r["replaced_kernels"] = device_kernels(copied)
+        out["U" if upper else "L"] = r
+    return out
+
+
 def frames(count, direct):
     import chip_smoke
     from bemstokes_tpu_torch.swimmer import SwimmerSimulation
@@ -249,6 +318,8 @@ def main():
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--blocks", type=int, default=0)
     ap.add_argument("--block-size", type=int, default=3072)
+    ap.add_argument("--slab", default="")
+    ap.add_argument("--slab-ranks", type=int, default=4)
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
     ap.add_argument("--out")
     args = ap.parse_args()
@@ -263,7 +334,7 @@ def main():
     result = dict(card=card, torch=torch.__version__, root=str(Path(args.root).resolve()))
     routes = ("kernel", "solve_triangular") if args.route == "both" else (args.route,)
     lu_trsv = None
-    if "kernel" in routes:
+    if "kernel" in routes or args.slab:
         from bemstokes_tpu_torch.ops import cuda_build, lu_trsv
 
         lib_path, proc, tmp = cuda_build._start_build(lu_trsv.SOURCE)
@@ -273,11 +344,18 @@ def main():
     sampler = ClockSampler()
     try:
         result["isolated"] = []
-        for n in (int(v) for v in args.sizes.split(",")):
+        for n in (int(v) for v in args.sizes.split(",") if v):
             for name in args.dtypes.split(","):
                 row = isolated(n, DTYPES[name], args.applies, routes, direct, lu_trsv, sampler)
                 print(json.dumps({k: v for k, v in row.items()}), flush=True)
                 result["isolated"].append(row)
+                torch.cuda.empty_cache()
+        result["slab"] = []
+        for m in (int(v) for v in args.slab.split(",") if v):
+            for name in args.dtypes.split(","):
+                row = slab_triangles(m, DTYPES[name], args.slab_ranks, args.applies, lu_trsv, sampler)
+                print(json.dumps(row), flush=True)
+                result["slab"].append(row)
                 torch.cuda.empty_cache()
     finally:
         sampler.stop()

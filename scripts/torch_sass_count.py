@@ -6,7 +6,7 @@ measured.
     python3 scripts/torch_sass_count.py [--source bemstokes_tpu_torch/csrc/sweep_matvec.cu]
                                         [--define NAME=VALUE ...] [--label text]
                                         [--time] [--refinements 5 6] [--kinds ...]
-                                        [--dtypes float64 float32]
+                                        [--dtypes float64 float32] [--functions]
 
 Needs a CUDA card's host with the CUDA toolkit (nvcc, cuobjdump or nvdisasm).
 
@@ -59,7 +59,11 @@ Needs a CUDA card's host with the CUDA toolkit (nvcc, cuobjdump or nvdisasm).
    tests at run time which of its columns are real, so its count is that of
    a full chunk.)
 
-4. With `--probe`: what the FP64 pipe itself sustains on this card, from a
+4. With `--functions`: every function's whole instruction count, by pipe
+   and by opcode, loop or none (a kernel with no sample loop, such as
+   `lu_trsv.cu`'s, is compared with an older build of its source this way).
+
+5. With `--probe`: what the FP64 pipe itself sustains on this card, from a
    probe kernel of independent DFMA chains (and a DFMA, DMUL, DADD mix, and
    the mix with one integer instruction beside each), 32 warps an SM, 8
    chains a thread: FP64 lanes a clock in each SM as measured, which is the
@@ -275,6 +279,25 @@ def count_loops(sass, rsqrt_per_sample):
                     )
                 },
             )
+        )
+    return rows
+
+
+def count_functions(sass):
+    """Every function's instructions (predicated or not) by pipe and by
+    opcode."""
+    functions = functions_of(sass)
+    pretty = demangle(list(functions))
+    rows = []
+    for name, instructions in functions.items():
+        pipes, opcodes = {}, {}
+        for _, opcode, _ in instructions:
+            pipe, base = pipe_of(opcode), opcode.lstrip("@").split(".")[0]
+            pipes[pipe] = pipes.get(pipe, 0) + 1
+            opcodes[base] = opcodes.get(base, 0) + 1
+        rows.append(
+            dict(function=pretty[name], instructions=len(instructions), pipes=dict(sorted(pipes.items())),
+                 opcodes=dict(sorted(opcodes.items())))
         )
     return rows
 
@@ -702,6 +725,7 @@ def main():
     ap.add_argument("--min-seconds", type=float, default=0.6, help="least timed span per shape")
     ap.add_argument("--opcodes", action="store_true", help="print the per-opcode counts too")
     ap.add_argument("--probe", action="store_true", help="measure the FP64 pipe itself")
+    ap.add_argument("--functions", action="store_true", help="count every function's whole instruction stream")
     ap.add_argument("--keep-sass", action="store_true", help="keep the disassembly")
     ap.add_argument("--out", default=str(ROOT / "sass_counts"), help="directory of the result files")
     args = ap.parse_args()
@@ -743,6 +767,9 @@ def main():
             shown.pop("opcodes")
         shown.pop("mangled")
         emit(dict(disassembler=tool, **shown))
+    if args.functions:
+        for row in count_functions(sass):
+            emit(dict(disassembler=tool, **row))
     if args.probe:
         probe_pipe(emit)
     if args.time:

@@ -20,9 +20,16 @@ factorization pivots (rows of a well-conditioned L U in a random order),
 n from 1 to 1,000 around the tile edge, with a fresh right-hand side, a row
 of a larger tensor, a column [n, 1] of a wider one; the plan's scratch
 reused over launches, two solves with the same bits, and a refactor onto
-other pivots.  Skips where no g++ is found.  The `cuda` tests run the card's
-build at the same tolerances, and the full grid at 23,101 unknowns over
-many launches for the same bits each time.
+other pivots.  One triangle a launch (`solve_triangle`) in both layouts:
+the factor column-major as lu_factor leaves it, and row-major as diagonal
+block 1 of a [n, 4n] slab (the distributed slab LU's rows, NaN everywhere
+outside the block so that a read past it shows), against `solve_triangular`
+on a contiguous copy; and the slab LU's apply at world size 1 through the
+plan.  Skips where no g++ is
+found.  The `cuda` tests run the card's build at the same tolerances (the
+row-major slab blocks too, with no host sync and the same bits over
+repeated launches), and the full grid at 23,101 unknowns over many launches
+for the same bits each time.
 """
 
 import ctypes
@@ -34,6 +41,7 @@ import torch
 
 from bemstokes_tpu_torch.la.direct import lu_apply, pivots_to_permutation
 from bemstokes_tpu_torch.ops import lu_trsv
+from bemstokes_tpu_torch.utils import timers
 from test_torch_node_sweep_emulation import CSRC, STUB, _host_source
 import torch_threads  # noqa: F401  (one torch thread a test process)
 
@@ -53,6 +61,20 @@ inline double __longlong_as_double(long long v) { double d; std::memcpy(&d, &v, 
 inline long long __double_as_longlong(double d) { long long v; std::memcpy(&v, &d, 8); return v; }
 inline float __int_as_float(int v) { float f; std::memcpy(&f, &v, 4); return f; }
 inline int __float_as_int(float f) { int v; std::memcpy(&v, &f, 4); return v; }
+// a warp shuffle: every thread of the block takes part (the kernel shuffles
+// only where the whole block does), each reads the slot of its source lane
+template <typename T> inline T __shfl_sync(unsigned, T v, int src) {
+  static T slot[1024];
+  const unsigned tid = threadIdx.x;
+  slot[tid] = v;
+  __syncthreads();
+  const T out = slot[(tid & ~31u) | (unsigned(src) & 31u)];
+  __syncthreads();
+  return out;
+}
+template <typename T> inline T __shfl_xor_sync(unsigned mask, T v, int lanes) {
+  return __shfl_sync(mask, v, int(threadIdx.x & 31u) ^ lanes);
+}
 """
 
 
@@ -110,6 +132,28 @@ def rel(x, ref):
     return ((x - ref).abs().max() / ref.abs().max()).item()
 
 
+#: the slab blocks' leading dimension over n, and the block the factor is
+SLAB_RANKS = 4
+SLAB_BLOCK = 1
+
+
+def slab_block(lu, device=None):
+    """The factor's values as diagonal block SLAB_BLOCK of a row-major
+    [n, 4n] slab (strides (4n, 1)) on `device`, NaN elsewhere in the slab."""
+    n = lu.shape[0]
+    k = slice(SLAB_BLOCK * n, (SLAB_BLOCK + 1) * n)
+    slab = torch.full((n, SLAB_RANKS * n), float("nan"), dtype=lu.dtype, device=device)
+    slab[:, k] = lu
+    assert torch.equal(slab[:, k].cpu(), lu)
+    return slab[:, k]
+
+
+def triangle_ref(lu, b, upper):
+    col = b if b.ndim == 2 else b[:, None]
+    x = torch.linalg.solve_triangular(lu.contiguous(), col, upper=upper, unitriangular=not upper)
+    return x.reshape(b.shape)
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 @pytest.mark.parametrize("n", SIZES)
 def test_kernel_matches_solve_triangular(lib, n, dtype):
@@ -128,6 +172,68 @@ def test_kernel_matches_solve_triangular(lib, n, dtype):
     # launches reuse the scratch: the same bits again, two launches a solve
     assert plan.launch == 8
     assert torch.equal(plan.solve(perm, b, lib=lib), x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("layout", ["row", "col"])
+def test_kernel_solves_one_triangle_in_place(lib, layout, n, dtype):
+    """One triangle a launch, the factor read where it lies: column-major
+    as lu_factor leaves it, or row-major as a diagonal block of a slab at
+    ld = 4n; L (unit lower) and U against `solve_triangular` on a contiguous
+    copy; the plan picks the layout from the strides."""
+    lu, perm = factor(n, seed=n + 1, dtype=dtype)
+    block = slab_block(lu) if layout == "row" else lu
+    plan = lu_trsv.TrsvPlan(block, grid=1)
+    assert plan.row_major == (layout == "row")
+    assert plan.ld == (SLAB_RANKS * n if layout == "row" else n)
+    for k, form in enumerate(("fresh", "row", "column")):
+        b = rhs(n, seed=200 * n + k, dtype=dtype, form=form)
+        for upper in (False, True):
+            x = plan.solve_triangle(upper, b, lib=lib)
+            ref = triangle_ref(lu, b, upper)
+            assert x.shape == b.shape and x.dtype == dtype
+            assert rel(x, ref) <= TOL[dtype], (form, upper, rel(x, ref))
+    # the apply through both launches, and the same bits again
+    b = rhs(n, seed=7 * n, dtype=dtype, form="fresh")
+    x = plan.solve(perm, b, lib=lib)
+    assert rel(x, lu_apply(lu, perm, b)) <= TOL[dtype]
+    assert torch.equal(plan.solve(perm, b, lib=lib), x)
+    assert plan.launch == 2 * 3 + 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_slab_apply_solves_its_triangles_through_the_plan(lib, dtype, monkeypatch):
+    """The slab LU's apply at world size 1 (the whole factor one rank's row
+    slab, row-major) with the kernel's plan: each sweep's triangle through
+    `solve_triangle`, counted `slab triangles native`, as `solve_triangular`
+    solves it; several right-hand sides keep `solve_triangular`."""
+    from bemstokes_tpu_torch.parallel.lu import slab_lu_factor, slab_lu_solve
+    from bemstokes_tpu_torch.parallel.sharded import RowMesh
+
+    monkeypatch.setattr(lu_trsv, "_library", lambda: lib)
+    n = 3 * T + 5
+    mesh = RowMesh(group=None, rank=0, world=1, device=torch.device("cpu"))
+    g = torch.Generator().manual_seed(9)
+    A = torch.randn(n, n, generator=g, dtype=torch.float64) / n**0.5 + 4 * torch.eye(n, dtype=torch.float64)
+    LU, perm, plan = slab_lu_factor(A.to(dtype), mesh)
+    assert LU.stride() == (n, 1)
+    assert plan is None  # on the CPU
+    plan = lu_trsv.TrsvPlan(LU, grid=1)
+    assert plan.row_major
+    b = torch.randn(n, generator=g, dtype=torch.float64)
+    timers.reset()
+    try:
+        x = slab_lu_solve(LU, perm, b, mesh, plan)
+        assert timers.counts["slab triangles native"] == 2
+        ref = slab_lu_solve(LU, perm, b, mesh, None)
+        assert timers.counts["slab triangles native"] == 2
+        assert x.dtype == b.dtype and rel(x, ref) <= TOL[dtype]
+        B = torch.randn(n, 3, generator=g, dtype=torch.float64)
+        assert torch.equal(slab_lu_solve(LU, perm, B, mesh, plan), slab_lu_solve(LU, perm, B, mesh, None))
+        assert timers.counts["slab triangles native"] == 2
+    finally:
+        timers.reset()
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
@@ -223,9 +329,41 @@ def test_card_kernel_matches_solve_triangular(cuda_device, n, dtype):
         assert x.shape == b.shape and rel(x, ref) <= TOL[dtype], (form, rel(x, ref))
         assert torch.equal(plan.solve(perm, b), x)
     assert lu_trsv.launches == before + 12
+    # the same factor row-major: read in place, as lu_apply solves it
+    row = lu_trsv.plan(lu.contiguous())
+    assert row.row_major == (n > 1) and row.ld == n
+    b = rhs(n, seed=3 * n, dtype=dtype, form="fresh").to(cuda_device)
+    assert rel(row.solve(perm, b), lu_apply(lu, perm, b)) <= TOL[dtype]
     if n > 1:
-        with pytest.raises(ValueError, match="column-major"):
-            lu_trsv.plan(lu.contiguous())
+        with pytest.raises(ValueError, match="ld >= "):
+            lu_trsv.plan(lu.contiguous()[::2, ::2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("n", [1, T + 1, 1000, 4097])
+def test_card_kernel_reads_a_row_major_slab_block(cuda_device, n, dtype):
+    """The card's build on diagonal block 1 of a row-major [n, 4n] slab
+    (NaN elsewhere): each triangle as `solve_triangular` solves a
+    contiguous copy, no host sync, the same bits over repeated launches."""
+    lu, _ = factor(n, seed=n + 1, dtype=dtype)
+    block = slab_block(lu, cuda_device)
+    lu = lu.to(cuda_device)
+    plan = lu_trsv.plan(block)
+    assert plan.row_major and plan.ld == SLAB_RANKS * n
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert plan.grid == sms * lu_trsv.ROW_MAJOR_BLOCKS_PER_SM
+    for k, form in enumerate(("fresh", "row", "column")):
+        b = rhs(n, seed=200 * n + k, dtype=dtype, form=form).to(cuda_device)
+        for upper in (False, True):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                xs = [plan.solve_triangle(upper, b) for _ in range(5)]
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            ref = triangle_ref(lu, b, upper)
+            assert xs[0].shape == b.shape and rel(xs[0], ref) <= TOL[dtype], (form, upper, rel(xs[0], ref))
+            assert all(torch.equal(x, xs[0]) for x in xs[1:])
 
 
 #: the stress test's size: the bacterium's 23,101 unknowns, the grid

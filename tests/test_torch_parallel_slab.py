@@ -86,14 +86,14 @@ def slab_ops(mesh):
     )
     A2 = lu.slab_reorder_columns(A_loc, N, D, mesh)
     out["A2"] = A2.clone()
-    LU, perm = lu.slab_lu_factor(A2.clone(), mesh)
+    LU, perm, plan = lu.slab_lu_factor(A2.clone(), mesh)
     out.update(LU=LU, perm=perm)
     out["solve"] = sharded.slab_to_flat(
-        lu.slab_lu_solve(LU, perm, sharded.flat_to_slab(b, N, D, mesh), mesh), N, D, mesh
+        lu.slab_lu_solve(LU, perm, sharded.flat_to_slab(b, N, D, mesh), mesh, plan), N, D, mesh
     )
     bx = torch.stack([b, x], dim=1)
     out["solve2"] = sharded.slab_to_flat(
-        lu.slab_lu_solve(LU, perm, sharded.flat_to_slab(bx, N, D, mesh), mesh), N, D, mesh
+        lu.slab_lu_solve(LU, perm, sharded.flat_to_slab(bx, N, D, mesh), mesh, plan), N, D, mesh
     )
     out["mv"] = sharded.sharded_matvec(A_loc, x, mesh)
     out["mv_gathered"] = sharded.sharded_matvec_gathered(A_loc, x, mesh)

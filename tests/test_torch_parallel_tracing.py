@@ -11,7 +11,9 @@ iteration each) carry `world`, `m` and `steps`; inside each "GMRES" span
 the counters `collectives` and `collective bytes` equal what the code
 issues for its k iterations in one cycle (below); off the profiler no span
 is kept, the scopes keep their host totals and the counters still count;
-and the one-card frame solve records none of these spans or counters.
+on the CPU no slab triangle goes through the LU kernel (`slab triangles
+native` 0, traced or not); and the one-card frame solve records none of
+these spans or counters.
 
 A GMRES solve of k iterations in one cycle issues, on each of W ranks with
 m slab rows:
@@ -91,7 +93,12 @@ def traced_steps(mesh):
     spans = list(timers.spans)
     out = dict(
         m=3 * padded_rows(prob.n, mesh)[1],
-        spans=[dict(name=s.name, ancestors=_ancestors(s), attrs=dict(s.attrs)) for s in spans if s.name in NEW],
+        spans=[
+            dict(name=s.name, ancestors=_ancestors(s), attrs=dict(s.attrs), counts=dict(s.counts))
+            for s in spans
+            if s.name in NEW
+        ],
+        native=timers.counts.get("slab triangles native", 0),
         solves=[],
     )
     for g in (s for s in spans if s.name == "GMRES"):
@@ -174,6 +181,18 @@ def test_untraced_step_keeps_totals_and_counts(ranks):
         assert "Slab LU factor" not in u["timers"]
         assert u["counts"]["collectives"] > derived(u["iterations"], r["m"], rank)[0]
         assert u["counts"]["collective bytes"] > 0
+
+
+def test_slab_triangles_are_not_native_on_the_cpu(ranks):
+    """The CPU has no kernel plan: every slab triangle takes
+    `solve_triangular`, so `slab triangles native` counts none, on no
+    "Slab LU apply" span and in no step, traced or not."""
+    for r in ranks:
+        applies = [s for s in r["spans"] if s["name"] == "Slab LU apply"]
+        assert applies and all("slab triangles native" not in s["counts"] for s in applies)
+        assert all(s["counts"].get("collectives") == 2 * WORLD for s in applies)
+        assert r["native"] == 0
+        assert "slab triangles native" not in r["untraced"]["counts"]
 
 
 def test_one_card_path_records_none_of_them():

@@ -355,8 +355,10 @@ def test_lu_preconditioner_counts_permutations_and_applies(registry, traced):
 
 def test_lu_applies_native_is_not_counted_on_the_cpu(registry):
     """On the CPU the stale LU has no kernel plan: `lu applies` counts every
-    apply, `lu applies native` none; the kernel's entry point refuses a
-    factor it cannot read and a right-hand side of another dtype."""
+    apply, `lu applies native` none; the kernel's entry point takes the
+    factor row-major as well as column-major (the same diagonal inverses and
+    coupling tiles, read through the strides), and refuses a factor it
+    cannot read and a right-hand side of another dtype."""
     A, b = dense_system(seed=4)
     p = LUPreconditioner()
     p.set_up(A)
@@ -366,11 +368,18 @@ def test_lu_applies_native_is_not_counted_on_the_cpu(registry):
     assert timers.counts["lu applies"] == 3
     assert timers.counts.get("lu applies native", 0) == 0
     lu = p._factors[0]
+    n = lu.shape[0]
     assert lu_trsv.plan(lu) is None
-    with pytest.raises(ValueError, match="column-major"):
-        lu_trsv.TrsvPlan(lu.contiguous(), grid=1)  # row-major
+    col, row = lu_trsv.TrsvPlan(lu, grid=1), lu_trsv.TrsvPlan(lu.contiguous(), grid=1)
+    assert (col.row_major, col.ld, row.row_major, row.ld) == (False, n, True, n)
+    for u in (0, 1):
+        assert torch.equal(row.dinv[u], col.dinv[u]) and torch.equal(row.coupling[u], col.coupling[u])
     with pytest.raises(ValueError, match="column-major"):
         lu_trsv.TrsvPlan(torch.linalg.lu_factor(torch.eye(80, dtype=A.dtype))[0][::2, ::2], grid=1)  # strided
+    with pytest.raises(ValueError, match=f"ld >= {n}"):
+        lu_trsv.TrsvPlan(lu.contiguous().as_strided((n, n), (n - 1, 1)), grid=1)  # ld < n
+    with pytest.raises(ValueError, match="column-major"):
+        lu_trsv.TrsvPlan(torch.zeros(n, 2 * n, dtype=A.dtype).mT[:n], grid=1)  # column-major, ld 2n
     with pytest.raises(ValueError, match="one square factor"):
         lu_trsv.TrsvPlan(torch.stack([lu, lu]), grid=1)  # batched
     with pytest.raises(TypeError, match="float32 or float64"):
